@@ -6,13 +6,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. report the card (nvidia-smi name and power limit);
-2. build the whole-pass kernel (csrc/render_pass.cu, nvcc for sm_90a) and
-   print ptxas' registers, spills and shared memory; build its
-   operation-counting variant (-DPT_COUNT_OPS);
-3. hold the kernel against its plain PyTorch version on the card for
-   demo_showcase and demo_cornell at 256x144, depth 12, one pass and one
-   2-pass window: at least 95% of lanes within |a-b| <= 1e-3|b| + 1e-3,
-   segment counts within 2%, per-channel means within 1%;
+2. build the kernels (csrc/render_pass.cu with csrc/paged_walk.cuh, nvcc
+   for sm_90a) and their operation-counting variant (-DPT_COUNT_OPS), the
+   two builds side by side, and print ptxas' registers, spills and shared
+   memory;
+3. hold the whole-pass kernel against its plain PyTorch version on the
+   card for demo_showcase and demo_cornell at 256x144, depth 12, one pass
+   and one 2-pass window: at least 95% of lanes within |a-b| <= 1e-3|b| +
+   1e-3, segment counts within 2%, per-channel means within 1%; then a
+   first, small run of the paged walk alone against its plain version
+   (2,048 rays, bench_mesh and demo_mesh), bit for bit;
 4. drive the main path: Renderer(contract="gpu") on demo_showcase at
    1920x1080, depth 12, one 8-pass window, one warm-up and 3 timed renders;
 5. check that the main path launched the kernel and never called the plain
@@ -22,13 +25,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    need with the counting variant and derive the kernel's bound;
 7. hold the kernel against its plain version at the main path's own
    arguments (1920x1080, depth 12, frame seed 1, one 8-pass window): the
-   lanes that phase 6's full-size chunks produced, on 8,192 lanes strided
+   lanes that phase 6's full-size chunks produced, on 2,048 lanes strided
    over the frame, to the same bands as phase 3.
 
-The third-to-last line is a JSON object describing every kernel (its
-``max_abs_err`` is the largest over phases 3 and 7); the second-to-last is
-the card's name and power limit; the last line is {"ok": true, "device":
-{...}}.  ``--quick`` runs phases 1-3 only, at 64x36 and depth 4.
+8. the paged walk alone (pt_paged_walk, the device functions that the
+   whole-pass kernel calls for meshes above 128 triangles) against its
+   plain version: camera and random rays on bench_mesh's pack (80 pages,
+   flat) and demo_mesh's (smooth), closest hit with and without a start
+   distance, an excluded object, a far limit and skipped rays, and any hit
+   with rays that come in blocked: key, page, t, normal, mat, obj and
+   blocked bit-identical on every ray;
+9. the whole-pass kernel on mesh scenes against its plain version
+   (demo_mesh, bench_mesh; 192x192, depth 8, one pass and a 2-pass
+   window), phase 3's bands;
+10. the whole-pass kernel on a scene of 12 lights (the 8-slot window of
+    next-event estimation, one non-sphere light, fog; 192x108, depth 6)
+    likewise;
+11. drive the mesh path: Renderer(contract="gpu") on bench_mesh at 512x512,
+    depth 8, one 8-pass window, one warm-up and 3 timed renders; it must
+    run on the kernel alone;
+12. time the whole-pass kernel on that frame and count its operations; time
+    the walk alone on the frame's 262,144 primary rays, its plain version on
+    the same rays, count its operations and the bytes it must move, and
+    derive its bound.
+
+The third-to-last line is a JSON object describing every kernel
+(``max_abs_err`` is the largest the comparisons of that kernel found); the
+second-to-last is the card's name and power limit; the last line is
+{"ok": true, "device": {...}}.  ``--quick`` runs phases 1-3 only, at 64x36
+and depth 4.
 """
 
 from __future__ import annotations
@@ -39,11 +64,13 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores, 700 W
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
-MAIN_CHECK_LANES = 8192  # lanes of the 1080p frame held to the plain version in phase 7
+DEVICE = "cuda"  # every tensor of this script lives on the card
+MAIN_CHECK_LANES = 2048  # lanes of the 1080p frame held to the plain version in phase 7
 
 
 def smi_line() -> str:
@@ -70,12 +97,45 @@ def lane_stats(col_k, col_p, segs_k, segs_p):
     return ok.double().mean().item(), seg_gap, mean_gap, torch.nan_to_num(diff, nan=float("inf")).max().item()
 
 
+def many_lights_scene():
+    """Twelve lights over a floor with a matte and a rough-metal sphere in
+    thin fog: eleven sphere lights and one emissive box, which the
+    estimator lists but cannot sample."""
+    from path_trace_golang_tpu_torch.scene.model import Camera, Color, Fog, Material, Object, Scene, Sky, Vec3
+
+    mats = [
+        Material(id="floor", type="lambert", albedo=Color(0.8, 0.8, 0.8)),
+        Material(id="matte", type="lambert", albedo=Color(0.7, 0.3, 0.2)),
+        Material(id="steel", type="metal", albedo=Color(0.8, 0.8, 0.85), smoothness=0.6),
+    ]
+    objs = [
+        Object(id="p", type="plane", position=Vec3(0, 0, 0), size=Vec3(0, 0, 0), material_id="floor"),
+        Object(id="a", type="sphere", position=Vec3(-1.2, 1, 0), size=Vec3(1, 0, 0), material_id="matte"),
+        Object(id="b", type="sphere", position=Vec3(1.2, 1, 0), size=Vec3(1, 0, 0), material_id="steel"),
+    ]
+    for i in range(12):
+        mats.append(Material(id=f"L{i}", type="emissive", emit=Color(1, 1, 1), power=2.0 + i * 0.1))
+        if i == 5:
+            objs.append(Object(id=f"l{i}", type="box", position=Vec3(i - 5.5, 4, -2), size=Vec3(0.4, 0.4, 0.4),
+                               material_id=f"L{i}"))
+        else:
+            objs.append(Object(id=f"l{i}", type="sphere_light", position=Vec3(i - 5.5, 4, -2),
+                               size=Vec3(0.3, 0, 0), material_id=f"L{i}"))
+    return Scene(
+        name="many_lights",
+        camera=Camera(position=Vec3(0, 1, 5), target=Vec3(0, 1, 0), up=Vec3(0, 1, 0), fov=60),
+        sky=Sky(type="solid", color=Color(0, 0, 0)), materials=mats, objects=objs,
+        fog=Fog(sigma_s=0.02, sigma_a=0.01, g=0.3, color=Color(1, 1, 1), scatter=1.0, density=0.01,
+                gpu_volumetric=True),
+    )
+
+
 def scene_setup(pt, name, w, h, depth):
     from path_trace_golang_tpu_torch import integrator
     from path_trace_golang_tpu_torch.scene import builtin
 
-    sc = getattr(builtin, name)()
-    pack = pt.pack_scene(sc, w, h, device="cuda")
+    sc = many_lights_scene() if name == "many_lights" else getattr(builtin, name)()
+    pack = pt.pack_scene(sc, w, h, device=DEVICE)
     tcfg = integrator.trace_config_for_scene(pack, sc, depth, "gpu")
     kw = dict(tcfg=tcfg, width=w, height=h, n_strata=4, samples=16,
               has_aperture=sc.camera.aperture > 0, normalize_pass=False)
@@ -86,8 +146,121 @@ def lanes(w, h, start=0, count=None):
     import torch
 
     n = w * h if count is None else count
-    idx = torch.arange(start, start + n, dtype=torch.int32, device="cuda")
+    idx = torch.arange(start, start + n, dtype=torch.int32, device=DEVICE)
     return idx % w, torch.div(idx, w, rounding_mode="floor")
+
+
+def hold_pass(pt, cuda_trace, tag, name, w, h, depth, passes=(1, 2)):
+    """Whole-pass kernel against its plain version for one scene: prints a
+    line per window size, returns (all within the bands, largest |a-b|)."""
+    import torch
+
+    _sc, pack, kw = scene_setup(pt, name, w, h, depth)
+    px, py = lanes(w, h)
+    good, worst = True, 0.0
+    for n_passes in passes:
+        col_k, segs_k = cuda_trace.render_pass_cuda(pack, 7, px, py, n_passes=n_passes, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        col_p, segs_p = cuda_trace.render_pass_plain(pack, 7, px, py, n_passes=n_passes, **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        share, seg_gap, mean_gap, err = lane_stats(col_k.to_rows(), col_p.to_rows(), segs_k, segs_p)
+        worst = max(worst, err)
+        print(
+            f"[{tag}] {name} {w}x{h} d{depth} n_passes={n_passes}: lanes matching {share:.4%}, "
+            f"segments {int(segs_k)} vs {int(segs_p)} (gap {seg_gap:.4%}), "
+            f"channel-mean gap {mean_gap:.4%}, max |a-b| {err:.4g}; plain version {plain_s:.1f} s",
+            flush=True,
+        )
+        good = good and share >= 0.95 and seg_gap <= 0.02 and mean_gap <= 0.01
+    return good, worst
+
+
+def walk_rays(pack, w, h, n_cam, n_rand, seed):
+    """Rays for the walk alone: ``n_cam`` camera rays through pixel centres
+    of a w x h frame (strided over it) and ``n_rand`` rays with origins in a
+    box around the scene and directions uniform on the sphere (numpy, from
+    ``seed``).  Returns (o V3, d V3) on the card."""
+    import numpy as np
+    import torch
+    from path_trace_golang_tpu_torch.ops.camera import camera_basis
+    from path_trace_golang_tpu_torch.ops.vec import V3
+
+    b = camera_basis(pack.cam, w, h)
+    idx = torch.arange(n_cam, device=DEVICE, dtype=torch.int64) * max(1, (w * h) // max(n_cam, 1))
+    u = ((idx % w).float() + 0.5) / float(max(w - 1, 1))
+    v = (float(h - 1) - torch.div(idx, w, rounding_mode="floor").float() + 0.5) / float(max(h - 1, 1))
+    d = V3(b[3] + u * b[6] + v * b[9] - b[0], b[4] + u * b[7] + v * b[10] - b[1],
+           b[5] + u * b[8] + v * b[11] - b[2]).normalize()
+    o = V3.broadcast_scalars(u, b[0], b[1], b[2])
+    if n_rand:
+        rng = np.random.default_rng(seed)
+        ro = (rng.uniform(-2.5, 2.5, size=(n_rand, 3)) + np.array([0.0, 1.0, 0.0])).astype(np.float32)
+        rd = rng.normal(size=(n_rand, 3)).astype(np.float32)
+        rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+        ro, rd = torch.from_numpy(ro).to(DEVICE), torch.from_numpy(rd).to(DEVICE)
+        o = V3(*(torch.cat([a, ro[:, k]]) for k, a in enumerate((o.x, o.y, o.z))))
+        d = V3(*(torch.cat([a, rd[:, k]]) for k, a in enumerate((d.x, d.y, d.z))))
+    return o, d
+
+
+def hold_walk(cuda_trace, tag, name, pack, o, d, seed):
+    """The paged walk alone, kernel against plain version, bit for bit.
+    Returns (identical on every ray, largest |a-b| over t and the normal)."""
+    import numpy as np
+    import torch
+    from path_trace_golang_tpu_torch.ops import bvh
+
+    n = o.x.numel()
+    rng = np.random.default_rng(seed)
+    cu = lambda a: torch.from_numpy(a).to(DEVICE)  # noqa: E731
+    start = cu(np.where(rng.random(n) < 0.5, rng.uniform(0.5, 6.0, n), 1e20).astype(np.float32))
+    first_tri = pack.n_objects
+    cases = {
+        "open": dict(best_t=torch.full((n,), 1e20, device=DEVICE)),
+        "bounded": dict(
+            best_t=start, t_max=cu(rng.uniform(2.0, 50.0, n).astype(np.float32)),
+            exclude_obj=cu(rng.integers(first_tri, first_tri + pack.n_triangles, n).astype(np.int32)),
+            skip=cu(rng.random(n) < 0.2),
+        ),
+    }
+    same, worst = True, 0.0
+    for case, kw in cases.items():
+        k = cuda_trace.paged_traverse(o, d, pack, 0.001, **kw)
+        torch.cuda.synchronize()
+        p = bvh.traverse_triangles_paged(o, d, pack, 0.001, **kw)
+        torch.cuda.synchronize()
+        bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x  # noqa: E731
+        fields = ("hit", "key", "page", "t", "nx", "ny", "nz", "mat", "obj")
+        bad = [f for f in fields if not torch.equal(bits(getattr(k, f)), bits(getattr(p, f)))]
+        hit = p.hit
+        err = max(
+            (torch.nan_to_num((getattr(k, f) - getattr(p, f)).abs()[hit], nan=float("inf")).max().item()
+             if bool(hit.any()) else 0.0)
+            for f in ("t", "nx", "ny", "nz")
+        )
+        worst = max(worst, err)
+        print(
+            f"[{tag}] walk alone, {name} ({pack.paged.n_pages} pages), closest hit, {case}: {n} rays, "
+            f"{int(hit.sum())} hits, {p.visits} pages swept by the plain version, fields that differ: "
+            f"{bad or 'none'}, max |a-b| over t and normal {err:.4g}",
+            flush=True,
+        )
+        same = same and not bad
+    t_max = cu(rng.uniform(0.5, 8.0, n).astype(np.float32))
+    blocked0 = cu(rng.random(n) < 0.2)
+    kb = cuda_trace.paged_occluded(o, d, pack, 0.001, t_max, blocked0)
+    torch.cuda.synchronize()
+    pb = bvh.occluded_triangles_paged(o, d, pack, 0.001, t_max, blocked0)
+    torch.cuda.synchronize()
+    differ = int((kb != pb).sum())
+    print(
+        f"[{tag}] walk alone, {name}, any hit: {n} rays, {int(blocked0.sum())} come in blocked, "
+        f"{int(pb.sum())} blocked, rays that differ: {differ}",
+        flush=True,
+    )
+    return same and differ == 0, worst
 
 
 def cuda_time_ms(fn, reps):
@@ -128,37 +301,39 @@ def main(argv) -> int:
 
     # ---- 2. build
     t0 = time.perf_counter()
-    so = cuda_trace.build()
-    print(f"[2] built {os.path.relpath(so, HERE)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per variant, side by side
+        builds = [pool.submit(cuda_trace.build, count_ops=c) for c in (False, True)]
+        so = builds[0].result()
+        builds[1].result()
+    print(
+        f"[2] built {os.path.relpath(so, HERE)} and its operation-counting variant in "
+        f"{time.perf_counter() - t0:.1f} s",
+        flush=True,
+    )
     for line in cuda_trace.BUILD_LOG.splitlines():
-        if any(k in line for k in ("registers", "spill", "smem", "error", "warning")):
+        if any(k in line for k in ("Compiling entry", "registers", "spill", "smem", "error", "warning")):
             print(f"    ptxas: {line.strip()}", flush=True)
-    t0 = time.perf_counter()
-    cuda_trace.build(count_ops=True)
-    print(f"[2] built the operation-counting variant in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 3. kernel vs plain version on the card
     cw, ch, cdepth = (64, 36, 4) if quick else (256, 144, 12)
     max_abs_err = 0.0
     for name in ("demo_showcase", "demo_cornell"):
-        sc, pack, kw = scene_setup(pt, name, cw, ch, cdepth)
-        px, py = lanes(cw, ch)
-        for n_passes in (1, 2):
-            col_k, segs_k = cuda_trace.render_pass_cuda(pack, 7, px, py, n_passes=n_passes, **kw)
-            torch.cuda.synchronize()
-            col_p, segs_p = cuda_trace.render_pass_plain(pack, 7, px, py, n_passes=n_passes, **kw)
-            torch.cuda.synchronize()
-            share, seg_gap, mean_gap, err = lane_stats(col_k.to_rows(), col_p.to_rows(), segs_k, segs_p)
-            max_abs_err = max(max_abs_err, err)
-            print(
-                f"[3] {name} {cw}x{ch} d{cdepth} n_passes={n_passes}: lanes matching {share:.4%}, "
-                f"segments {int(segs_k)} vs {int(segs_p)} (gap {seg_gap:.4%}), "
-                f"channel-mean gap {mean_gap:.4%}, max |a-b| {err:.4g}",
-                flush=True,
-            )
-            if not (share >= 0.95 and seg_gap <= 0.02 and mean_gap <= 0.01):
-                print("[3] FAIL: kernel disagrees with its plain version", file=sys.stderr)
-                return 1
+        good, err = hold_pass(pt, cuda_trace, "3", name, cw, ch, cdepth)
+        max_abs_err = max(max_abs_err, err)
+        if not good:
+            print("[3] FAIL: kernel disagrees with its plain version", file=sys.stderr)
+            return 1
+    # the paged walk's first run: small, synchronised, bit for bit
+    walk_err = 0.0
+    mesh_packs = {name: pt.pack_scene(getattr(builtin, name)(), 512, 512, device=DEVICE)
+                  for name in ("bench_mesh", "demo_mesh")}
+    for name, mpack in mesh_packs.items():
+        o, d = walk_rays(mpack, 512, 512, 1024, 1024, seed=11)
+        same, err = hold_walk(cuda_trace, "3", name, mpack, o, d, seed=12)
+        walk_err = max(walk_err, err)
+        if not same:
+            print("[3] FAIL: the paged walk disagrees with its plain version", file=sys.stderr)
+            return 1
     if quick:
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -246,7 +421,7 @@ def main(argv) -> int:
     # the plain version runs on a strided subset of the frame's lanes, held
     # against the lanes that the full-size chunks of phase 6 produced
     stride = n // MAIN_CHECK_LANES
-    sub = torch.arange(MAIN_CHECK_LANES, device="cuda", dtype=torch.int64) * stride + stride // 2
+    sub = torch.arange(MAIN_CHECK_LANES, device=DEVICE, dtype=torch.int64) * stride + stride // 2
     spx, spy = (sub % 1920).to(torch.int32), torch.div(sub, 1920, rounding_mode="floor").to(torch.int32)
     t0 = time.perf_counter()
     col_p, segs_p = cuda_trace.render_pass_plain(pack, 1, spx, spy, n_passes=8, **kw)
@@ -271,6 +446,113 @@ def main(argv) -> int:
         print("[7] FAIL: kernel disagrees with its plain version at the main path's arguments", file=sys.stderr)
         return 1
 
+    # ---- 8. the paged walk alone against its plain version
+    for name, mpack in mesh_packs.items():
+        o, d = walk_rays(mpack, 512, 512, 8192, 8192, seed=21)
+        same, err = hold_walk(cuda_trace, "8", name, mpack, o, d, seed=22)
+        walk_err = max(walk_err, err)
+        if not same:
+            print("[8] FAIL: the paged walk disagrees with its plain version", file=sys.stderr)
+            return 1
+
+    # ---- 9. the whole-pass kernel on mesh scenes; 10. on more than 8 lights
+    for tag, name, w, h, depth in (("9", "demo_mesh", 192, 192, 8), ("9", "bench_mesh", 192, 192, 8),
+                                   ("10", "many_lights", 192, 108, 6)):
+        good, err = hold_pass(pt, cuda_trace, tag, name, w, h, depth)
+        max_abs_err = max(max_abs_err, err)
+        if not good:
+            print(f"[{tag}] FAIL: kernel disagrees with its plain version on {name}", file=sys.stderr)
+            return 1
+
+    # ---- 11. the mesh path at full width: bench_mesh 512x512, depth 8, one 8-pass window
+    msc = builtin.bench_mesh()
+    mcfg = pt.RenderConfig(512, 512, 8, 8)
+    cuda_trace.LAUNCHES = cuda_trace.PAGED_LAUNCHES = cuda_trace.PLAIN_CALLS = 0
+    cuda_trace.WALK_LAUNCHES = cuda_trace.WALK_PLAIN_CALLS = 0
+    mr = pt.Renderer(contract="gpu", seed=1)
+    mimg = mr.render(msc, mcfg)  # warm-up
+    print(f"[11] warm-up: {mr.stats.wall_seconds:.3f} s, {mr.stats.mrays_per_sec:.2f} Mrays/s", flush=True)
+    mrates, mwalls = [], []
+    for i in range(3):
+        mimg = mr.render(msc, mcfg)
+        mrates.append(mr.stats.mrays_per_sec)
+        mwalls.append(mr.stats.wall_seconds)
+        print(f"[11] render {i}: {mr.stats}  ({card})", flush=True)
+    mesh_launches, paged_launches = cuda_trace.LAUNCHES, cuda_trace.PAGED_LAUNCHES
+    mesh_plain = cuda_trace.PLAIN_CALLS + cuda_trace.WALK_PLAIN_CALLS
+    mlast = mr.stats
+    print(
+        f"[11] bench_mesh 512x512 d8 8 passes: {statistics.median(mrates):.3f} Mrays/s median "
+        f"(min {min(mrates):.3f}, max {max(mrates):.3f}), wall {statistics.median(mwalls):.4f} s median, "
+        f"segments {mlast.ray_segments}, nonfinite {mlast.nonfinite}, image mean {mimg.mean():.4f} "
+        f"std {mimg.std():.4f}; "
+        f"kernel launches {mesh_launches}, of them with pages {paged_launches}, plain calls {mesh_plain} "
+        f"| card {card}",
+        flush=True,
+    )
+    # the scene is bright by design (sky 0.8-1.0, a 40x light): the mean sits near 254,
+    # so blank is told by the spread, not by the mean
+    if mimg.shape != (512, 512, 3) or mlast.nonfinite != 0 or float(mimg.mean()) <= 5.0 or float(mimg.std()) <= 1.0:
+        print("[11] FAIL: wrong shape, non-finite accumulator entries or a blank image", file=sys.stderr)
+        return 1
+    if paged_launches <= 0 or paged_launches != mesh_launches or mesh_plain != 0:
+        print("[11] FAIL: the mesh path did not run on the kernel alone", file=sys.stderr)
+        return 1
+
+    # ---- 12. times and bounds on the mesh frame
+    _, mpack, mkw = scene_setup(pt, "bench_mesh", 512, 512, 8)
+    mn = 512 * 512
+    mchunks = [lanes(512, 512, st, min(chunk, mn - st)) for st in range(0, mn, chunk)]
+    mseg_box = []
+
+    def mesh_frame():
+        mseg_box.clear()
+        for px, py in mchunks:
+            _col, segs = cuda_trace.render_pass_cuda(mpack, 1, px, py, n_passes=8, **mkw)
+            mseg_box.append(segs)
+
+    mesh_ms = cuda_time_ms(mesh_frame, 3)
+    mesh_segments = int(sum(int(sg) for sg in mseg_box))
+    mcounted = [cuda_trace.count_ops_split(mpack, 1, px, py, n_passes=8, **mkw) for px, py in mchunks]
+    mesh_ops, mesh_walk_ops, mesh_walk_cycles, mesh_cycles = (
+        sum(c[k] for c in mcounted) for k in ("ops", "walk_ops", "walk_cycles", "cycles"))
+    if sum(c["segments"] for c in mcounted) != mesh_segments:
+        print("[12] FAIL: the counting build traced other paths than the kernel", file=sys.stderr)
+        return 1
+    mesh_bound_ms = max(mesh_ops / PEAK_F32_FLOPS, mn * (8 + 12) / PEAK_BYTES) * 1e3
+    print(
+        f"[12] whole-pass kernel on bench_mesh: {mesh_ms:.3f} ms per 512x512 8-pass window "
+        f"({len(mchunks)} launches, {mesh_segments} segments, {mesh_segments / mesh_ms / 1e3:.2f} Mrays/s); "
+        f"bound {mesh_bound_ms:.4f} ms ({mesh_ops:.6g} f32 operations, {mesh_ops / mesh_segments:.1f} per "
+        f"segment, {mesh_ops / (mesh_ms * 1e-3) / 1e12:.2f} TFLOP/s achieved); the paged walk inside it: "
+        f"{mesh_walk_ops / mesh_ops:.2%} of the operations, {mesh_walk_cycles / mesh_cycles:.2%} of the lanes' "
+        f"clock cycles (counting build) | card {card}",
+        flush=True,
+    )
+
+    # the walk alone on the frame's primary rays (pixel centres, no start distance)
+    wo, wd = walk_rays(mpack, 512, 512, mn, 0, seed=0)
+    far = torch.full((mn,), 1e20, device=DEVICE)
+    walk_ms = cuda_time_ms(lambda: cuda_trace.paged_traverse(wo, wd, mpack, 0.001, far), 5)
+    occl_ms = cuda_time_ms(lambda: cuda_trace.paged_occluded(wo, wd, mpack, 0.001, far, far < 0), 5)
+    from path_trace_golang_tpu_torch.ops import bvh as bvh_ops
+
+    walk_plain_ms = cuda_time_ms(lambda: bvh_ops.traverse_triangles_paged(wo, wd, mpack, 0.001, far), 1)
+    walk_ops = cuda_trace.paged_count_ops(wo, wd, mpack, 0.001, best_t=far)
+    # bytes the walk must move: the page tables once, 8 floats, an excluded
+    # id and a skip byte per ray in, 2 ints and 6 floats per ray out
+    walk_bytes = mpack.page_tiles.numel() * 4 + mpack.page_boxes.numel() * 4 + mn * (8 * 4 + 4 + 1) + mn * 8 * 4
+    walk_by_ops, walk_by_bytes = walk_ops / PEAK_F32_FLOPS * 1e3, walk_bytes / PEAK_BYTES * 1e3
+    walk_bound_ms = max(walk_by_ops, walk_by_bytes)
+    hits = int(cuda_trace.paged_traverse(wo, wd, mpack, 0.001, far).hit.sum())
+    print(
+        f"[12] walk alone on {mn} primary rays of bench_mesh ({mpack.paged.n_pages} pages, {hits} hits): "
+        f"closest hit {walk_ms:.3f} ms, any hit {occl_ms:.3f} ms, plain version {walk_plain_ms:.1f} ms; "
+        f"{walk_ops:.6g} f32 operations ({walk_by_ops:.4f} ms at peak), {walk_bytes} bytes "
+        f"({walk_by_bytes:.4f} ms at peak): bound {walk_bound_ms:.4f} ms | card {card}",
+        flush=True,
+    )
+
     print(json.dumps({"kernels": [{
         "name": "render_pass",
         "route": "cuda",
@@ -286,8 +568,35 @@ def main(argv) -> int:
         "shape": "demo_showcase 1920x1080 d12, one 8-pass window (all launches of one frame)",
         "plain_shape": "demo_showcase 256x144 d12, 1 pass",
         "max_abs_err_over": f"256x144 d12 n_passes 1 and 2 (showcase, cornell); 1920x1080 d12 n_passes 8, "
-                            f"{MAIN_CHECK_LANES} strided lanes (showcase)",
+                            f"{MAIN_CHECK_LANES} strided lanes (showcase); 192x192 d8 n_passes 1 and 2 "
+                            f"(demo_mesh, bench_mesh); 192x108 d6 n_passes 1 and 2 (12 lights)",
         "kernel_ms_at_plain_shape": small_k,
+        "launches_mesh_path": mesh_launches,
+        "mesh_ms": mesh_ms,
+        "mesh_bound_ms": mesh_bound_ms,
+        "mesh_shape": "bench_mesh 512x512 d8, one 8-pass window",
+        "mesh_walk_share_of_operations": mesh_walk_ops / mesh_ops,
+        "mesh_walk_share_of_lane_cycles": mesh_walk_cycles / mesh_cycles,
+    }, {
+        "name": "paged_walk",
+        "route": "cuda",
+        "source": "path_trace_golang_tpu_torch/csrc/paged_walk.cuh",
+        "replaces": "path_trace_golang_tpu/ops/bvh.py:1642",
+        "launches": paged_launches,
+        "launches_are": "launches of render_pass that carried pages on the mesh path (4 renders of bench_mesh "
+                        "512x512 d8 x8): the walk runs inside them",
+        "max_abs_err": walk_err,
+        "ms": walk_ms,
+        "plain_ms": walk_plain_ms,
+        "bound_ms": walk_bound_ms,
+        "bound_by": "operations" if walk_by_ops >= walk_by_bytes else "bytes",
+        "library_ms": None,
+        "any_hit_ms": occl_ms,
+        "shape": f"closest hit, {mn} primary rays of bench_mesh 512x512, {mpack.paged.n_pages} pages of 128 "
+                 f"triangles, through pt_paged_walk",
+        "max_abs_err_over": "camera and random rays on bench_mesh and demo_mesh, 2,048 and 16,384 rays, "
+                            "closest hit (open; start distance, far limit, excluded object, skipped rays) "
+                            "and any hit, every output bit for bit",
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -8,7 +8,9 @@
 // (67 TFLOP/s at 700 W), not bytes.  Each lane reads two int32 pixel
 // coordinates and writes three floats, while it runs tens to hundreds of
 // thousands of float operations: ray-object tests, the BVH walk over the
-// mesh, shadow rays for NEE, the fog march with its hash noise.
+// mesh (the node walk up to 128 triangles, the paged walk of
+// paged_walk.cuh above), shadow rays for NEE, the fog march with its hash
+// noise.
 //
 // What the design does about that: one thread owns one lane for the whole
 // pass window, so the merged sample+bounce loop keeps its state in
@@ -31,9 +33,12 @@
 // Built by path_trace_golang_tpu_torch/ops/cuda_trace.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false -shared
 //        -Xcompiler -fPIC -o render_pass.so render_pass.cu
-// and bound with ctypes through the plain C function pt_render_pass().
-// ``segs`` points at two uint64 counters: [0] receives the traced segments;
-// [1] receives the f32 operation count in the -DPT_COUNT_OPS build.
+// and bound with ctypes through the plain C functions pt_render_pass() and
+// pt_paged_walk() (the paged walk alone, one thread per given ray).
+// ``segs`` points at five uint64 counters: [0] receives the traced segments;
+// the -DPT_COUNT_OPS build also fills [1] the f32 operation count, [2] the
+// part of it done inside the paged walk, [3] the clock cycles that lanes
+// spent inside the paged walk and [4] the cycles they spent in all.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,16 +48,30 @@
 // Operation counting build (-DPT_COUNT_OPS, used only to compute the
 // kernel's bound): every f32 add, sub, mul, div, min, max, sqrt, int->float
 // conversion and transcendental call that a lane executes adds 1, tallied
-// per code block by hand.  In the normal build these macros expand to
-// nothing and the kernel's code is unchanged.
+// per code block by hand; OPS_WALK does so for the paged walk and keeps the
+// walk's own sum beside it, and WALK_CLOCK(call) adds the cycles of one call
+// of the walk.  In the normal build these macros expand to nothing (or to
+// the bare call) and the kernel's code is unchanged.
 #ifdef PT_COUNT_OPS
-#define OPS(n) (ops += (unsigned long long)(n))
-#define OPS_PARAM , unsigned long long& ops
+struct OpsCount {
+  unsigned long long all, walk, walk_cycles;
+};
+#define OPS(n) (ops.all += (unsigned long long)(n))
+#define OPS_WALK(n) (ops.all += (unsigned long long)(n), ops.walk += (unsigned long long)(n))
+#define OPS_PARAM , OpsCount& ops
 #define OPS_ARG , ops
+#define WALK_CLOCK(call)                          \
+  do {                                            \
+    long long walk_t0 = clock64();                \
+    call;                                         \
+    ops.walk_cycles += clock64() - walk_t0;       \
+  } while (0)
 #else
 #define OPS(n) ((void)0)
+#define OPS_WALK(n) ((void)0)
 #define OPS_PARAM
 #define OPS_ARG
+#define WALK_CLOCK(call) call
 #endif
 
 namespace {
@@ -69,7 +88,7 @@ constexpr int BASIS_LEN = 19;
 
 // flag bits (must match ops/cuda_trace.py)
 constexpr int FLAG_APERTURE = 1, FLAG_LENS_DISK = 2, FLAG_ROUGH_METAL = 4, FLAG_DIELECTRIC = 8,
-              FLAG_FOG_ONCE = 16, FLAG_NORMALIZE = 32, FLAG_NEE = 64;
+              FLAG_FOG_ONCE = 16, FLAG_NORMALIZE = 32, FLAG_NEE = 64, FLAG_TRI_EMISSIVE = 128;
 
 #ifdef PT_COUNT_OPS
 // per-call f32 operation counts of the fixed-cost helpers below
@@ -103,6 +122,8 @@ __device__ __forceinline__ V normalize(V a) {
 __device__ __forceinline__ float signf(float x) { return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x); }
 __device__ __forceinline__ float max_comp(V a) { return nmax(a.x, nmax(a.y, a.z)); }
 __device__ __forceinline__ bool any_positive(V a) { return a.x > 0.0f || a.y > 0.0f || a.z > 0.0f; }
+
+#include "paged_walk.cuh"
 
 // ---- RNG: the shader's hash (gpu.go:444-458), bit-exact with ops/rng.py ----
 __device__ __forceinline__ uint32_t hash_u(uint32_t x) {
@@ -234,6 +255,8 @@ struct Scene {
   const int* lights;
   const int* topo;  // miss[B], first[B], count[B]
   int n_obj, n_lights, n_nodes;
+  Pages pages;        // meshes above 128 triangles (n_pages == 0 otherwise)
+  bool tri_emissive;  // some mesh triangle carries an emissive material
 };
 
 struct Hit {
@@ -244,8 +267,18 @@ struct Hit {
   int obj_idx, obj_type, mat_idx, mtyp;
 };
 
-// closest hit (ops/geometry.py::intersect_world); exclude < 0 = none
-__device__ Hit intersect(const Scene& S, V o, V d, int exclude OPS_PARAM) {
+// closest hit (ops/geometry.py::intersect_world); exclude < 0 = none.
+// ``lite``: the caller acts only on an emissive winner and reads only hit,
+// t, normal, mtyp and mat_idx of it (the specular-NEE ray).  On a paged
+// mesh without emissive triangles the mesh can then only hide the object
+// sweep's winner: a ray whose object winner is not emissive walks nothing,
+// the others take the any-hit walk up to that winner's t, and a hidden or
+// non-emissive winner comes back as no hit.
+// PAGED is a template argument of the whole kernel: launches without pages
+// run code that holds nothing of the paged walk, so the walk's registers
+// and code do not weigh on scenes that have no large mesh.
+template <bool PAGED>
+__device__ Hit intersect(const Scene& S, V o, V d, int exclude, bool lite OPS_PARAM) {
   const float t_min = F(0.001);
   float a = dot(d, d);
   float inv_a = 1.0f / a;
@@ -292,10 +325,38 @@ __device__ Hit intersect(const Scene& S, V o, V d, int exclude OPS_PARAM) {
     }
   }
   bool obj_hit = best_t < BIG_T;
-  bool is_tri = false;
-  int best_tri = 0;
+  bool is_tri = false, is_paged = false;
+  int best_tri = 0, paged_mat = 0;
   float best_u = 0.0f, best_v = 0.0f;
-  if (S.n_nodes > 0) {
+  V paged_n = mk(0.0f, 0.0f, 0.0f);
+  if constexpr (PAGED) {
+    const V inv = mk(inv_dx, inv_dy, inv_dz);
+    if (lite && !S.tri_emissive) {
+      bool seen = obj_hit && (int)S.mat[(int)S.obj[best_obj * OBJ_STRIDE + 1] * MAT_STRIDE] == MAT_EMISSIVE;
+      if (seen) WALK_CLOCK(seen = !paged_occluded(S.pages, o, d, inv, t_min, best_t OPS_ARG));
+      if (!seen) {
+        Hit h;
+        h.hit = false;
+        h.t = BIG_T;
+        h.p = o;
+        h.normal = mk(0.0f, 1.0f, 0.0f);
+        h.front_face = false;
+        h.obj_idx = h.obj_type = h.mat_idx = h.mtyp = 0;
+        return h;
+      }
+    } else {
+      PagedWinner w;
+      WALK_CLOCK(w = paged_traverse(S.pages, o, d, inv, t_min, best_t, __int_as_float(0x7f800000),
+                                    (float)exclude OPS_ARG));
+      if (w.hit && w.t < best_t) {
+        best_t = w.t;
+        best_m = (int)w.obj;
+        paged_mat = (int)w.mat;
+        paged_n = mk(w.nx, w.ny, w.nz);
+        is_tri = is_paged = true;
+      }
+    }
+  } else if (S.n_nodes > 0) {
     int nd = 0;
     while (nd < S.n_nodes) {
       const float* bn = S.bounds + nd * 6;
@@ -359,7 +420,11 @@ __device__ Hit intersect(const Scene& S, V o, V d, int exclude OPS_PARAM) {
   h.p = add(o, muls(d, best_t));
   OPS(6 + 8);  // p; front-face test and flip
   float nx, ny, nz;
-  if (is_tri) {
+  if (is_paged) {
+    h.obj_type = OBJ_TRIANGLE;
+    h.mat_idx = paged_mat;
+    nx = paged_n.x; ny = paged_n.y; nz = paged_n.z;
+  } else if (is_tri) {
     const float* r = S.tri + best_tri * TRI_STRIDE;
     h.obj_type = OBJ_TRIANGLE;
     h.mat_idx = (int)r[9];
@@ -414,6 +479,7 @@ __device__ Hit intersect(const Scene& S, V o, V d, int exclude OPS_PARAM) {
 }
 
 // any hit before t_max (ops/geometry.py::occluded)
+template <bool PAGED>
 __device__ bool occluded(const Scene& S, V o, V d, float t_max OPS_PARAM) {
   const float t_min = F(0.001);
   float a = dot(d, d);
@@ -453,6 +519,11 @@ __device__ bool occluded(const Scene& S, V o, V d, float t_max OPS_PARAM) {
       t = t0;
     }
     if (ok && t <= t_max) return true;
+  }
+  if constexpr (PAGED) {
+    bool blocked;
+    WALK_CLOCK(blocked = paged_occluded(S.pages, o, d, mk(inv_dx, inv_dy, inv_dz), t_min, t_max OPS_ARG));
+    return blocked;
   }
   int nd = 0;
   while (nd < S.n_nodes) {
@@ -503,11 +574,25 @@ __device__ __forceinline__ V luminance_clamp(V c) {
   return muls(c, scale);
 }
 
-// estimateDirectLight over <= 8 static lights (ops/lights.py); draws 2 per light
+// estimateDirectLight (ops/lights.py): every light when there are at most
+// 8, two draws each; above that one draw for the start of a window of 8
+// consecutive lights (modulo the count), two draws and one shadow ray per
+// slot, the sum scaled by count/8.  Non-sphere lights contribute nothing.
+template <bool PAGED>
 __device__ V direct_light(const Scene& S, V p, V n, V albedo, uint32_t& st OPS_PARAM) {
   V total = mk(0.0f, 0.0f, 0.0f);
   const float PI4 = 4.0f * F(3.14159265359);
-  for (int i = 0; i < S.n_lights; ++i) {
+  const int count = S.n_lights;
+  const bool window = count > MAX_LIGHTS;
+  int start = 0;
+  if (window) {
+    float us = next_u(st);
+    OPS(C_DRAW + 2);
+    start = (int)(us * (float)count) % count;
+  }
+  const int n_slots = window ? MAX_LIGHTS : count;
+  for (int j = 0; j < n_slots; ++j) {
+    const int i = window ? (start + j) % count : j;
     float u1 = next_u(st), u2 = next_u(st);
     OPS(2 * C_DRAW);
     const float* ob = S.obj + S.lights[i] * OBJ_STRIDE;
@@ -517,7 +602,9 @@ __device__ V direct_light(const Scene& S, V p, V n, V albedo, uint32_t& st OPS_P
     V ln = sphere_surface(u1, u2);
     OPS(C_SPHERE_SURF + 6 + 3 + 3 + C_DOT + 2 + 1 + 3 + 6 + 7);
     V lp = mk(ob[4] + radius * ln.x, ob[5] + radius * ln.y, ob[6] + radius * ln.z);
-    float inv_pdf = nmax(PI4 * radius * radius, F(1e-20));
+    // the window's slots take the light's area as 4 pi (r r), like the
+    // gathered form of the plain version
+    float inv_pdf = nmax(window ? PI4 * (radius * radius) : PI4 * radius * radius, F(1e-20));
     V to_l = sub(lp, p);
     float dist_sq = dot(to_l, to_l);
     bool valid = dist_sq > F(1e-6);
@@ -528,7 +615,7 @@ __device__ V direct_light(const Scene& S, V p, V n, V albedo, uint32_t& st OPS_P
     valid = valid && cos_s > 0.0f && cos_l > 0.0f;
     if (!valid) continue;
     OPS(7);
-    if (occluded(S, add(p, muls(n, F(0.001))), wi, dist - F(0.002) OPS_ARG)) continue;
+    if (occluded<PAGED>(S, add(p, muls(n, F(0.001))), wi, dist - F(0.002) OPS_ARG)) continue;
     OPS(13 + C_LUM_CLAMP + 3);
     float inv_d2 = 1.0f / nmax(dist_sq, F(1e-6));
     float w = cos_s * cos_l * inv_d2 * nmin(inv_pdf, F(1e6));
@@ -536,7 +623,11 @@ __device__ V direct_light(const Scene& S, V p, V n, V albedo, uint32_t& st OPS_P
     total = add(total, luminance_clamp(contrib));
   }
   OPS(3);
-  return muls(total, F(1.0 / S.n_lights));
+  if (window) {
+    OPS(3);
+    total = muls(total, F((double)count / MAX_LIGHTS));
+  }
+  return muls(total, F(1.0 / count));
 }
 
 // ---- fog (ops/fog.py) ----
@@ -595,7 +686,8 @@ __device__ __forceinline__ float phase_hg(float cos_theta, float g) {
   return (1.0f - gg) / (4.0f * F(3.14159265359) * denom * sqrtf(nmax(denom, F(1e-6))));
 }
 
-// estimateVolumeLight (ops/fog.py); draws 2 per light
+// estimateVolumeLight (ops/fog.py); every light of the list, 2 draws each
+template <bool PAGED>
 __device__ V volume_light(const Scene& S, V pos, V view, float g, uint32_t& st OPS_PARAM) {
   V out = mk(0.0f, 0.0f, 0.0f);
   const float PI4 = 4.0f * F(3.14159265359);
@@ -619,7 +711,7 @@ __device__ V volume_light(const Scene& S, V pos, V view, float g, uint32_t& st O
     valid = valid && cos_l > 0.0f;
     if (!valid) continue;
     OPS(1);
-    if (occluded(S, pos, wi, dist - F(0.002) OPS_ARG)) continue;
+    if (occluded<PAGED>(S, pos, wi, dist - F(0.002) OPS_ARG)) continue;
     OPS(C_DOT + C_PHASE + 2 + 2 + 6);
     float phase = phase_hg(-dot(wi, view), g);
     float geom = cos_l / nmax(dist_sq, F(1e-6));
@@ -664,17 +756,18 @@ __device__ V background(const Scene& S, V ud) {
 }
 
 struct Params {
-  int n_mat, n_obj, n_lights, n_tri_rows, n_nodes;
+  int n_mat, n_obj, n_lights, n_tri_rows, n_nodes, n_pages, n_sub;
   int n_lanes;
   uint32_t frame_seed;
   int width, height, n_strata, samples, n_passes, max_depth, rr_threshold, flags;
 };
 
+template <bool PAGED>
 __global__ void __launch_bounds__(BLOCK) render_pass_kernel(
     const float* __restrict__ g_mat, const float* __restrict__ g_obj, const int* __restrict__ g_lights,
     const float* __restrict__ g_sky, const float* __restrict__ g_fog, const float* __restrict__ g_tri,
     const float* __restrict__ g_bounds, const int* __restrict__ g_topo, const float* __restrict__ g_basis,
-    const int* __restrict__ g_px, const int* __restrict__ g_py, Params P, float* __restrict__ out,
+    const float* __restrict__ g_tiles, const float* __restrict__ g_boxes, const int* __restrict__ g_px, const int* __restrict__ g_py, Params P, float* __restrict__ out,
     unsigned long long* __restrict__ segs_out) {
   // ---- scene tables -> shared memory ----
   extern __shared__ float smem[];
@@ -685,7 +778,8 @@ __global__ void __launch_bounds__(BLOCK) render_pass_kernel(
   float* s_basis = s_fog + 16;
   float* s_tri = s_basis + BASIS_LEN;
   float* s_bounds = s_tri + P.n_tri_rows * TRI_STRIDE;
-  int* s_lights = (int*)(s_bounds + P.n_nodes * 6);
+  float* s_boxes = s_bounds + P.n_nodes * 6;
+  int* s_lights = (int*)(s_boxes + P.n_pages * P.n_sub * 6);
   int* s_topo = s_lights + P.n_lights;
   __shared__ unsigned long long s_segs;
   for (int i = threadIdx.x; i < P.n_mat * MAT_STRIDE; i += blockDim.x) s_mat[i] = g_mat[i];
@@ -694,6 +788,7 @@ __global__ void __launch_bounds__(BLOCK) render_pass_kernel(
   for (int i = threadIdx.x; i < BASIS_LEN; i += blockDim.x) s_basis[i] = g_basis[i];
   for (int i = threadIdx.x; i < P.n_tri_rows * TRI_STRIDE; i += blockDim.x) s_tri[i] = g_tri[i];
   for (int i = threadIdx.x; i < P.n_nodes * 6; i += blockDim.x) s_bounds[i] = g_bounds[i];
+  for (int i = threadIdx.x; i < P.n_pages * P.n_sub * 6; i += blockDim.x) s_boxes[i] = g_boxes[i];
   for (int i = threadIdx.x; i < P.n_lights; i += blockDim.x) s_lights[i] = g_lights[i];
   for (int i = threadIdx.x; i < 3 * P.n_nodes; i += blockDim.x) s_topo[i] = g_topo[i];
   if (threadIdx.x == 0) s_segs = 0ull;
@@ -703,6 +798,8 @@ __global__ void __launch_bounds__(BLOCK) render_pass_kernel(
   S.mat = s_mat; S.obj = s_obj; S.sky = s_sky; S.fog = s_fog; S.basis = s_basis;
   S.tri = s_tri; S.bounds = s_bounds; S.lights = s_lights; S.topo = s_topo;
   S.n_obj = P.n_obj; S.n_lights = P.n_lights; S.n_nodes = P.n_nodes;
+  S.pages.tiles = g_tiles; S.pages.boxes = s_boxes; S.pages.n_pages = P.n_pages; S.pages.n_sub = P.n_sub;
+  S.tri_emissive = P.flags & FLAG_TRI_EMISSIVE;
 
   const bool aperture = P.flags & FLAG_APERTURE, disk = P.flags & FLAG_LENS_DISK;
   const bool rough_metal = P.flags & FLAG_ROUGH_METAL, dielectric = P.flags & FLAG_DIELECTRIC;
@@ -710,7 +807,8 @@ __global__ void __launch_bounds__(BLOCK) render_pass_kernel(
 
   unsigned long long segs = 0ull;
 #ifdef PT_COUNT_OPS
-  unsigned long long ops = 0ull;
+  OpsCount ops = {0ull, 0ull, 0ull};
+  const long long lane_t0 = clock64();
 #endif
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane < P.n_lanes) {
@@ -721,7 +819,9 @@ __global__ void __launch_bounds__(BLOCK) render_pass_kernel(
     const float fy = (float)(P.height - 1) - (float)(int)py;
     const float inv_strata = F(1.0 / P.n_strata);
     const int total = P.samples * P.n_passes;
-    const int shade_draws = 2 + (nee ? 2 * P.n_lights : 0) + (rough_metal ? 2 : 0) + (dielectric ? 1 : 0);
+    // NEE draws: 2 per light, or 1 + 2 * 8 for the window above 8 lights
+    const int nee_draws = !nee ? 0 : (P.n_lights > MAX_LIGHTS ? 1 + 2 * MAX_LIGHTS : 2 * P.n_lights);
+    const int shade_draws = 2 + nee_draws + (rough_metal ? 2 : 0) + (dielectric ? 1 : 0);
     const bool sky_fog = S.fog[0] > 0.0f && S.fog[2] > 0.5f;
 
     V col = mk(0.0f, 0.0f, 0.0f);
@@ -736,7 +836,7 @@ __global__ void __launch_bounds__(BLOCK) render_pass_kernel(
         OPS(2 * C_DRAW + 4 + 2 + 9);
         V o, d;
         camera_ray(S, (pxf + jx) * inv_w, (fy + jy) * inv_h, aperture, disk, fst, o, d OPS_ARG);
-        Hit h = intersect(S, o, d, -1 OPS_ARG);
+        Hit h = intersect<PAGED>(S, o, d, -1, false OPS_ARG);
         float t_max = nmin(h.hit ? h.t : F(40.0), F(40.0));
         float step = t_max * F(1.0 / 24.0);
         V rad = mk(0.0f, 0.0f, 0.0f);
@@ -749,7 +849,7 @@ __global__ void __launch_bounds__(BLOCK) render_pass_kernel(
           float sigma_s = fp.sigma_s * scale, sigma_a = fp.sigma_a * scale;
           float sigma_t = sigma_s + sigma_a;
           float tr = expf(-sigma_t * t);
-          V ls = volume_light(S, pos, d, fp.g, fst OPS_ARG);
+          V ls = volume_light<PAGED>(S, pos, d, fp.g, fst OPS_ARG);
           float w = sigma_s * tr * step;
           if (sigma_t > 0.0f && sigma_s > 0.0f && step > 0.0f)
             rad = add(rad, mk(S.fog[4] * ls.x * w, S.fog[5] * ls.y * w, S.fog[6] * ls.z * w));
@@ -793,7 +893,7 @@ __global__ void __launch_bounds__(BLOCK) render_pass_kernel(
       alive = true;
       segs += 1;
 
-      Hit h = intersect(S, orig, dir, dielectric ? glass_obj : -1 OPS_ARG);
+      Hit h = intersect<PAGED>(S, orig, dir, dielectric ? glass_obj : -1, false OPS_ARG);
       if (!h.hit) {
         OPS(C_NORMALIZE + C_BACKGROUND + 6 + (sky_fog ? 11 : 0));
         V bg = background(S, normalize(dir));
@@ -832,8 +932,8 @@ __global__ void __launch_bounds__(BLOCK) render_pass_kernel(
 
       V direct = mk(0.0f, 0.0f, 0.0f);
       if (nee) {
-        if (is_lambert || is_rough_metal) direct = direct_light(S, p, n, albedo, st OPS_ARG);
-        else skip_u(st, 2 * P.n_lights);
+        if (is_lambert || is_rough_metal) direct = direct_light<PAGED>(S, p, n, albedo, st OPS_ARG);
+        else skip_u(st, nee_draws);
       }
       if (is_lambert) col = add(col, mul(thr, direct));
 
@@ -853,7 +953,7 @@ __global__ void __launch_bounds__(BLOCK) render_pass_kernel(
 
       if (rough_metal && nee && is_rough_metal && !metal_dead) {
         OPS(6);
-        Hit r = intersect(S, add(p, muls(n, F(0.001))), mirror_dir, -1 OPS_ARG);
+        Hit r = intersect<PAGED>(S, add(p, muls(n, F(0.001))), mirror_dir, -1, true OPS_ARG);
         if (r.hit && r.mtyp == MAT_EMISSIVE) {
           OPS(24);
           const float* rm = S.mat + r.mat_idx * MAT_STRIDE;
@@ -970,9 +1070,12 @@ __global__ void __launch_bounds__(BLOCK) render_pass_kernel(
   for (int off = 16; off > 0; off >>= 1) segs += __shfl_down_sync(0xffffffffu, segs, off);
   if ((threadIdx.x & 31) == 0 && segs) atomicAdd(&s_segs, segs);
 #ifdef PT_COUNT_OPS
-  // the counting build adds the lane's operation count into segs_out[1]
-  for (int off = 16; off > 0; off >>= 1) ops += __shfl_down_sync(0xffffffffu, ops, off);
-  if ((threadIdx.x & 31) == 0 && ops) atomicAdd(segs_out + 1, ops);
+  // the counting build adds the lane's counts into segs_out[1..4]
+  unsigned long long tally[4] = {ops.all, ops.walk, ops.walk_cycles, (unsigned long long)(clock64() - lane_t0)};
+  for (int c = 0; c < 4; ++c) {
+    for (int off = 16; off > 0; off >>= 1) tally[c] += __shfl_down_sync(0xffffffffu, tally[c], off);
+    if ((threadIdx.x & 31) == 0 && tally[c]) atomicAdd(segs_out + 1 + c, tally[c]);
+  }
 #endif
   __syncthreads();
   if (threadIdx.x == 0 && s_segs) atomicAdd(segs_out, s_segs);
@@ -982,27 +1085,42 @@ __global__ void __launch_bounds__(BLOCK) render_pass_kernel(
 
 extern "C" int pt_render_pass(const float* mat, int n_mat, const float* obj, int n_obj, const int* lights,
                               int n_lights, const float* sky, const float* fog, const float* tri, int n_tri_rows,
-                              const float* bounds, const int* topo, int n_nodes, const float* basis, const int* px,
+                              const float* bounds, const int* topo, int n_nodes, const float* basis,
+                              const float* tiles, const float* boxes, int n_pages, int n_sub, const int* px,
                               const int* py, int n_lanes, unsigned int frame_seed, int width, int height, int n_strata,
                               int samples, int n_passes, int max_depth, int rr_threshold, int flags, float* out,
                               unsigned long long* segs, void* stream) {
   if (n_lanes <= 0) return 0;
-  if (n_lights > MAX_LIGHTS) return (int)cudaErrorInvalidValue;
   Params P;
   P.n_mat = n_mat; P.n_obj = n_obj; P.n_lights = n_lights; P.n_tri_rows = n_tri_rows; P.n_nodes = n_nodes;
+  P.n_pages = n_pages; P.n_sub = n_sub;
   P.n_lanes = n_lanes; P.frame_seed = frame_seed; P.width = width; P.height = height;
   P.n_strata = n_strata; P.samples = samples; P.n_passes = n_passes; P.max_depth = max_depth;
   P.rr_threshold = rr_threshold; P.flags = flags;
   size_t smem = sizeof(float) * (size_t)(n_mat * MAT_STRIDE + n_obj * OBJ_STRIDE + 32 + BASIS_LEN +
-                                         n_tri_rows * TRI_STRIDE + n_nodes * 6) +
+                                         n_tri_rows * TRI_STRIDE + n_nodes * 6 + n_pages * n_sub * 6) +
                 sizeof(int) * (size_t)(n_lights + 3 * n_nodes);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;  // the tables must fit one SM's shared memory
+  auto kernel = n_pages > 0 ? render_pass_kernel<true> : render_pass_kernel<false>;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(render_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   int grid = (n_lanes + BLOCK - 1) / BLOCK;
-  render_pass_kernel<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(mat, obj, lights, sky, fog, tri, bounds, topo,
-                                                                   basis, px, py, P, out, segs);
+  kernel<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(mat, obj, lights, sky, fog, tri, bounds, topo,
+                                                                   basis, tiles, boxes, px, py, P, out, segs);
+  return (int)cudaGetLastError();
+}
+
+// The paged walk alone (paged_walk.cuh): any_hit = 0 writes the closest
+// hit's key, page, t, normal, mat and obj, any_hit = 1 writes blocked.
+extern "C" int pt_paged_walk(const float* tiles, const float* boxes, int n_pages, int n_sub, const float* rays,
+                             const float* excl, const unsigned char* skip, int n, float t_min, int any_hit,
+                             int* out_i, float* out_f, unsigned char* blocked, unsigned long long* ops,
+                             void* stream) {
+  if (n <= 0) return 0;
+  paged_walk_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+      tiles, boxes, n_pages, n_sub, rays, excl, skip, n, t_min, any_hit, out_i, out_f, blocked, ops);
   return (int)cudaGetLastError();
 }
 

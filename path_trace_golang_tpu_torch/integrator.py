@@ -151,8 +151,13 @@ def fog_prepass_grid(orig: V3, dirv: V3, state, pack: ScenePack):
 # ---------------------------------------------------------------------------
 
 
-def _shade_gpu(hit: Hit, dirv: V3, throughput: V3, radiance: V3, rng: LaneRng, pack: ScenePack, cfg: TraceConfig):
+def _shade_gpu(hit: Hit, dirv: V3, throughput: V3, radiance: V3, rng: LaneRng, pack: ScenePack, cfg: TraceConfig,
+               alive=None):
     """One gpu-contract surface interaction for all lanes (gpu.go:1398-1646).
+
+    ``alive``: bool lanes of the bounce loop; the caller discards dead
+    lanes' outputs, so their shadow and specular-NEE rays enter no page of
+    the paged mesh walk (work pruning only, the same radiance).
 
     Returns (new_dir, attenuation, radiance, scattered_ok, enter_glass,
     exit_glass, travel, absorption, abs_scale, tint)."""
@@ -173,7 +178,11 @@ def _shade_gpu(hit: Hit, dirv: V3, throughput: V3, radiance: V3, rng: LaneRng, p
     # ---- Lambert: cosine bounce + NEE (gpu.go:1419-1425) ----
     lambert_dir = sampling.cosine_direction(n, rng.next(), rng.next())
     if cfg.enable_nee and pack.n_lights > 0:
-        direct = lights_ops.estimate_direct_light(p, n, hit.albedo, pack, rng)
+        nee_skip = None
+        if alive is not None:
+            uses_direct = (is_lambert | is_metal) if cfg.has_rough_metal else is_lambert
+            nee_skip = ~(alive & hit.hit & uses_direct)
+        direct = lights_ops.estimate_direct_light(p, n, hit.albedo, pack, rng, skip=nee_skip)
     else:
         direct = zero3
     radiance = radiance + V3.where(is_lambert, throughput * direct, zero3)
@@ -208,7 +217,8 @@ def _shade_gpu(hit: Hit, dirv: V3, throughput: V3, radiance: V3, rng: LaneRng, p
     # emissive hits (gpu.go:1474-1496)
     if cfg.has_rough_metal and cfg.enable_nee:
         refl_orig = p + n * 0.001
-        rhit = intersect_world(refl_orig, mirror_dir, pack, 0.001)
+        spec_skip = None if alive is None else ~(alive & is_rough_metal & ~metal_dead)
+        rhit = intersect_world(refl_orig, mirror_dir, pack, 0.001, lite=True, skip=spec_skip)
         dist_sq = torch.clamp_min(rhit.t * rhit.t, 1e-20)
         cos_light = torch.clamp_min(-(rhit.normal.dot(mirror_dir)), 0.0)
         direct_reflect = rhit.emit * (cos_light / dist_sq)
@@ -367,7 +377,8 @@ def pass_regen_gpu(
         # ---- one bounce
         segments = segments + alive.sum()
         hit = intersect_world(
-            orig, dirv, pack, 0.001, exclude_obj=glass_obj if cfg.has_dielectric else None
+            orig, dirv, pack, 0.001, exclude_obj=glass_obj if cfg.has_dielectric else None,
+            skip=~alive,
         )
         bg = background_color(dirv.normalize(), pack.sky)
         if sky_fog:
@@ -379,7 +390,7 @@ def pass_regen_gpu(
         live_throughput = V3.where(alive, throughput, zero3)
         (new_dir, attenuation, col, scattered_ok, enter_glass, exit_glass,
          travel, absorption, abs_scale, tint) = _shade_gpu(
-            hit, dirv, live_throughput, col, rng, pack, cfg
+            hit, dirv, live_throughput, col, rng, pack, cfg, alive=alive
         )
 
         if cfg.has_dielectric:

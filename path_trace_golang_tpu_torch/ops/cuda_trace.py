@@ -1,19 +1,30 @@
-"""The whole-pass kernel: CUDA C++ on the card, its plain PyTorch version on the CPU.
+"""The CUDA kernels and their wrappers: CUDA C++ on the card, the plain
+PyTorch versions on the CPU.
 
-Counterpart of ``path_trace_golang_tpu/ops/pallas_trace.py::render_pass_pallas``.
+Counterpart of ``path_trace_golang_tpu/ops/pallas_trace.py::render_pass_pallas``
+and of the per-lane paged walk that runs inside it
+(``ops/bvh.py::_traverse_gather`` / ``_occluded_gather``).
+
 :func:`render_pass` runs one progressive pass, or a window of ``n_passes``
 passes, for flat pixel lanes:
 
 * on CUDA tensors it launches ``csrc/render_pass.cu`` (one thread per
   lane, the merged sample+bounce loop in registers, the scene tables in
-  shared memory), or raises;
+  shared memory; for a mesh above 128 triangles the paged walk of
+  ``csrc/paged_walk.cuh`` over page tiles in device memory), or raises;
 * on CPU tensors it runs :func:`render_pass_plain`, the torch
   ``render.pass_body_grid``, which the kernel is held to.
 
-The kernel is compiled at first use with ``nvcc`` for ``sm_90a`` into
+:func:`paged_traverse` and :func:`paged_occluded` run the paged walk alone
+for given rays: on CUDA tensors the same device functions through their
+own entry point, on CPU tensors ``ops/bvh.py``'s plain versions.
+
+The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into
 ``build/torch_kernels/`` beside the package and bound with ``ctypes``.
-``LAUNCHES`` counts kernel launches; ``PLAIN_CALLS`` counts calls of the
-plain version.
+``LAUNCHES`` counts launches of the whole-pass kernel, ``PAGED_LAUNCHES``
+those of them that carried pages (the walk ran inside them),
+``WALK_LAUNCHES`` launches of the walk alone; ``PLAIN_CALLS`` and
+``WALK_PLAIN_CALLS`` count calls of the plain versions.
 """
 
 from __future__ import annotations
@@ -29,20 +40,25 @@ from pathlib import Path
 import torch
 
 from ..soa import ScenePack
-from .bvh import STATIC_TRI_MAX
+from . import bvh as bvh_mod
 from .camera import camera_basis
-from .lights import MAX_LIGHTS_TO_SAMPLE
 from .vec import V3
 
 __all__ = [
-    "render_pass", "render_pass_plain", "render_pass_cuda", "count_ops", "build", "LAUNCHES", "PLAIN_CALLS",
+    "render_pass", "render_pass_plain", "render_pass_cuda", "count_ops", "count_ops_split", "build",
+    "paged_traverse", "paged_occluded", "paged_count_ops",
+    "LAUNCHES", "PAGED_LAUNCHES", "WALK_LAUNCHES", "PLAIN_CALLS", "WALK_PLAIN_CALLS",
 ]
 
 LAUNCHES = 0
+PAGED_LAUNCHES = 0
+WALK_LAUNCHES = 0
 PLAIN_CALLS = 0
-BUILD_LOG = ""  # nvcc's -Xptxas -v report of the last build
+WALK_PLAIN_CALLS = 0
+BUILD_LOG = ""  # nvcc's -Xptxas -v report of the last build of the normal variant
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "render_pass.cu"
+HEADERS = (SOURCE.parent / "paged_walk.cuh",)
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -51,7 +67,7 @@ NVCC_FLAGS = (
 
 # flag bits (must match csrc/render_pass.cu)
 FLAG_APERTURE, FLAG_LENS_DISK, FLAG_ROUGH_METAL, FLAG_DIELECTRIC = 1, 2, 4, 8
-FLAG_FOG_ONCE, FLAG_NORMALIZE, FLAG_NEE = 16, 32, 64
+FLAG_FOG_ONCE, FLAG_NORMALIZE, FLAG_NEE, FLAG_TRI_EMISSIVE = 16, 32, 64, 128
 
 _LIBS: dict = {}
 
@@ -69,10 +85,11 @@ def _nvcc() -> str:
 def build(count_ops: bool = False) -> Path:
     """Compile the kernel (once per source and flag set) and return the .so
     path.  ``count_ops`` builds the operation-counting variant
-    (-DPT_COUNT_OPS), used only to compute the kernel's bound."""
+    (-DPT_COUNT_OPS), used only to compute the kernels' bounds.  The two
+    variants may be built at the same time from two threads."""
     global BUILD_LOG
     flags = NVCC_FLAGS + (("-DPT_COUNT_OPS",) if count_ops else ())
-    src = SOURCE.read_bytes()
+    src = SOURCE.read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
     tag = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()[:12]
     so = BUILD_DIR / f"render_pass_{'count_' if count_ops else ''}{tag}.so"
     if so.exists():
@@ -82,10 +99,12 @@ def build(count_ops: bool = False) -> Path:
     os.close(fd)
     cmd = [_nvcc(), *flags, "-o", tmp, str(SOURCE)]
     res = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = res.stdout + res.stderr
+    log = res.stdout + res.stderr
+    if not count_ops:
+        BUILD_LOG = log
     if res.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{BUILD_LOG}")
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
     os.replace(tmp, so)
     return so
 
@@ -95,10 +114,12 @@ def _lib(count_ops: bool = False):
         lib = ctypes.CDLL(str(build(count_ops)))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.pt_render_pass.argtypes = [
-            p, i, p, i, p, i, p, p, p, i, p, p, i, p, p, p, i,
+            p, i, p, i, p, i, p, p, p, i, p, p, i, p, p, p, i, i, p, p, i,
             ctypes.c_uint, i, i, i, i, i, i, i, i, p, p, p,
         ]
         lib.pt_render_pass.restype = i
+        lib.pt_paged_walk.argtypes = [p, p, i, i, p, p, p, i, ctypes.c_float, i, p, p, p, p, p]
+        lib.pt_paged_walk.restype = i
         lib.pt_error_string.argtypes = [i]
         lib.pt_error_string.restype = ctypes.c_char_p
         _LIBS[count_ops] = lib
@@ -163,12 +184,14 @@ def render_pass_cuda(
     n_passes: int = 1,
 ):
     """Launch the CUDA kernel on the current stream."""
-    global LAUNCHES
+    global LAUNCHES, PAGED_LAUNCHES
     col, counters = _launch(
         False, pack, frame_seed, px, py, tcfg=tcfg, width=width, height=height, n_strata=n_strata,
         samples=samples, has_aperture=has_aperture, normalize_pass=normalize_pass, n_passes=n_passes,
     )
     LAUNCHES += 1
+    if pack.paged is not None:
+        PAGED_LAUNCHES += 1
     return col, counters[0]
 
 
@@ -178,8 +201,19 @@ def count_ops(pack: ScenePack, frame_seed: int, px, py, **kw):
     Returns (segments, f32 operations) as Python ints: the work that these
     inputs need, tallied by the kernel's own code (csrc/render_pass.cu).
     Not a launch of the render path: ``LAUNCHES`` does not change."""
+    counts = count_ops_split(pack, frame_seed, px, py, **kw)
+    return counts["segments"], counts["ops"]
+
+
+def count_ops_split(pack: ScenePack, frame_seed: int, px, py, **kw) -> dict:
+    """As :func:`count_ops`, with the paged walk's part: ``segments``,
+    ``ops``, ``walk_ops`` (the f32 operations done inside the paged walk),
+    ``walk_cycles`` and ``cycles`` (clock cycles, summed over lanes, spent
+    inside the walk and in all; a lane that waits for its warp inside the
+    walk counts as inside)."""
     _col, counters = _launch(True, pack, frame_seed, px, py, **kw)
-    return int(counters[0]), int(counters[1])
+    names = ("segments", "ops", "walk_ops", "walk_cycles", "cycles")
+    return dict(zip(names, (int(c) for c in counters)))
 
 
 def _launch(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, n_strata, samples,
@@ -191,13 +225,6 @@ def _launch(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, n_
             "the kernel runs the regeneration loop only; faithful fog and the cpu "
             "contract need kernel B3 (ROADMAP.md Queue B)"
         )
-    if pack.n_lights > MAX_LIGHTS_TO_SAMPLE:
-        raise NotImplementedError(
-            f"the kernel samples at most {MAX_LIGHTS_TO_SAMPLE} lights; the random "
-            "8-light window is queued (ROADMAP.md Queue A)"
-        )
-    if pack.n_triangles > STATIC_TRI_MAX:
-        raise NotImplementedError("meshes above STATIC_TRI_MAX need kernel B2 (ROADMAP.md Queue B)")
     dev = px.device
     if dev.type != "cuda":
         raise ValueError(f"render_pass_cuda: the kernel needs CUDA tensors, got {dev}")
@@ -207,7 +234,7 @@ def _launch(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, n_
     py = py.to(torch.int32).contiguous()
     n = px.numel()
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
-    counters = torch.zeros(2, dtype=torch.int64, device=dev)  # segments, operations
+    counters = torch.zeros(5, dtype=torch.int64, device=dev)  # segments; the counting build's tallies
     basis = camera_basis(pack.cam, width, height).contiguous()
     lights, topo, n_nodes, tri_rows = _device_tables(pack)
     flags = (
@@ -218,8 +245,10 @@ def _launch(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, n_
         | (FLAG_FOG_ONCE if (tcfg.enable_fog_march and not tcfg.fog_in_trace) else 0)
         | (FLAG_NORMALIZE if normalize_pass else 0)
         | (FLAG_NEE if tcfg.enable_nee else 0)
+        | (FLAG_TRI_EMISSIVE if pack.tri_any_emissive else 0)
     )
-    tables = [pack.mat, pack.obj, pack.sky, pack.fog, pack.tri, pack.bvh_bounds]
+    n_pages, n_sub = (pack.paged.n_pages, pack.page_boxes.shape[1]) if pack.paged is not None else (0, 0)
+    tables = [pack.mat, pack.obj, pack.sky, pack.fog, pack.tri, pack.bvh_bounds, pack.page_tiles, pack.page_boxes]
     if any(t.dtype != torch.float32 or not t.is_contiguous() for t in tables):
         raise ValueError("render_pass_cuda: scene tables must be contiguous float32")
     lib = _lib(counting)
@@ -227,10 +256,104 @@ def _launch(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, n_
         pack.mat.data_ptr(), pack.mat.shape[0], pack.obj.data_ptr(), pack.n_objects,
         lights.data_ptr(), pack.n_lights, pack.sky.data_ptr(), pack.fog.data_ptr(),
         pack.tri.data_ptr(), tri_rows, pack.bvh_bounds.data_ptr(), topo.data_ptr(), n_nodes,
-        basis.data_ptr(), px.data_ptr(), py.data_ptr(), n, int(frame_seed) & 0xFFFFFFFF,
+        basis.data_ptr(), pack.page_tiles.data_ptr(), pack.page_boxes.data_ptr(), n_pages, n_sub,
+        px.data_ptr(), py.data_ptr(), n, int(frame_seed) & 0xFFFFFFFF,
         width, height, n_strata, samples, n_passes, tcfg.max_depth, tcfg.rr_threshold,
         flags, out.data_ptr(), counters.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"render_pass kernel launch failed: {lib.pt_error_string(err).decode()}")
     return V3(out[0], out[1], out[2]), counters
+
+
+# ---------------------------------------------------------------------------
+# The paged walk alone
+# ---------------------------------------------------------------------------
+
+
+def paged_traverse(o: V3, d: V3, pack: ScenePack, t_min, best_t, exclude_obj=None, t_max=None, skip=None):
+    """Closest-hit paged walk for given rays; arguments and result as
+    ``ops/bvh.py::traverse_triangles_paged`` (``visits`` is -1 from the
+    kernel, which keeps no count across threads).  CUDA tensors go to the
+    kernel, CPU tensors to the plain version; nothing falls back."""
+    global WALK_LAUNCHES, WALK_PLAIN_CALLS
+    if o.x.is_cuda:
+        out_i, out_f, _ = _launch_walk(False, False, o, d, pack, t_min, best_t, t_max, exclude_obj, skip)
+        WALK_LAUNCHES += 1
+        shape = o.x.shape
+        r = lambda x: x.reshape(shape)  # noqa: E731
+        return bvh_mod.PagedHit(
+            r(out_i[1] >= 0), r(out_i[0]), r(out_i[1]), r(out_f[0]), r(out_f[1]), r(out_f[2]), r(out_f[3]),
+            r(out_f[4]), r(out_f[5]), visits=-1,
+        )
+    if o.x.device.type == "cpu":
+        WALK_PLAIN_CALLS += 1
+        return bvh_mod.traverse_triangles_paged(
+            o, d, pack, t_min, best_t, exclude_obj=exclude_obj, t_max=t_max, skip=skip
+        )
+    raise NotImplementedError(f"paged_traverse: no kernel for device {o.x.device}")
+
+
+def paged_occluded(o: V3, d: V3, pack: ScenePack, t_min, t_max, blocked):
+    """Any-hit paged walk for given rays; arguments and result as
+    ``ops/bvh.py::occluded_triangles_paged``."""
+    global WALK_LAUNCHES, WALK_PLAIN_CALLS
+    if o.x.is_cuda:
+        _, _, out = _launch_walk(False, True, o, d, pack, t_min, None, t_max, None, blocked)
+        WALK_LAUNCHES += 1
+        return out.to(torch.bool).reshape(o.x.shape)
+    if o.x.device.type == "cpu":
+        WALK_PLAIN_CALLS += 1
+        return bvh_mod.occluded_triangles_paged(o, d, pack, t_min, t_max, blocked)
+    raise NotImplementedError(f"paged_occluded: no kernel for device {o.x.device}")
+
+
+def paged_count_ops(o: V3, d: V3, pack: ScenePack, t_min, best_t=None, t_max=None, exclude_obj=None, skip=None,
+                    any_hit=False) -> int:
+    """The f32 operations that the walk does for these rays, tallied by the
+    counting build (the C_PAGE_* table in csrc/paged_walk.cuh).  Not a
+    launch of the walk: ``WALK_LAUNCHES`` does not change."""
+    return _launch_walk(True, any_hit, o, d, pack, t_min, best_t, t_max, exclude_obj, skip, want_ops=True)
+
+
+def _launch_walk(counting, any_hit, o, d, pack, t_min, best_t, t_max, exclude_obj, skip, want_ops=False):
+    dev = o.x.device
+    if dev.type != "cuda":
+        raise ValueError(f"the paged walk kernel needs CUDA tensors, got {dev}")
+    if pack.paged is None:
+        raise ValueError("the paged walk needs a pack with pages (a mesh above STATIC_TRI_MAX triangles)")
+    if pack.device != dev:
+        raise ValueError("paged walk: pack and rays must be on one device")
+    n = o.x.numel()
+    lanes = lambda x, fill: (  # noqa: E731
+        torch.full((n,), fill, dtype=torch.float32, device=dev) if x is None
+        else torch.as_tensor(x, device=dev).to(torch.float32).broadcast_to(o.x.shape).reshape(-1)
+    )
+    rays = torch.stack([
+        o.x.reshape(-1), o.y.reshape(-1), o.z.reshape(-1),
+        lanes(d.x, 0.0), lanes(d.y, 0.0), lanes(d.z, 0.0),
+        lanes(best_t, bvh_mod._BIG_T), lanes(t_max, float("inf")),
+    ]).to(torch.float32).contiguous()
+    excl = lanes(exclude_obj, -1.0).contiguous()
+    skip_u8 = (
+        torch.zeros(n, dtype=torch.uint8, device=dev) if skip is None
+        else torch.as_tensor(skip, device=dev).broadcast_to(o.x.shape).reshape(-1).to(torch.uint8).contiguous()
+    )
+    out_i = torch.empty((2, n), dtype=torch.int32, device=dev)
+    out_f = torch.empty((6, n), dtype=torch.float32, device=dev)
+    out_b = torch.empty(n, dtype=torch.uint8, device=dev)
+    ops = torch.zeros(1, dtype=torch.int64, device=dev)
+    if any(t.dtype != torch.float32 or not t.is_contiguous() for t in (pack.page_tiles, pack.page_boxes)):
+        raise ValueError("paged walk: page tables must be contiguous float32")
+    lib = _lib(counting)
+    err = lib.pt_paged_walk(
+        pack.page_tiles.data_ptr(), pack.page_boxes.data_ptr(), pack.paged.n_pages, pack.page_boxes.shape[1],
+        rays.data_ptr(), excl.data_ptr(), skip_u8.data_ptr(), n, float(t_min), int(any_hit),
+        out_i.data_ptr(), out_f.data_ptr(), out_b.data_ptr(), ops.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"paged walk kernel launch failed: {lib.pt_error_string(err).decode()}")
+    if want_ops:
+        return int(ops)
+    return out_i, out_f, out_b

@@ -2,7 +2,8 @@
 
 Torch counterpart of ``path_trace_golang_tpu/ops/geometry.py``: a linear
 scan over the (static) object list keeping the closest hit with a strict
-``t < best_t`` test, then the small-mesh BVH walk, in the same order.
+``t < best_t`` test, then the mesh: the lockstep BVH walk up to
+``STATIC_TRI_MAX`` triangles, the paged walk above (``ops/bvh.py``).
 The JAX package carries the winner's material constants through select
 chains; here the winner's object and material indices are kept and the
 constants are gathered from the tables once at the end, which yields the
@@ -19,7 +20,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..soa import OBJ_PLANE, OBJ_SPHERE, ScenePack
+from ..soa import MAT_EMISSIVE, OBJ_PLANE, OBJ_SPHERE, ScenePack
 from . import bvh as bvh_mod
 from .vec import V3
 
@@ -117,13 +118,24 @@ def intersect_world(
     pack: ScenePack,
     t_min=0.001,
     exclude_obj: Optional[torch.Tensor] = None,
+    lite: bool = False,
+    skip: Optional[torch.Tensor] = None,
 ) -> Hit:
     """Closest hit over all objects, then the triangles (shader hitWorld).
 
     ``exclude_obj``: i32 lane tensor of the object index to skip (-1 =
     none), the bounce loop's current-glass-object rule (gpu.go:1353-1357).
-    The JAX package's ``lite`` query finds the same winner, so it needs no
-    variant here.
+    ``lite``: the caller reads only hit, t, normal, mtyp and emit, and acts
+    only on emissive winners (the rough-metal specular-NEE ray,
+    gpu.go:1474-1496).  On a paged mesh without emissive triangles the
+    mesh can then only occlude the object sweep's winner, so, like the JAX
+    package, an any-hit walk bounded by that winner's t takes the place of
+    the closest-hit walk: lanes whose object winner is not emissive walk
+    nothing, and a blocked lane comes back with mtyp 0 and no emission.
+    Everywhere else ``lite`` finds the same winner as the full query.
+    ``skip``: bool lanes whose result the caller discards; they enter no
+    page of the paged walk (work pruning only) and may come back with an
+    object-only record.
     """
     best_t = torch.full_like(o.x, BIG_T)
     best_m = torch.zeros_like(o.x, dtype=torch.int64)  # winning object index
@@ -141,7 +153,29 @@ def intersect_world(
     is_tri = torch.zeros_like(o.x, dtype=torch.bool)
     tri_n = [torch.zeros_like(o.x)] * 3
 
-    if pack.n_triangles:
+    if pack.n_triangles and pack.paged is not None:
+        if lite and not pack.tri_any_emissive:
+            obj_mtyp = pack.mat[best_mat, 0].to(torch.int32)
+            skip_l = ~(obj_hit & (obj_mtyp == MAT_EMISSIVE))
+            if skip is not None:
+                skip_l = skip_l | skip
+            blocked = bvh_mod.occluded_triangles_paged(o, d, pack, t_min, best_t, skip_l)
+            h = _finish_hit(o, d, pack, best_t, best_m, best_obj, obj_hit, best_mat, is_tri, tri_n)
+            zero = torch.zeros_like(h.emit.x)
+            return h._replace(
+                mtyp=torch.where(blocked, 0, h.mtyp),
+                emit=V3.where(blocked, V3(zero, zero, zero), h.emit),
+            )
+        w = bvh_mod.traverse_triangles_paged(
+            o, d, pack, t_min, best_t, exclude_obj=exclude_obj, skip=skip
+        )
+        improved = w.hit & (w.t < best_t)
+        best_t = torch.where(improved, w.t, best_t)
+        best_m = torch.where(improved, w.obj.to(torch.int64), best_m)
+        best_mat = torch.where(improved, w.mat.to(torch.int64), best_mat)
+        is_tri = improved
+        tri_n = [w.nx, w.ny, w.nz]
+    elif pack.n_triangles:
         tri = pack.host("tri")
         state = dict(best_t=best_t, best_m=best_m, best_mat=best_mat, is_tri=is_tri, n=tri_n)
 
@@ -228,11 +262,19 @@ def _finish_hit(o: V3, d: V3, pack: ScenePack, best_t, best_m, best_obj, obj_hit
     )
 
 
-def occluded(o: V3, d: V3, pack: ScenePack, t_min, t_max):
-    """Any-hit test for shadow rays (hitWorld with tMax = dist - 0.002)."""
+def occluded(o: V3, d: V3, pack: ScenePack, t_min, t_max, skip=None):
+    """Any-hit test for shadow rays (hitWorld with tMax = dist - 0.002).
+
+    ``skip``: bool lanes whose result the caller discards (shadow rays
+    already ruled out by their cosine or distance terms); they enter no
+    page of the paged mesh walk."""
     blocked = torch.zeros_like(o.x, dtype=torch.bool)
     for _m, t, ok in _object_candidates(o, d, pack, t_min):
         blocked = blocked | (ok & (t <= t_max))
+    if pack.n_triangles and pack.paged is not None:
+        return bvh_mod.occluded_triangles_paged(
+            o, d, pack, t_min, t_max, blocked if skip is None else (blocked | skip)
+        )
     if pack.n_triangles:
         state = dict(blocked=blocked)
 

@@ -10,6 +10,9 @@
 * triangles (<= ``STATIC_TRI_MAX``): one 24-float row per BVH-ordered
   triangle ``[v0, e1, e2, mat_idx, obj_idx, smooth, n0, n1, n2, pad]``
   plus ``LEAF_SIZE`` zero rows, and f32[B,6] node bounds.
+* triangles above that: the paged layout of ``ops/bvh.py``, page tiles
+  f32[P,128,32] and entry-test boxes f32[P,k,6]; ``tri`` and
+  ``bvh_bounds`` are then one zero row each.
 
 The tables are built with NumPy exactly as the JAX package builds them and
 then moved to the requested device.  :func:`pack_from_numpy` carries a
@@ -20,12 +23,16 @@ static fields as they are) into this package.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .ops.bvh import LEAF_SIZE, STATIC_TRI_MAX, BvhTopology, build_bvh
+from .ops.bvh import (
+    LEAF_SIZE, N_PAGE_ATTRS, N_SUB_BOXES, PAGE_TRIS, BvhTopology, PagedBvh, build_bvh,
+    build_paged_bvh, page_boxes_table, use_dynamic_walk,
+)
 from .scene.model import Scene
 
 __all__ = [
@@ -74,16 +81,17 @@ _OBJ_CODE = {
     "box": OBJ_BOX,
 }
 
-ARRAY_FIELDS = ("mat", "obj", "light_idx", "cam", "sky", "fog", "tri", "bvh_bounds")
+# the arrays that a pack of the JAX package has under the same names;
+# ``page_boxes`` is this package's own table, derived from ``paged``
+ARRAY_FIELDS = ("mat", "obj", "light_idx", "cam", "sky", "fog", "tri", "bvh_bounds", "page_tiles")
 STATIC_FIELDS = (
     "n_objects", "n_materials", "n_lights", "obj_types", "obj_mats", "light_objs",
-    "mat_types", "mat_uniform", "n_triangles", "tri_mats", "tri_smooth", "bvh", "lens_disk",
+    "mat_types", "mat_uniform", "n_triangles", "tri_mats", "tri_smooth", "bvh", "paged", "lens_disk",
 )
 
-_MESH_TODO = (
-    "scenes with more than %d triangles need the paged BVH walk, which is "
-    "not ported yet (ROADMAP.md Queue A item 7, kernel B2)" % STATIC_TRI_MAX
-)
+# paged build products keyed by triangle content and device: re-rendering
+# the same mesh (camera or light edits) reuses the tensors on the device
+_BVH_BUILD_CACHE: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,12 +118,22 @@ class ScenePack:
     tri_mats: tuple = ()
     tri_smooth: tuple = ()
     bvh: Optional[BvhTopology] = None
+    page_tiles: Optional[torch.Tensor] = None  # f32[max(P,1), 128, 32]
+    page_boxes: Optional[torch.Tensor] = None  # f32[max(P,1), k, 6]
+    paged: Optional[PagedBvh] = None
     lens_disk: bool = False
     _host: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @property
     def device(self) -> torch.device:
         return self.mat.device
+
+    @property
+    def tri_any_emissive(self) -> bool:
+        """Whether any mesh triangle carries an emissive material.  When
+        none does, a ``lite`` mesh query can only find the mesh as an
+        occluder of the object sweep's winner (ops/geometry.py)."""
+        return any(self.mat_types[mi] == MAT_EMISSIVE for mi in set(self.tri_mats))
 
     def host(self, name: str) -> np.ndarray:
         """A NumPy copy of one table, read once: the plain versions take
@@ -191,8 +209,8 @@ def pack_scene(sc: Scene, width: int = 0, height: int = 0, device="cuda") -> Sce
     """Pack a :class:`Scene` into SoA tensors on ``device`` (gpu.go:1813-2104).
 
     ``width``/``height`` feed the camera-aspect fallback (gpu.go:1972-1975).
-    Raises NotImplementedError above STATIC_TRI_MAX triangles.
     """
+    device = resolve_device(device)
     m_count = len(sc.materials)
     mat = np.zeros((max(m_count, 1), MAT_STRIDE), dtype=np.float32)
     for i, m in enumerate(sc.materials):
@@ -298,14 +316,40 @@ def pack_scene(sc: Scene, width: int = 0, height: int = 0, device="cuda") -> Sce
             fog_block[13] = min(f.noise_octaves, 5)
 
     t_count, blocks = _mesh_blocks(sc, mat_index)
-    if t_count > STATIC_TRI_MAX:
-        raise NotImplementedError(_MESH_TODO)
+    if o_count + t_count >= 2**24:
+        raise ValueError(
+            f"scene has {o_count + t_count} objects+triangles; float32 index "
+            "columns in the triangle tables are exact only below 2^24"
+        )
     topo = None
+    paged, paged_tables = None, {}
     bvh_bounds = np.zeros((1, 6), np.float32)
     tri_rows = np.zeros((1, 24), np.float32)
     tri_mat_list, tri_smooth_list = np.zeros((0,), np.int64), np.zeros((0,), bool)
     if t_count:
         v0, e1, e2, tri_mat_list, tri_smooth_list, tri_vn = blocks
+    if t_count and use_dynamic_walk(t_count):
+        tri_obj = np.arange(o_count, o_count + t_count, dtype=np.int64)
+        key = hashlib.sha1(str(device).encode())
+        for arr in (v0, e1, e2, tri_mat_list, tri_obj, tri_smooth_list, tri_vn):
+            key.update(np.ascontiguousarray(arr).tobytes())
+        key = key.hexdigest()
+        cached = _BVH_BUILD_CACHE.pop(key, None)
+        if cached is None:
+            paged, tiles_np, _page_bbox = build_paged_bvh(
+                v0, e1, e2, tri_mat_list, tri_obj, tri_smooth_list, tri_vn
+            )
+            cached = (
+                paged,
+                torch.from_numpy(tiles_np).to(device),
+                torch.from_numpy(page_boxes_table(paged)).to(device),
+            )
+            if len(_BVH_BUILD_CACHE) >= 4:  # scenes are few
+                _BVH_BUILD_CACHE.pop(next(iter(_BVH_BUILD_CACHE)))
+        _BVH_BUILD_CACHE[key] = cached  # newest last
+        paged = cached[0]
+        paged_tables = dict(page_tiles=cached[1], page_boxes=cached[2])
+    elif t_count:
         topo, bvh_bounds = build_bvh(v0, e1, e2)
         tri_rows = np.zeros((t_count + LEAF_SIZE, 24), np.float32)
         for bvh_i, orig in enumerate(topo.order):
@@ -323,7 +367,7 @@ def pack_scene(sc: Scene, width: int = 0, height: int = 0, device="cuda") -> Sce
 
     arrays = dict(
         mat=mat, obj=obj, light_idx=light_idx, cam=cam_block, sky=sky_block,
-        fog=fog_block, tri=tri_rows, bvh_bounds=bvh_bounds,
+        fog=fog_block, tri=tri_rows, bvh_bounds=bvh_bounds, **paged_tables,
     )
     static = dict(
         n_objects=o_count,
@@ -341,6 +385,7 @@ def pack_scene(sc: Scene, width: int = 0, height: int = 0, device="cuda") -> Sce
         tri_mats=tuple(tri_mat_list),
         tri_smooth=tuple(tri_smooth_list),
         bvh=topo,
+        paged=paged,
         lens_disk=(getattr(sc.camera, "lens", "ball") == "disk"),
     )
     return pack_from_numpy(arrays, static, device=device)
@@ -350,19 +395,32 @@ def pack_from_numpy(arrays: dict, static: dict, device="cuda") -> ScenePack:
     """Build a pack on ``device`` from NumPy arrays and static fields.
 
     ``arrays`` maps each name of ARRAY_FIELDS to an array (for example
-    ``np.asarray`` of the same field of a JAX ``ScenePack``); other keys
-    are ignored.  ``static`` maps the names of STATIC_FIELDS to their
-    values; ``bvh`` may be any object with ``miss``/``first``/``count``/
-    ``order`` sequences.  Packs over STATIC_TRI_MAX triangles raise
-    NotImplementedError.
+    ``np.asarray`` of the same field of a JAX ``ScenePack``) or to a tensor
+    that is already on ``device``; other keys are ignored.  ``page_tiles``
+    may be left out of a pack without pages, and ``page_boxes`` always: it
+    is then derived from ``paged``.  ``static`` maps the names of
+    STATIC_FIELDS to their values; ``bvh`` may be any object with
+    ``miss``/``first``/``count``/``order`` sequences and ``paged`` any
+    object with the fields of :class:`PagedBvh`.
     """
-    if int(static.get("n_triangles", 0)) > STATIC_TRI_MAX:
-        raise NotImplementedError(_MESH_TODO)
     device = resolve_device(device)
     dtypes = dict(light_idx=torch.int32)
 
+    paged = static.get("paged")
+    if paged is not None and not isinstance(paged, PagedBvh):
+        paged = PagedBvh(**{f.name: getattr(paged, f.name) for f in dataclasses.fields(PagedBvh)})
+    arrays = dict(arrays)
+    if paged is None:
+        arrays["page_tiles"] = np.zeros((1, PAGE_TRIS, N_PAGE_ATTRS), np.float32)
+        arrays["page_boxes"] = np.zeros((1, N_SUB_BOXES, 6), np.float32)
+    elif arrays.get("page_boxes") is None:
+        arrays["page_boxes"] = page_boxes_table(paged)
+
     def tensor(name):
-        a = np.array(arrays[name], copy=True)  # writable, contiguous
+        a = arrays[name]
+        if isinstance(a, torch.Tensor):
+            return a.to(device=device, dtype=dtypes.get(name, torch.float32)).contiguous()
+        a = np.array(a, copy=True)  # writable, contiguous
         return torch.from_numpy(a).to(device=device, dtype=dtypes.get(name, torch.float32))
 
     bvh = static.get("bvh")
@@ -373,8 +431,8 @@ def pack_from_numpy(arrays: dict, static: dict, device="cuda") -> ScenePack:
             count=tuple(int(v) for v in bvh.count),
             order=tuple(int(v) for v in bvh.order),
         )
-    kw = {k: static[k] for k in STATIC_FIELDS if k in static and k != "bvh"}
+    kw = {k: static[k] for k in STATIC_FIELDS if k in static and k not in ("bvh", "paged")}
     for k in ("tri_mats", "tri_smooth"):
         if k in kw:
             kw[k] = tuple(v.item() if hasattr(v, "item") else v for v in kw[k])
-    return ScenePack(**{n: tensor(n) for n in ARRAY_FIELDS}, bvh=bvh, **kw)
+    return ScenePack(**{n: tensor(n) for n in ARRAY_FIELDS + ("page_boxes",)}, bvh=bvh, paged=paged, **kw)

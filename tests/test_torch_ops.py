@@ -132,19 +132,6 @@ def test_pack_from_numpy_roundtrip(name):
         assert getattr(carried, f) == getattr(own, f), f
 
 
-@pytest.mark.parametrize("name", MESH_SCENES)
-def test_large_meshes_raise_until_ported(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsoa.pack_scene(getattr(TB, name)(), 64, 36, device="cpu")
-    jp = jsoa.pack_scene(getattr(JB, name)(), 64, 36)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsoa.pack_from_numpy(
-            {f: np.asarray(getattr(jp, f)) for f in tsoa.ARRAY_FIELDS},
-            {"n_triangles": jp.n_triangles},
-            device="cpu",
-        )
-
-
 # ---------------------------------------------------------------------------
 # RNG: bit-exact
 # ---------------------------------------------------------------------------
