@@ -85,6 +85,18 @@ MESH_KEY = f"mesh2page:gpu:{W}x{H}:spp{SPP}:d{DEPTH}:seed{SEED}"
 LIGHTS_KEY = f"lights10:gpu:{W}x{H}:spp{SPP}:d3:seed{SEED}"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The plain walk runs thousands of (128, N) tensor ops that are just
+    large enough for PyTorch to split across threads; beside other test
+    workers on the same cores that splitting costs far more than it saves
+    (a pass that takes 2 s alone took minutes).  One thread for this file."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 # ---------------------------------------------------------------------------
 # scenes, built alike in both packages
 # ---------------------------------------------------------------------------
