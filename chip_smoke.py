@@ -20,12 +20,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    1920x1080, depth 12, one 8-pass window, one warm-up and 3 timed renders;
 5. check that the main path launched the kernel and never called the plain
    version;
-6. time the kernel with CUDA events at the main path's shape and the plain
-   version at 256x144; count the f32 operations the main path's inputs
-   need with the counting variant and derive the kernel's bound;
+6. time the kernel with CUDA events at the main path's shape and at
+   256x144, where phase 3 timed the plain version on the same inputs; count
+   the f32 operations the main path's inputs need with the counting variant
+   and derive the kernel's bound;
 7. hold the kernel against its plain version at the main path's own
    arguments (1920x1080, depth 12, frame seed 1, one 8-pass window): the
-   lanes that phase 6's full-size chunks produced, on 2,048 lanes strided
+   lanes that phase 6's full-size chunks produced, on 8,192 lanes strided
    over the frame, to the same bands as phase 3.
 
 8. the paged walk alone (pt_paged_walk, the device functions that the
@@ -46,14 +47,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     run on the kernel alone;
 12. time the whole-pass kernel on that frame and count its operations; time
     the walk alone on the frame's 262,144 primary rays, its plain version on
-    the same rays, count its operations and the bytes it must move, and
-    derive its bound.
+    the same rays, hold the two against each other bit for bit on every one
+    of those rays (closest hit and any hit), count the walk's operations and
+    the bytes it must move, and derive its bound;
+13. hold the whole-pass kernel against its plain version at the mesh path's
+    own arguments (bench_mesh 512x512, depth 8, frame seed 1, one 8-pass
+    window): the lanes that phase 12's full-size launch produced, on 2,048
+    lanes strided over the frame, to the same bands as phase 3.
 
-The third-to-last line is a JSON object describing every kernel
+The line before the last three says how long the phases took in all.  The
+third-to-last line is a JSON object describing every kernel
 (``max_abs_err`` is the largest the comparisons of that kernel found); the
 second-to-last is the card's name and power limit; the last line is
 {"ok": true, "device": {...}}.  ``--quick`` runs phases 1-3 only, at 64x36
 and depth 4.
+
+``--render-only [scene width height passes depth renders]`` (defaults:
+demo_showcase 1920 1080 8 12 5) times the Renderer alone with the code of
+phases 4 and 11: one warm-up render, which also builds the kernel, then
+``renders`` timed ones, and one JSON line with Mrays/s and wall seconds
+(median, min, max), segments, launches per render and ptxas' report.  It
+imports the package that lies beside the script, so a copy of this file in
+the root of another commit's tree times that commit: to compare two commits,
+run them in turns in one shell on one card.
 """
 
 from __future__ import annotations
@@ -70,7 +86,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores, 700 W
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 DEVICE = "cuda"  # every tensor of this script lives on the card
-MAIN_CHECK_LANES = 2048  # lanes of the 1080p frame held to the plain version in phase 7
+MAIN_CHECK_LANES = 8192  # lanes of the 1080p frame held to the plain version in phase 7
+MESH_CHECK_LANES = 2048  # lanes of the 512x512 mesh frame held to the plain version in phase 13
+COUNTERS = ("LAUNCHES", "PAGED_LAUNCHES", "WALK_LAUNCHES", "PLAIN_CALLS", "WALK_PLAIN_CALLS")
 
 
 def smi_line() -> str:
@@ -152,19 +170,20 @@ def lanes(w, h, start=0, count=None):
 
 def hold_pass(pt, cuda_trace, tag, name, w, h, depth, passes=(1, 2)):
     """Whole-pass kernel against its plain version for one scene: prints a
-    line per window size, returns (all within the bands, largest |a-b|)."""
+    line per window size, returns (all within the bands, largest |a-b|,
+    the plain version's seconds per window size)."""
     import torch
 
     _sc, pack, kw = scene_setup(pt, name, w, h, depth)
     px, py = lanes(w, h)
-    good, worst = True, 0.0
+    good, worst, plain_secs = True, 0.0, {}
     for n_passes in passes:
         col_k, segs_k = cuda_trace.render_pass_cuda(pack, 7, px, py, n_passes=n_passes, **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         col_p, segs_p = cuda_trace.render_pass_plain(pack, 7, px, py, n_passes=n_passes, **kw)
         torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
+        plain_s = plain_secs[n_passes] = time.perf_counter() - t0
         share, seg_gap, mean_gap, err = lane_stats(col_k.to_rows(), col_p.to_rows(), segs_k, segs_p)
         worst = max(worst, err)
         print(
@@ -174,7 +193,71 @@ def hold_pass(pt, cuda_trace, tag, name, w, h, depth, passes=(1, 2)):
             flush=True,
         )
         good = good and share >= 0.95 and seg_gap <= 0.02 and mean_gap <= 0.01
-    return good, worst
+    return good, worst, plain_secs
+
+
+def hold_frame_lanes(cuda_trace, tag, label, pack, kw, frame_cols, w, n_check, n_passes):
+    """Whole-pass kernel against its plain version at a driven path's own
+    arguments (frame seed 1, the window's reseed schedule): the plain version
+    runs on ``n_check`` lanes strided over the frame and is held against
+    ``frame_cols``, the lanes that the full-size launches produced.  Returns
+    (within the bands, largest |a-b|, seconds of the plain version), or None
+    if a lane's result depends on the launch it ran in."""
+    import torch
+
+    stride = frame_cols.shape[0] // n_check
+    sub = torch.arange(n_check, device=DEVICE, dtype=torch.int64) * stride + stride // 2
+    spx, spy = (sub % w).to(torch.int32), torch.div(sub, w, rounding_mode="floor").to(torch.int32)
+    t0 = time.perf_counter()
+    col_p, segs_p = cuda_trace.render_pass_plain(pack, 1, spx, spy, n_passes=n_passes, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    col_k, segs_k = cuda_trace.render_pass_cuda(pack, 1, spx, spy, n_passes=n_passes, **kw)
+    torch.cuda.synchronize()
+    from_frame = frame_cols[sub]
+    if not torch.equal(col_k.to_rows(), from_frame):
+        return None
+    share, seg_gap, mean_gap, err = lane_stats(from_frame, col_p.to_rows(), segs_k, segs_p)
+    print(
+        f"[{tag}] {label} n_passes={n_passes}, {n_check} lanes at stride {stride} "
+        f"(kernel lanes from the full-size launches): lanes matching {share:.4%}, segments "
+        f"{int(segs_k)} vs {int(segs_p)} (gap {seg_gap:.4%}), channel-mean gap {mean_gap:.4%}, "
+        f"max |a-b| {err:.4g}; plain version {plain_s:.1f} s",
+        flush=True,
+    )
+    return share >= 0.95 and seg_gap <= 0.02 and mean_gap <= 0.01, err, plain_s
+
+
+def drive_renderer(pt, cuda_trace, tag, name, w, h, passes, depth, renders, card):
+    """Drive Renderer(contract="gpu") on a built-in scene: every count set to
+    0, one warm-up render, ``renders`` timed ones, the counts read.  Returns
+    the rates, walls, last image and statistics and the counts."""
+    from path_trace_golang_tpu_torch.scene import builtin
+
+    sc, cfg = getattr(builtin, name)(), pt.RenderConfig(w, h, passes, depth)
+    for c in COUNTERS:
+        setattr(cuda_trace, c, 0)
+    r = pt.Renderer(contract="gpu", seed=1)
+    img = r.render(sc, cfg)  # warm-up
+    print(f"[{tag}] warm-up: {r.stats.wall_seconds:.3f} s, {r.stats.mrays_per_sec:.2f} Mrays/s", flush=True)
+    rates, walls = [], []
+    for i in range(renders):
+        img = r.render(sc, cfg)
+        rates.append(r.stats.mrays_per_sec)
+        walls.append(r.stats.wall_seconds)
+        print(f"[{tag}] render {i}: {r.stats}  ({card})", flush=True)
+    counts = {c: getattr(cuda_trace, c) for c in COUNTERS}
+    out = dict(rates=rates, walls=walls, img=img, stats=r.stats, counts=counts,
+               plain_calls=counts["PLAIN_CALLS"] + counts["WALK_PLAIN_CALLS"])
+    print(
+        f"[{tag}] {name} {w}x{h} d{depth} {passes} passes: {statistics.median(rates):.3f} Mrays/s median "
+        f"(min {min(rates):.3f}, max {max(rates):.3f}), wall {statistics.median(walls):.4f} s median, "
+        f"segments {r.stats.ray_segments}, nonfinite {r.stats.nonfinite}, image mean {img.mean():.4f} "
+        f"std {img.std():.4f}; kernel launches {counts['LAUNCHES']} ({renders + 1} renders), of them with "
+        f"pages {counts['PAGED_LAUNCHES']}, plain calls {out['plain_calls']} | card {card}",
+        flush=True,
+    )
+    return out
 
 
 def walk_rays(pack, w, h, n_cam, n_rand, seed):
@@ -205,6 +288,24 @@ def walk_rays(pack, w, h, n_cam, n_rand, seed):
     return o, d
 
 
+def walk_diff(k, p):
+    """Closest-hit results of the walk, kernel ``k`` against plain version
+    ``p``: the fields whose bits differ on some ray, and the largest |a-b|
+    over t and the normal on the rays that hit."""
+    import torch
+
+    bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x  # noqa: E731
+    fields = ("hit", "key", "page", "t", "nx", "ny", "nz", "mat", "obj")
+    bad = [f for f in fields if not torch.equal(bits(getattr(k, f)), bits(getattr(p, f)))]
+    hit = p.hit
+    err = max(
+        (torch.nan_to_num((getattr(k, f) - getattr(p, f)).abs()[hit], nan=float("inf")).max().item()
+         if bool(hit.any()) else 0.0)
+        for f in ("t", "nx", "ny", "nz")
+    )
+    return bad, err
+
+
 def hold_walk(cuda_trace, tag, name, pack, o, d, seed):
     """The paged walk alone, kernel against plain version, bit for bit.
     Returns (identical on every ray, largest |a-b| over t and the normal)."""
@@ -231,15 +332,8 @@ def hold_walk(cuda_trace, tag, name, pack, o, d, seed):
         torch.cuda.synchronize()
         p = bvh.traverse_triangles_paged(o, d, pack, 0.001, **kw)
         torch.cuda.synchronize()
-        bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x  # noqa: E731
-        fields = ("hit", "key", "page", "t", "nx", "ny", "nz", "mat", "obj")
-        bad = [f for f in fields if not torch.equal(bits(getattr(k, f)), bits(getattr(p, f)))]
+        bad, err = walk_diff(k, p)
         hit = p.hit
-        err = max(
-            (torch.nan_to_num((getattr(k, f) - getattr(p, f)).abs()[hit], nan=float("inf")).max().item()
-             if bool(hit.any()) else 0.0)
-            for f in ("t", "nx", "ny", "nz")
-        )
         worst = max(worst, err)
         print(
             f"[{tag}] walk alone, {name} ({pack.paged.n_pages} pages), closest hit, {case}: {n} rays, "
@@ -280,6 +374,7 @@ def cuda_time_ms(fn, reps):
 
 def main(argv) -> int:
     quick = "--quick" in argv
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -298,6 +393,29 @@ def main(argv) -> int:
     card = smi_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[1] card: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+
+    if "--render-only" in argv:
+        args = argv[argv.index("--render-only") + 1:]
+        name = args[0] if args else "demo_showcase"
+        w, h, passes, depth, renders = (int(a) for a in (args[1:6] + ["1920", "1080", "8", "12", "5"][len(args[1:6]):]))
+        run = drive_renderer(pt, cuda_trace, "render", name, w, h, passes, depth, renders, card)
+        print(json.dumps({
+            "scene": name, "width": w, "height": h, "passes": passes, "depth": depth, "renders": renders,
+            "card": card, "tree": HERE,
+            "mrays_per_sec": {"median": statistics.median(run["rates"]), "min": min(run["rates"]),
+                              "max": max(run["rates"])},
+            "wall_seconds": {"median": statistics.median(run["walls"]), "min": min(run["walls"]),
+                             "max": max(run["walls"])},
+            "segments": run["stats"].ray_segments, "nonfinite": run["stats"].nonfinite,
+            "launches_per_render": run["counts"]["LAUNCHES"] / (renders + 1),
+            "ptxas": [ln.strip() for ln in cuda_trace.BUILD_LOG.splitlines() if "registers" in ln or "spill" in ln],
+        }))
+        if run["stats"].nonfinite != 0 or run["counts"]["LAUNCHES"] <= 0 or run["plain_calls"] != 0:
+            print("[render] FAIL: non-finite entries, or the render did not run on the kernel alone", file=sys.stderr)
+            return 1
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- 2. build
     t0 = time.perf_counter()
@@ -318,8 +436,10 @@ def main(argv) -> int:
     cw, ch, cdepth = (64, 36, 4) if quick else (256, 144, 12)
     max_abs_err = 0.0
     for name in ("demo_showcase", "demo_cornell"):
-        good, err = hold_pass(pt, cuda_trace, "3", name, cw, ch, cdepth)
+        good, err, plain_secs = hold_pass(pt, cuda_trace, "3", name, cw, ch, cdepth)
         max_abs_err = max(max_abs_err, err)
+        if name == "demo_showcase":
+            plain_ms = plain_secs[1] * 1e3  # the plain version's time that the kernels line reports
         if not good:
             print("[3] FAIL: kernel disagrees with its plain version", file=sys.stderr)
             return 1
@@ -340,29 +460,9 @@ def main(argv) -> int:
         return 0
 
     # ---- 4. main path: the Renderer at 1080p, depth 12, one 8-pass window
-    sc = builtin.demo_showcase()
-    cfg = pt.RenderConfig(1920, 1080, 8, 12)
-    cuda_trace.LAUNCHES = 0
-    cuda_trace.PLAIN_CALLS = 0
-    r = pt.Renderer(contract="gpu", seed=1)
-    img = r.render(sc, cfg)  # warm-up
-    print(f"[4] warm-up: {r.stats.wall_seconds:.3f} s, {r.stats.mrays_per_sec:.2f} Mrays/s", flush=True)
-    rates, walls, stats = [], [], []
-    for i in range(3):
-        img = r.render(sc, cfg)
-        rates.append(r.stats.mrays_per_sec)
-        walls.append(r.stats.wall_seconds)
-        stats.append(r.stats)
-        print(f"[4] render {i}: {r.stats}  ({card})", flush=True)
-    launches, plain_calls = cuda_trace.LAUNCHES, cuda_trace.PLAIN_CALLS
-    last = stats[-1]
-    print(
-        f"[4] demo_showcase 1920x1080 d12 8 passes: {statistics.median(rates):.3f} Mrays/s median "
-        f"(min {min(rates):.3f}, max {max(rates):.3f}), wall {statistics.median(walls):.4f} s median, "
-        f"segments {last.ray_segments}, nonfinite {last.nonfinite}, image mean {img.mean():.4f} "
-        f"| card {card}",
-        flush=True,
-    )
+    main_run = drive_renderer(pt, cuda_trace, "4", "demo_showcase", 1920, 1080, 8, 12, 3, card)
+    img, last = main_run["img"], main_run["stats"]
+    launches, plain_calls = main_run["counts"]["LAUNCHES"], main_run["plain_calls"]
     if img.shape != (1080, 1920, 3) or str(img.dtype) != "uint8":
         print(f"[4] FAIL: image {img.shape} {img.dtype}", file=sys.stderr)
         return 1
@@ -376,7 +476,7 @@ def main(argv) -> int:
         print("[5] FAIL: the main path did not run on the kernel alone", file=sys.stderr)
         return 1
 
-    # ---- 6. time the kernel (main-path shape) and the plain version (256x144)
+    # ---- 6. time the kernel (main-path shape, and 256x144 where phase 3 timed the plain version)
     _, pack, kw = scene_setup(pt, "demo_showcase", 1920, 1080, 12)
     chunk = pt.render.env_config.get_chunk_size()
     n = 1920 * 1080
@@ -406,43 +506,24 @@ def main(argv) -> int:
     _, spack, skw = scene_setup(pt, "demo_showcase", 256, 144, 12)
     spx, spy = lanes(256, 144)
     small_k = cuda_time_ms(lambda: cuda_trace.render_pass_cuda(spack, 7, spx, spy, n_passes=1, **skw), 3)
-    plain_ms = cuda_time_ms(lambda: cuda_trace.render_pass_plain(spack, 7, spx, spy, n_passes=1, **skw), 1)
     print(
         f"[6] kernel: {ms:.3f} ms per 1920x1080 8-pass window ({len(chunks)} launches, "
         f"{segments} segments, {segments / ms / 1e3:.2f} Mrays/s); bound {bound_ms:.4f} ms "
         f"({ops:.6g} f32 operations, {ops / segments:.1f} per segment, "
         f"{ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved); at 256x144 1 pass: kernel {small_k:.3f} ms, "
-        f"plain {plain_ms:.1f} ms | card {card}",
+        f"plain {plain_ms:.1f} ms (phase 3's run of it on the same inputs) | card {card}",
         flush=True,
     )
 
     # ---- 7. kernel vs plain version at the main path's own arguments
-    # (1920x1080 camera mapping, frame seed 1, the 8-pass reseed schedule):
-    # the plain version runs on a strided subset of the frame's lanes, held
-    # against the lanes that the full-size chunks of phase 6 produced
-    stride = n // MAIN_CHECK_LANES
-    sub = torch.arange(MAIN_CHECK_LANES, device=DEVICE, dtype=torch.int64) * stride + stride // 2
-    spx, spy = (sub % 1920).to(torch.int32), torch.div(sub, 1920, rounding_mode="floor").to(torch.int32)
-    t0 = time.perf_counter()
-    col_p, segs_p = cuda_trace.render_pass_plain(pack, 1, spx, spy, n_passes=8, **kw)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    col_k, segs_k = cuda_trace.render_pass_cuda(pack, 1, spx, spy, n_passes=8, **kw)
-    torch.cuda.synchronize()
-    from_chunks = frame_cols[sub]
-    if not torch.equal(col_k.to_rows(), from_chunks):
+    # (1920x1080 camera mapping, frame seed 1, the 8-pass reseed schedule)
+    held = hold_frame_lanes(cuda_trace, "7", "demo_showcase 1920x1080 d12", pack, kw, frame_cols, 1920,
+                            MAIN_CHECK_LANES, 8)
+    if held is None:
         print("[7] FAIL: a lane's result depends on the launch it ran in", file=sys.stderr)
         return 1
-    share, seg_gap, mean_gap, err = lane_stats(from_chunks, col_p.to_rows(), segs_k, segs_p)
-    max_abs_err = max(max_abs_err, err)
-    print(
-        f"[7] demo_showcase 1920x1080 d12 n_passes=8, {MAIN_CHECK_LANES} lanes at stride {stride} "
-        f"(kernel lanes from the full-size chunks): lanes matching {share:.4%}, segments "
-        f"{int(segs_k)} vs {int(segs_p)} (gap {seg_gap:.4%}), channel-mean gap {mean_gap:.4%}, "
-        f"max |a-b| {err:.4g}; plain version {plain_s:.1f} s",
-        flush=True,
-    )
-    if not (share >= 0.95 and seg_gap <= 0.02 and mean_gap <= 0.01):
+    max_abs_err = max(max_abs_err, held[1])
+    if not held[0]:
         print("[7] FAIL: kernel disagrees with its plain version at the main path's arguments", file=sys.stderr)
         return 1
 
@@ -458,44 +539,22 @@ def main(argv) -> int:
     # ---- 9. the whole-pass kernel on mesh scenes; 10. on more than 8 lights
     for tag, name, w, h, depth in (("9", "demo_mesh", 192, 192, 8), ("9", "bench_mesh", 192, 192, 8),
                                    ("10", "many_lights", 192, 108, 6)):
-        good, err = hold_pass(pt, cuda_trace, tag, name, w, h, depth)
+        good, err, _secs = hold_pass(pt, cuda_trace, tag, name, w, h, depth)
         max_abs_err = max(max_abs_err, err)
         if not good:
             print(f"[{tag}] FAIL: kernel disagrees with its plain version on {name}", file=sys.stderr)
             return 1
 
     # ---- 11. the mesh path at full width: bench_mesh 512x512, depth 8, one 8-pass window
-    msc = builtin.bench_mesh()
-    mcfg = pt.RenderConfig(512, 512, 8, 8)
-    cuda_trace.LAUNCHES = cuda_trace.PAGED_LAUNCHES = cuda_trace.PLAIN_CALLS = 0
-    cuda_trace.WALK_LAUNCHES = cuda_trace.WALK_PLAIN_CALLS = 0
-    mr = pt.Renderer(contract="gpu", seed=1)
-    mimg = mr.render(msc, mcfg)  # warm-up
-    print(f"[11] warm-up: {mr.stats.wall_seconds:.3f} s, {mr.stats.mrays_per_sec:.2f} Mrays/s", flush=True)
-    mrates, mwalls = [], []
-    for i in range(3):
-        mimg = mr.render(msc, mcfg)
-        mrates.append(mr.stats.mrays_per_sec)
-        mwalls.append(mr.stats.wall_seconds)
-        print(f"[11] render {i}: {mr.stats}  ({card})", flush=True)
-    mesh_launches, paged_launches = cuda_trace.LAUNCHES, cuda_trace.PAGED_LAUNCHES
-    mesh_plain = cuda_trace.PLAIN_CALLS + cuda_trace.WALK_PLAIN_CALLS
-    mlast = mr.stats
-    print(
-        f"[11] bench_mesh 512x512 d8 8 passes: {statistics.median(mrates):.3f} Mrays/s median "
-        f"(min {min(mrates):.3f}, max {max(mrates):.3f}), wall {statistics.median(mwalls):.4f} s median, "
-        f"segments {mlast.ray_segments}, nonfinite {mlast.nonfinite}, image mean {mimg.mean():.4f} "
-        f"std {mimg.std():.4f}; "
-        f"kernel launches {mesh_launches}, of them with pages {paged_launches}, plain calls {mesh_plain} "
-        f"| card {card}",
-        flush=True,
-    )
+    mesh_run = drive_renderer(pt, cuda_trace, "11", "bench_mesh", 512, 512, 8, 8, 3, card)
+    mimg, mlast = mesh_run["img"], mesh_run["stats"]
+    mesh_launches, paged_launches = mesh_run["counts"]["LAUNCHES"], mesh_run["counts"]["PAGED_LAUNCHES"]
     # the scene is bright by design (sky 0.8-1.0, a 40x light): the mean sits near 254,
     # so blank is told by the spread, not by the mean
     if mimg.shape != (512, 512, 3) or mlast.nonfinite != 0 or float(mimg.mean()) <= 5.0 or float(mimg.std()) <= 1.0:
         print("[11] FAIL: wrong shape, non-finite accumulator entries or a blank image", file=sys.stderr)
         return 1
-    if paged_launches <= 0 or paged_launches != mesh_launches or mesh_plain != 0:
+    if paged_launches <= 0 or paged_launches != mesh_launches or mesh_run["plain_calls"] != 0:
         print("[11] FAIL: the mesh path did not run on the kernel alone", file=sys.stderr)
         return 1
 
@@ -503,16 +562,19 @@ def main(argv) -> int:
     _, mpack, mkw = scene_setup(pt, "bench_mesh", 512, 512, 8)
     mn = 512 * 512
     mchunks = [lanes(512, 512, st, min(chunk, mn - st)) for st in range(0, mn, chunk)]
-    mseg_box = []
+    mseg_box, mcol_box = [], []
 
     def mesh_frame():
         mseg_box.clear()
+        mcol_box.clear()
         for px, py in mchunks:
-            _col, segs = cuda_trace.render_pass_cuda(mpack, 1, px, py, n_passes=8, **mkw)
+            col, segs = cuda_trace.render_pass_cuda(mpack, 1, px, py, n_passes=8, **mkw)
             mseg_box.append(segs)
+            mcol_box.append(col)
 
     mesh_ms = cuda_time_ms(mesh_frame, 3)
     mesh_segments = int(sum(int(sg) for sg in mseg_box))
+    mesh_cols = torch.cat([c.to_rows() for c in mcol_box])
     mcounted = [cuda_trace.count_ops_split(mpack, 1, px, py, n_passes=8, **mkw) for px, py in mchunks]
     mesh_ops, mesh_walk_ops, mesh_walk_cycles, mesh_cycles = (
         sum(c[k] for c in mcounted) for k in ("ops", "walk_ops", "walk_cycles", "cycles"))
@@ -537,22 +599,50 @@ def main(argv) -> int:
     occl_ms = cuda_time_ms(lambda: cuda_trace.paged_occluded(wo, wd, mpack, 0.001, far, far < 0), 5)
     from path_trace_golang_tpu_torch.ops import bvh as bvh_ops
 
-    walk_plain_ms = cuda_time_ms(lambda: bvh_ops.traverse_triangles_paged(wo, wd, mpack, 0.001, far), 1)
+    walk_box = []
+    walk_plain_ms = cuda_time_ms(
+        lambda: walk_box.append(bvh_ops.traverse_triangles_paged(wo, wd, mpack, 0.001, far)), 1)
+    # the plain version's results on the whole frame are there now: hold the kernel to them
+    walk_k = cuda_trace.paged_traverse(wo, wd, mpack, 0.001, far)
+    bad, err = walk_diff(walk_k, walk_box[0])
+    walk_err = max(walk_err, err)
+    occl_differ = int((cuda_trace.paged_occluded(wo, wd, mpack, 0.001, far, far < 0)
+                       != bvh_ops.occluded_triangles_paged(wo, wd, mpack, 0.001, far, far < 0)).sum())
     walk_ops = cuda_trace.paged_count_ops(wo, wd, mpack, 0.001, best_t=far)
     # bytes the walk must move: the page tables once, 8 floats, an excluded
     # id and a skip byte per ray in, 2 ints and 6 floats per ray out
     walk_bytes = mpack.page_tiles.numel() * 4 + mpack.page_boxes.numel() * 4 + mn * (8 * 4 + 4 + 1) + mn * 8 * 4
     walk_by_ops, walk_by_bytes = walk_ops / PEAK_F32_FLOPS * 1e3, walk_bytes / PEAK_BYTES * 1e3
     walk_bound_ms = max(walk_by_ops, walk_by_bytes)
-    hits = int(cuda_trace.paged_traverse(wo, wd, mpack, 0.001, far).hit.sum())
+    hits = int(walk_k.hit.sum())
     print(
         f"[12] walk alone on {mn} primary rays of bench_mesh ({mpack.paged.n_pages} pages, {hits} hits): "
         f"closest hit {walk_ms:.3f} ms, any hit {occl_ms:.3f} ms, plain version {walk_plain_ms:.1f} ms; "
         f"{walk_ops:.6g} f32 operations ({walk_by_ops:.4f} ms at peak), {walk_bytes} bytes "
-        f"({walk_by_bytes:.4f} ms at peak): bound {walk_bound_ms:.4f} ms | card {card}",
+        f"({walk_by_bytes:.4f} ms at peak): bound {walk_bound_ms:.4f} ms; against the plain version on all "
+        f"{mn} rays: closest-hit fields that differ: {bad or 'none'}, max |a-b| over t and normal {err:.4g}, "
+        f"any-hit rays that differ: {occl_differ} | card {card}",
         flush=True,
     )
+    if bad or occl_differ:
+        print("[12] FAIL: the paged walk disagrees with its plain version on the frame's primary rays",
+              file=sys.stderr)
+        return 1
 
+    # ---- 13. kernel vs plain version at the mesh path's own arguments
+    # (512x512 camera mapping, frame seed 1, the 8-pass reseed schedule, 80 pages)
+    held = hold_frame_lanes(cuda_trace, "13", "bench_mesh 512x512 d8", mpack, mkw, mesh_cols, 512,
+                            MESH_CHECK_LANES, 8)
+    if held is None:
+        print("[13] FAIL: a lane's result depends on the launch it ran in", file=sys.stderr)
+        return 1
+    max_abs_err = max(max_abs_err, held[1])
+    mesh_check_err = held[1]
+    if not held[0]:
+        print("[13] FAIL: kernel disagrees with its plain version at the mesh path's arguments", file=sys.stderr)
+        return 1
+
+    print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": "render_pass",
         "route": "cuda",
@@ -569,12 +659,14 @@ def main(argv) -> int:
         "plain_shape": "demo_showcase 256x144 d12, 1 pass",
         "max_abs_err_over": f"256x144 d12 n_passes 1 and 2 (showcase, cornell); 1920x1080 d12 n_passes 8, "
                             f"{MAIN_CHECK_LANES} strided lanes (showcase); 192x192 d8 n_passes 1 and 2 "
-                            f"(demo_mesh, bench_mesh); 192x108 d6 n_passes 1 and 2 (12 lights)",
+                            f"(demo_mesh, bench_mesh); 192x108 d6 n_passes 1 and 2 (12 lights); 512x512 d8 "
+                            f"n_passes 8, {MESH_CHECK_LANES} strided lanes (bench_mesh)",
         "kernel_ms_at_plain_shape": small_k,
         "launches_mesh_path": mesh_launches,
         "mesh_ms": mesh_ms,
         "mesh_bound_ms": mesh_bound_ms,
         "mesh_shape": "bench_mesh 512x512 d8, one 8-pass window",
+        "mesh_max_abs_err": mesh_check_err,
         "mesh_walk_share_of_operations": mesh_walk_ops / mesh_ops,
         "mesh_walk_share_of_lane_cycles": mesh_walk_cycles / mesh_cycles,
     }, {
@@ -596,7 +688,8 @@ def main(argv) -> int:
                  f"triangles, through pt_paged_walk",
         "max_abs_err_over": "camera and random rays on bench_mesh and demo_mesh, 2,048 and 16,384 rays, "
                             "closest hit (open; start distance, far limit, excluded object, skipped rays) "
-                            "and any hit, every output bit for bit",
+                            "and any hit; the 262,144 primary rays of the timed frame, closest hit and any "
+                            "hit; every output bit for bit",
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
