@@ -55,21 +55,46 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     window): the lanes that phase 12's full-size launch produced, on 2,048
     lanes strided over the frame, to the same bands as phase 3.
 
+14. kernel B3 (pt_trace_grid, the classic loop for given rays) against its
+    plain version, bit for bit on radiance, state and segments: 16,384
+    camera and random rays on demo_showcase, demo_cornell and bench_mesh,
+    cpu contract (depth 80), gpu contract and gpu contract with the in-trace
+    fog march (depth 12), and a batch with an active mask;
+15. the classic instance of the whole-pass kernel against its plain version
+    at 256x144, depth 12: the cpu contract on demo_showcase and demo_cornell,
+    faithful fog on demo_showcase; phase 3's bands;
+16. drive the cpu-contract path: Renderer(contract="cpu") on demo_showcase
+    at 1920x1080, depth 80, 16 passes, one warm-up and 3 timed renders; it
+    must run on the classic instance alone;
+17. drive the faithful-fog path: Renderer(contract="gpu", faithful_fog=True)
+    on demo_showcase at 1920x1080, depth 12, 1 pass, likewise;
+18. time the classic instance on those frames (CUDA events, and the
+    kernels' own device time from torch.profiler, which shows how long the
+    card waits for the host), count their operations and derive their
+    bound; drive trace() (B3) on the 262,144 primary
+    rays of the cpu frame's first chunk, each contract, time it and its
+    plain version, count its operations and derive its bound;
+19. hold the classic instance against its plain version at those paths' own
+    arguments: 8,192 lanes strided over the cpu frame in 2 of its passes
+    (frame seeds 1 and 2), and the whole first chunk (262,144 lanes) of the
+    faithful-fog frame, phase 3's bands.
+
 The line before the last three says how long the phases took in all.  The
 third-to-last line is a JSON object describing every kernel
 (``max_abs_err`` is the largest the comparisons of that kernel found); the
 second-to-last is the card's name and power limit; the last line is
 {"ok": true, "device": {...}}.  ``--quick`` runs phases 1-3 only, at 64x36
-and depth 4.
+and depth 4, and a first, small run of B3 and of the classic instance.
 
 ``--render-only [scene width height passes depth renders]`` (defaults:
 demo_showcase 1920 1080 8 12 5) times the Renderer alone with the code of
-phases 4 and 11: one warm-up render, which also builds the kernel, then
-``renders`` timed ones, and one JSON line with Mrays/s and wall seconds
-(median, min, max), segments, launches per render and ptxas' report.  It
-imports the package that lies beside the script, so a copy of this file in
-the root of another commit's tree times that commit: to compare two commits,
-run them in turns in one shell on one card.
+phases 4, 11, 16 and 17: one warm-up render, which also builds the kernels,
+then ``renders`` timed ones, and one JSON line with Mrays/s and wall seconds
+(median, min, max), segments, launches per render and ptxas' report;
+``--contract cpu`` renders the cpu contract, ``--faithful-fog`` faithful
+fog.  It imports the package that lies beside the script, so a copy of this
+file in the root of another commit's tree times that commit: to compare two
+commits, run them in turns in one shell on one card.
 """
 
 from __future__ import annotations
@@ -88,7 +113,11 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 DEVICE = "cuda"  # every tensor of this script lives on the card
 MAIN_CHECK_LANES = 8192  # lanes of the 1080p frame held to the plain version in phase 7
 MESH_CHECK_LANES = 2048  # lanes of the 512x512 mesh frame held to the plain version in phase 13
-COUNTERS = ("LAUNCHES", "PAGED_LAUNCHES", "WALK_LAUNCHES", "PLAIN_CALLS", "WALK_PLAIN_CALLS")
+COUNTERS = ("LAUNCHES", "PAGED_LAUNCHES", "CLASSIC_LAUNCHES", "TRACE_LAUNCHES", "WALK_LAUNCHES", "PLAIN_CALLS",
+            "TRACE_PLAIN_CALLS", "WALK_PLAIN_CALLS")
+PLAIN_COUNTERS = ("PLAIN_CALLS", "TRACE_PLAIN_CALLS", "WALK_PLAIN_CALLS")
+CLASSIC_CHECK_LANES = 8192  # lanes of the cpu-contract frame held to the plain version in phase 19
+B3_CHECK_RAYS = 8192  # camera rays (and as many random ones) of each B3 batch in phase 14
 
 
 def smi_line() -> str:
@@ -148,14 +177,17 @@ def many_lights_scene():
     )
 
 
-def scene_setup(pt, name, w, h, depth):
+def scene_setup(pt, name, w, h, depth, contract="gpu", faithful=False):
+    """A scene, its pack on the card and the whole-pass arguments of one of
+    its passes as the Renderer would give them."""
     from path_trace_golang_tpu_torch import integrator
     from path_trace_golang_tpu_torch.scene import builtin
 
     sc = many_lights_scene() if name == "many_lights" else getattr(builtin, name)()
     pack = pt.pack_scene(sc, w, h, device=DEVICE)
-    tcfg = integrator.trace_config_for_scene(pack, sc, depth, "gpu")
-    kw = dict(tcfg=tcfg, width=w, height=h, n_strata=4, samples=16,
+    tcfg = integrator.trace_config_for_scene(pack, sc, depth, contract, faithful_fog=faithful)
+    n_strata, samples = (4, 16) if contract == "gpu" else (1, 1)
+    kw = dict(tcfg=tcfg, width=w, height=h, n_strata=n_strata, samples=samples,
               has_aperture=sc.camera.aperture > 0, normalize_pass=False)
     return sc, pack, kw
 
@@ -168,13 +200,14 @@ def lanes(w, h, start=0, count=None):
     return idx % w, torch.div(idx, w, rounding_mode="floor")
 
 
-def hold_pass(pt, cuda_trace, tag, name, w, h, depth, passes=(1, 2)):
+def hold_pass(pt, cuda_trace, tag, name, w, h, depth, passes=(1, 2), contract="gpu", faithful=False):
     """Whole-pass kernel against its plain version for one scene: prints a
     line per window size, returns (all within the bands, largest |a-b|,
     the plain version's seconds per window size)."""
     import torch
 
-    _sc, pack, kw = scene_setup(pt, name, w, h, depth)
+    _sc, pack, kw = scene_setup(pt, name, w, h, depth, contract, faithful)
+    name = f"{name} ({contract} contract{', faithful fog' if faithful else ''})"
     px, py = lanes(w, h)
     good, worst, plain_secs = True, 0.0, {}
     for n_passes in passes:
@@ -196,7 +229,7 @@ def hold_pass(pt, cuda_trace, tag, name, w, h, depth, passes=(1, 2)):
     return good, worst, plain_secs
 
 
-def hold_frame_lanes(cuda_trace, tag, label, pack, kw, frame_cols, w, n_check, n_passes):
+def hold_frame_lanes(cuda_trace, tag, label, pack, kw, frame_cols, w, n_check, n_passes, frame_seed=1):
     """Whole-pass kernel against its plain version at a driven path's own
     arguments (frame seed 1, the window's reseed schedule): the plain version
     runs on ``n_check`` lanes strided over the frame and is held against
@@ -209,17 +242,17 @@ def hold_frame_lanes(cuda_trace, tag, label, pack, kw, frame_cols, w, n_check, n
     sub = torch.arange(n_check, device=DEVICE, dtype=torch.int64) * stride + stride // 2
     spx, spy = (sub % w).to(torch.int32), torch.div(sub, w, rounding_mode="floor").to(torch.int32)
     t0 = time.perf_counter()
-    col_p, segs_p = cuda_trace.render_pass_plain(pack, 1, spx, spy, n_passes=n_passes, **kw)
+    col_p, segs_p = cuda_trace.render_pass_plain(pack, frame_seed, spx, spy, n_passes=n_passes, **kw)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    col_k, segs_k = cuda_trace.render_pass_cuda(pack, 1, spx, spy, n_passes=n_passes, **kw)
+    col_k, segs_k = cuda_trace.render_pass_cuda(pack, frame_seed, spx, spy, n_passes=n_passes, **kw)
     torch.cuda.synchronize()
     from_frame = frame_cols[sub]
     if not torch.equal(col_k.to_rows(), from_frame):
         return None
     share, seg_gap, mean_gap, err = lane_stats(from_frame, col_p.to_rows(), segs_k, segs_p)
     print(
-        f"[{tag}] {label} n_passes={n_passes}, {n_check} lanes at stride {stride} "
+        f"[{tag}] {label} frame seed {frame_seed} n_passes={n_passes}, {n_check} lanes at stride {stride} "
         f"(kernel lanes from the full-size launches): lanes matching {share:.4%}, segments "
         f"{int(segs_k)} vs {int(segs_p)} (gap {seg_gap:.4%}), channel-mean gap {mean_gap:.4%}, "
         f"max |a-b| {err:.4g}; plain version {plain_s:.1f} s",
@@ -228,8 +261,8 @@ def hold_frame_lanes(cuda_trace, tag, label, pack, kw, frame_cols, w, n_check, n
     return share >= 0.95 and seg_gap <= 0.02 and mean_gap <= 0.01, err, plain_s
 
 
-def drive_renderer(pt, cuda_trace, tag, name, w, h, passes, depth, renders, card):
-    """Drive Renderer(contract="gpu") on a built-in scene: every count set to
+def drive_renderer(pt, cuda_trace, tag, name, w, h, passes, depth, renders, card, contract="gpu", faithful=False):
+    """Drive Renderer(contract=...) on a built-in scene: every count set to
     0, one warm-up render, ``renders`` timed ones, the counts read.  Returns
     the rates, walls, last image and statistics and the counts."""
     from path_trace_golang_tpu_torch.scene import builtin
@@ -237,7 +270,7 @@ def drive_renderer(pt, cuda_trace, tag, name, w, h, passes, depth, renders, card
     sc, cfg = getattr(builtin, name)(), pt.RenderConfig(w, h, passes, depth)
     for c in COUNTERS:
         setattr(cuda_trace, c, 0)
-    r = pt.Renderer(contract="gpu", seed=1)
+    r = pt.Renderer(contract=contract, seed=1, faithful_fog=faithful)
     img = r.render(sc, cfg)  # warm-up
     print(f"[{tag}] warm-up: {r.stats.wall_seconds:.3f} s, {r.stats.mrays_per_sec:.2f} Mrays/s", flush=True)
     rates, walls = [], []
@@ -248,13 +281,15 @@ def drive_renderer(pt, cuda_trace, tag, name, w, h, passes, depth, renders, card
         print(f"[{tag}] render {i}: {r.stats}  ({card})", flush=True)
     counts = {c: getattr(cuda_trace, c) for c in COUNTERS}
     out = dict(rates=rates, walls=walls, img=img, stats=r.stats, counts=counts,
-               plain_calls=counts["PLAIN_CALLS"] + counts["WALK_PLAIN_CALLS"])
+               plain_calls=sum(counts[c] for c in PLAIN_COUNTERS))
     print(
-        f"[{tag}] {name} {w}x{h} d{depth} {passes} passes: {statistics.median(rates):.3f} Mrays/s median "
+        f"[{tag}] {name} {w}x{h} d{depth} {passes} passes, {contract} contract"
+        f"{', faithful fog' if faithful else ''}: {statistics.median(rates):.3f} Mrays/s median "
         f"(min {min(rates):.3f}, max {max(rates):.3f}), wall {statistics.median(walls):.4f} s median, "
         f"segments {r.stats.ray_segments}, nonfinite {r.stats.nonfinite}, image mean {img.mean():.4f} "
         f"std {img.std():.4f}; kernel launches {counts['LAUNCHES']} ({renders + 1} renders), of them with "
-        f"pages {counts['PAGED_LAUNCHES']}, plain calls {out['plain_calls']} | card {card}",
+        f"pages {counts['PAGED_LAUNCHES']}, of the classic instance {counts['CLASSIC_LAUNCHES']}, "
+        f"plain calls {out['plain_calls']} | card {card}",
         flush=True,
     )
     return out
@@ -357,6 +392,84 @@ def hold_walk(cuda_trace, tag, name, pack, o, d, seed):
     return same and differ == 0, worst
 
 
+def hold_trace(pt, cuda_trace, tag, name, contract, faithful, depth, n_cam, n_rand, seed, inactive=0.0):
+    """Kernel B3 against its plain version on one batch of camera and random
+    rays with random states (numpy, from ``seed``), ``inactive`` of the lanes
+    masked off: radiance, state and segments bit for bit.  Returns
+    (identical, largest |a-b| of the radiance, seconds of the plain version)."""
+    import numpy as np
+    import torch
+
+    _sc, pack, kw = scene_setup(pt, name, 512, 512, depth, contract, faithful)
+    cfg = kw["tcfg"]
+    o, d = walk_rays(pack, 512, 512, n_cam, n_rand, seed)
+    n = o.x.numel()
+    rng = np.random.default_rng(seed + 1)
+    state = torch.from_numpy(rng.integers(0, 2**32, size=n, dtype=np.int64)).to(DEVICE)
+    active = torch.from_numpy(rng.random(n) >= inactive).to(DEVICE) if inactive else None
+    rk, sk, gk = cuda_trace.trace_grid_cuda(o, d, state, pack, cfg, active)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rp, sp, gp = cuda_trace.trace_grid_plain(o, d, state, pack, cfg, active)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    a, b = rk.to_rows(), rp.to_rows()
+    same_rad = torch.equal(a.view(torch.int32), b.view(torch.int32))
+    same = same_rad and torch.equal(sk, sp) and int(gk) == int(gp)
+    err = torch.nan_to_num((a - b).abs(), nan=float("inf")).max().item()
+    print(
+        f"[{tag}] B3 {name}, {contract} contract{', in-trace fog' if cfg.enable_fog_march and cfg.fog_in_trace else ''}"
+        f", depth {depth}: {n} rays{f' ({int(active.sum())} active)' if active is not None else ''}, segments "
+        f"{int(gk)} vs {int(gp)}, radiance bit-identical {same_rad}, lanes whose state differs "
+        f"{int((sk != sp).sum())}, max |a-b| {err:.4g}; plain version {plain_s:.1f} s",
+        flush=True,
+    )
+    return same, err, plain_s
+
+
+def primary_rays(pack, kw, frame_seed, start, count):
+    """The first sample's camera rays and states of ``count`` lanes from
+    ``start`` of a frame, as the classic whole-pass kernel makes them
+    (render.pass_body_grid): the lane seed, two jitter draws, the stratum,
+    the lens draws.  Returns (orig [n,3], dir [n,3], state) on the card."""
+    import torch
+    from path_trace_golang_tpu_torch.ops.camera import camera_rays
+    from path_trace_golang_tpu_torch.ops.rng import LaneRng, seed_lanes
+
+    w, h = kw["width"], kw["height"]
+    px, py = lanes(w, h, start, count)
+    rng = LaneRng(seed_lanes(px, py, frame_seed))
+    jx, jy = rng.next(), rng.next()
+    u = (px.float() + jx) * (1.0 / (w - 1))
+    v = ((h - 1) - py.float() + jy) * (1.0 / (h - 1))
+    o, d = camera_rays(u, v, pack.cam, w, h, rng, kw["has_aperture"], pack.lens_disk)
+    return o.to_rows(), d.to_rows(), rng.state
+
+
+def ptxas_lines(cuda_trace):
+    return [f"{src}: {ln.strip()}" for src, log in cuda_trace.BUILD_LOG.items() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+
+
+def device_ms(fn, kernel):
+    """The device time of the kernels named ``kernel`` that one call of
+    ``fn`` launches, in ms, summed from torch.profiler's trace; None where
+    the trace holds none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:  # a measurement only: the events' times stand without it
+        print(f"    torch.profiler failed: {e}", flush=True)
+        return None
+    us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) for e in prof.key_averages()
+             if kernel in e.key)
+    return us / 1e3 if us > 0 else None
+
+
 def cuda_time_ms(fn, reps):
     """Median over ``reps`` of the device time of ``fn()`` in ms (CUDA events)."""
     import torch
@@ -383,6 +496,7 @@ def main(argv) -> int:
     sys.path.insert(0, HERE)
     import path_trace_golang_tpu_torch as pt
     from path_trace_golang_tpu_torch.ops import cuda_trace
+    from path_trace_golang_tpu_torch.ops.vec import V3
     from path_trace_golang_tpu_torch.scene import builtin
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -395,20 +509,23 @@ def main(argv) -> int:
     print(f"[1] card: {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     if "--render-only" in argv:
-        args = argv[argv.index("--render-only") + 1:]
+        rest = argv[argv.index("--render-only") + 1:]
+        contract = rest[rest.index("--contract") + 1] if "--contract" in rest else "gpu"
+        faithful = "--faithful-fog" in rest
+        args = [a for i, a in enumerate(rest) if not a.startswith("--") and (i == 0 or rest[i - 1] != "--contract")]
         name = args[0] if args else "demo_showcase"
         w, h, passes, depth, renders = (int(a) for a in (args[1:6] + ["1920", "1080", "8", "12", "5"][len(args[1:6]):]))
-        run = drive_renderer(pt, cuda_trace, "render", name, w, h, passes, depth, renders, card)
+        run = drive_renderer(pt, cuda_trace, "render", name, w, h, passes, depth, renders, card, contract, faithful)
         print(json.dumps({
             "scene": name, "width": w, "height": h, "passes": passes, "depth": depth, "renders": renders,
-            "card": card, "tree": HERE,
+            "contract": contract, "faithful_fog": faithful, "card": card, "tree": HERE,
             "mrays_per_sec": {"median": statistics.median(run["rates"]), "min": min(run["rates"]),
                               "max": max(run["rates"])},
             "wall_seconds": {"median": statistics.median(run["walls"]), "min": min(run["walls"]),
                              "max": max(run["walls"])},
             "segments": run["stats"].ray_segments, "nonfinite": run["stats"].nonfinite,
             "launches_per_render": run["counts"]["LAUNCHES"] / (renders + 1),
-            "ptxas": [ln.strip() for ln in cuda_trace.BUILD_LOG.splitlines() if "registers" in ln or "spill" in ln],
+            "ptxas": ptxas_lines(cuda_trace),
         }))
         if run["stats"].nonfinite != 0 or run["counts"]["LAUNCHES"] <= 0 or run["plain_calls"] != 0:
             print("[render] FAIL: non-finite entries, or the render did not run on the kernel alone", file=sys.stderr)
@@ -417,20 +534,20 @@ def main(argv) -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
 
-    # ---- 2. build
+    # ---- 2. build: one nvcc for each source and variant, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per variant, side by side
-        builds = [pool.submit(cuda_trace.build, count_ops=c) for c in (False, True)]
-        so = builds[0].result()
-        builds[1].result()
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        builds = [pool.submit(cuda_trace.build, count_ops=c, source=src)
+                  for src in cuda_trace.SOURCES for c in (False, True)]
+        sos = [b.result() for b in builds]
     print(
-        f"[2] built {os.path.relpath(so, HERE)} and its operation-counting variant in "
-        f"{time.perf_counter() - t0:.1f} s",
+        f"[2] built {', '.join(os.path.relpath(so, HERE) for so in sos)} in {time.perf_counter() - t0:.1f} s",
         flush=True,
     )
-    for line in cuda_trace.BUILD_LOG.splitlines():
-        if any(k in line for k in ("Compiling entry", "registers", "spill", "smem", "error", "warning")):
-            print(f"    ptxas: {line.strip()}", flush=True)
+    for src, log in cuda_trace.BUILD_LOG.items():
+        for line in log.splitlines():
+            if any(k in line for k in ("Compiling entry", "registers", "spill", "smem", "error", "warning")):
+                print(f"    ptxas {src}: {line.strip()}", flush=True)
 
     # ---- 3. kernel vs plain version on the card
     cw, ch, cdepth = (64, 36, 4) if quick else (256, 144, 12)
@@ -455,6 +572,20 @@ def main(argv) -> int:
             print("[3] FAIL: the paged walk disagrees with its plain version", file=sys.stderr)
             return 1
     if quick:
+        # the classic loop's first run: kernel B3 and the classic instance, small, synchronised
+        for name, contract, faithful, depth in (("demo_showcase", "cpu", False, 12),
+                                                ("demo_showcase", "gpu", True, 12), ("bench_mesh", "gpu", False, 8)):
+            same, _err, _s = hold_trace(pt, cuda_trace, "3", name, contract, faithful, depth, 1024, 1024, seed=13,
+                                        inactive=0.2 if faithful else 0.0)
+            if not same:
+                print("[3] FAIL: kernel B3 disagrees with its plain version", file=sys.stderr)
+                return 1
+        for contract, faithful in (("cpu", False), ("gpu", True)):
+            good, _err, _secs = hold_pass(pt, cuda_trace, "3", "demo_showcase", cw, ch, cdepth, passes=(1,),
+                                          contract=contract, faithful=faithful)
+            if not good:
+                print("[3] FAIL: the classic instance disagrees with its plain version", file=sys.stderr)
+                return 1
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
@@ -642,6 +773,166 @@ def main(argv) -> int:
         print("[13] FAIL: kernel disagrees with its plain version at the mesh path's arguments", file=sys.stderr)
         return 1
 
+    # ---- 14. kernel B3 against its plain version, bit for bit
+    classic_err = trace_err = 0.0
+    for name in ("demo_showcase", "demo_cornell", "bench_mesh"):
+        for contract, faithful, depth in (("cpu", False, 80), ("gpu", False, 12), ("gpu", True, 12)):
+            if faithful and name != "demo_showcase":
+                continue  # the other two scenes have no fog to march
+            same, err, _s = hold_trace(pt, cuda_trace, "14", name, contract, faithful, depth, B3_CHECK_RAYS,
+                                       B3_CHECK_RAYS, seed=31)
+            trace_err = max(trace_err, err)
+            if not same:
+                print(f"[14] FAIL: kernel B3 disagrees with its plain version on {name}", file=sys.stderr)
+                return 1
+    same, err, _s = hold_trace(pt, cuda_trace, "14", "demo_showcase", "gpu", True, 12, B3_CHECK_RAYS, B3_CHECK_RAYS,
+                               seed=33, inactive=0.25)
+    trace_err = max(trace_err, err)
+    if not same:
+        print("[14] FAIL: kernel B3 disagrees with its plain version under an active mask", file=sys.stderr)
+        return 1
+
+    # ---- 15. the classic instance against its plain version at 256x144, depth 12
+    for name, contract, faithful in (("demo_showcase", "cpu", False), ("demo_cornell", "cpu", False),
+                                     ("demo_showcase", "gpu", True)):
+        good, err, _secs = hold_pass(pt, cuda_trace, "15", name, 256, 144, 12, passes=(1,), contract=contract,
+                                     faithful=faithful)
+        classic_err = max(classic_err, err)
+        if not good:
+            print(f"[15] FAIL: the classic instance disagrees with its plain version on {name}", file=sys.stderr)
+            return 1
+
+    # ---- 16. the cpu-contract path; 17. the faithful-fog path
+    classic_runs = {}
+    for tag, contract, faithful, passes, depth in (("16", "cpu", False, 16, 80), ("17", "gpu", True, 1, 12)):
+        run = drive_renderer(pt, cuda_trace, tag, "demo_showcase", 1920, 1080, passes, depth, 3, card, contract,
+                             faithful)
+        cimg, counts = run["img"], run["counts"]
+        if cimg.shape != (1080, 1920, 3) or run["stats"].nonfinite != 0 or not 5.0 < float(cimg.mean()) < 250.0:
+            print(f"[{tag}] FAIL: wrong shape, non-finite accumulator entries or a blank image", file=sys.stderr)
+            return 1
+        if counts["LAUNCHES"] <= 0 or counts["CLASSIC_LAUNCHES"] != counts["LAUNCHES"] or run["plain_calls"] != 0:
+            print(f"[{tag}] FAIL: the path did not run on the classic instance alone", file=sys.stderr)
+            return 1
+        classic_runs[contract] = run
+
+    # ---- 18. times: the classic instance on those frames; B3 through trace() on primary rays
+    n = 1920 * 1080
+    cpu_setup = scene_setup(pt, "demo_showcase", 1920, 1080, 80, "cpu")[1:]
+    fog_setup = scene_setup(pt, "demo_showcase", 1920, 1080, 12, "gpu", True)[1:]
+    setups = {"cpu": cpu_setup, "gpu": fog_setup}
+    classic_cols = {}
+
+    def classic_frame(label, frame_seed):
+        cpack, ckw = setups[label]
+        cols, segs = [], 0
+        for px, py in chunks:
+            col, sg = cuda_trace.render_pass_cuda(cpack, frame_seed, px, py, **ckw)
+            cols.append(col)
+            segs += sg
+        classic_cols[(label, frame_seed)] = cols
+        return segs
+
+    classic_ms, classic_device_ms, classic_bound = {}, {}, {}
+    for label in setups:
+        box = []
+        classic_ms[label] = cuda_time_ms(lambda: box.append(classic_frame(label, 1)), 3)
+        # the kernels' own device time beside the events' span, which also holds the gaps in which
+        # the device waits for the host between launches
+        classic_device_ms[label] = device_ms(lambda: classic_frame(label, 1), "classic_pass_kernel")
+        dev = classic_device_ms[label]
+        # the f32 operations of the pass, tallied by the counting build; bytes: 8 read + 12 written a lane
+        cpack, ckw = setups[label]
+        counted = [cuda_trace.count_ops(cpack, 1, px, py, **ckw) for px, py in chunks]
+        if sum(sg for sg, _o in counted) != int(box[-1]):
+            print("[18] FAIL: the counting build traced other paths than the classic instance", file=sys.stderr)
+            return 1
+        cops = sum(o for _s, o in counted)
+        classic_bound[label] = max(cops / PEAK_F32_FLOPS, n * (8 + 12) / PEAK_BYTES) * 1e3
+        print(
+            f"[18] classic instance, demo_showcase 1920x1080 one pass, {label} contract"
+            f"{' (faithful fog, 16 launches a chunk)' if label == 'gpu' else ' (depth 80)'}: {classic_ms[label]:.3f} ms "
+            f"({int(box[-1])} segments, {int(box[-1]) / classic_ms[label] / 1e3:.2f} Mrays/s); bound "
+            f"{classic_bound[label]:.4f} ms ({cops:.6g} f32 operations); kernels' device time "
+            f"(torch.profiler) {'not measured' if dev is None else f'{dev:.3f} ms, device idle {1 - dev / classic_ms[label]:.1%}'}"
+            f" | card {card}",
+            flush=True,
+        )
+    classic_frame("cpu", 2)  # the cpu frame's second pass, for phase 19
+
+    from path_trace_golang_tpu_torch import integrator
+
+    trace_ms, trace_plain_ms, trace_bound, trace_launches = {}, {}, {}, 0
+    for label, (tpack, tkw) in setups.items():
+        cfg = tkw["tcfg"]
+        ro, rd, rst = primary_rays(tpack, tkw, 1, 0, chunk)
+        for c in COUNTERS:
+            setattr(cuda_trace, c, 0)
+        box = []
+        trace_ms[label] = cuda_time_ms(lambda: box.append(integrator.trace(ro, rd, rst, tpack, cfg)), 3)
+        if cuda_trace.TRACE_LAUNCHES <= 0 or sum(getattr(cuda_trace, c) for c in PLAIN_COUNTERS) != 0:
+            print("[18] FAIL: trace() did not run on kernel B3 alone", file=sys.stderr)
+            return 1
+        trace_launches += cuda_trace.TRACE_LAUNCHES
+        o3 = V3(ro[:, 0], ro[:, 1], ro[:, 2])
+        d3 = V3(rd[:, 0], rd[:, 1], rd[:, 2])
+        pbox = []
+        trace_plain_ms[label] = cuda_time_ms(
+            lambda: pbox.append(cuda_trace.trace_grid_plain(o3, d3, rst, tpack, cfg)), 1)
+        (krad, kst, kseg), (prad, pst, pseg) = box[-1], pbox[0]
+        same = torch.equal(krad.view(torch.int32), prad.to_rows().view(torch.int32)) and torch.equal(kst, pst) \
+            and int(kseg) == int(pseg)
+        counted = cuda_trace.trace_count_ops(o3, d3, rst, tpack, cfg)
+        if counted["segments"] != int(kseg) or not same:
+            print("[18] FAIL: B3 disagrees with its plain version on the frame's primary rays, or the counting "
+                  "build traced other paths", file=sys.stderr)
+            return 1
+        # bytes: 6 floats and a state in, 3 floats and a state out, per ray
+        by_ops, by_bytes = counted["ops"] / PEAK_F32_FLOPS * 1e3, chunk * 44 / PEAK_BYTES * 1e3
+        trace_bound[label] = (max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes", counted["ops"])
+        print(
+            f"[18] B3 through trace(), {chunk} primary rays of the first chunk, {label} contract, depth "
+            f"{cfg.max_depth}{', in-trace fog' if cfg.fog_in_trace and cfg.enable_fog_march else ''}: "
+            f"{trace_ms[label]:.3f} ms, plain version {trace_plain_ms[label]:.1f} ms, bit-identical on every ray; "
+            f"{int(kseg)} segments, {counted['ops']:.6g} f32 operations ({by_ops:.4f} ms at peak), "
+            f"{chunk * 44} bytes ({by_bytes:.4f} ms at peak): bound {trace_bound[label][0]:.4f} ms; "
+            f"launches {cuda_trace.TRACE_LAUNCHES} | card {card}",
+            flush=True,
+        )
+
+    # ---- 19. the classic instance against its plain version at the paths' own arguments
+    cpack, ckw = cpu_setup
+    for frame_seed in (1, 2):
+        cols = torch.cat([c.to_rows() for c in classic_cols[("cpu", frame_seed)]])
+        held = hold_frame_lanes(cuda_trace, "19", "demo_showcase 1920x1080 d80 cpu contract", cpack, ckw, cols, 1920,
+                                CLASSIC_CHECK_LANES, 1, frame_seed)
+        if held is None or not held[0]:
+            print("[19] FAIL: the classic instance disagrees with its plain version on the cpu frame",
+                  file=sys.stderr)
+            return 1
+        classic_err = max(classic_err, held[1])
+    fpack, fkw = fog_setup
+    px, py = chunks[0]
+    t0 = time.perf_counter()
+    col_p, segs_p = cuda_trace.render_pass_plain(fpack, 1, px, py, **fkw)
+    torch.cuda.synchronize()
+    fog_plain_s = time.perf_counter() - t0
+    col_k = classic_cols[("gpu", 1)][0]
+    segs_k = cuda_trace.render_pass_cuda(fpack, 1, px, py, **fkw)[1]
+    share, seg_gap, mean_gap, err = lane_stats(col_k.to_rows(), col_p.to_rows(), segs_k, segs_p)
+    print(
+        f"[19] demo_showcase 1920x1080 d12 faithful fog, the first chunk ({px.numel()} lanes, frame seed 1): "
+        f"lanes matching {share:.4%}, segments {int(segs_k)} vs {int(segs_p)} (gap {seg_gap:.4%}), channel-mean gap "
+        f"{mean_gap:.4%}, max |a-b| {err:.4g}; plain version {fog_plain_s:.1f} s",
+        flush=True,
+    )
+    classic_err = max(classic_err, err)
+    if not (share >= 0.95 and seg_gap <= 0.02 and mean_gap <= 0.01):
+        print("[19] FAIL: the classic instance disagrees with its plain version on the faithful-fog chunk",
+              file=sys.stderr)
+        return 1
+    max_abs_err = max(max_abs_err, classic_err)
+
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": "render_pass",
@@ -660,7 +951,10 @@ def main(argv) -> int:
         "max_abs_err_over": f"256x144 d12 n_passes 1 and 2 (showcase, cornell); 1920x1080 d12 n_passes 8, "
                             f"{MAIN_CHECK_LANES} strided lanes (showcase); 192x192 d8 n_passes 1 and 2 "
                             f"(demo_mesh, bench_mesh); 192x108 d6 n_passes 1 and 2 (12 lights); 512x512 d8 "
-                            f"n_passes 8, {MESH_CHECK_LANES} strided lanes (bench_mesh)",
+                            f"n_passes 8, {MESH_CHECK_LANES} strided lanes (bench_mesh); the classic instance: "
+                            f"64x36 and 256x144 d12 (cpu contract on showcase and cornell, faithful fog on "
+                            f"showcase), 1920x1080 d80 cpu contract frame seeds 1 and 2, {CLASSIC_CHECK_LANES} "
+                            f"strided lanes, and the first 1920x1080 d12 faithful-fog chunk, {chunk} lanes",
         "kernel_ms_at_plain_shape": small_k,
         "launches_mesh_path": mesh_launches,
         "mesh_ms": mesh_ms,
@@ -669,6 +963,44 @@ def main(argv) -> int:
         "mesh_max_abs_err": mesh_check_err,
         "mesh_walk_share_of_operations": mesh_walk_ops / mesh_ops,
         "mesh_walk_share_of_lane_cycles": mesh_walk_cycles / mesh_cycles,
+        "classic_source": "path_trace_golang_tpu_torch/csrc/classic.cu",
+        "classic_max_abs_err": classic_err,
+        "classic_cpu_ms": classic_ms["cpu"],
+        "classic_cpu_shape": "demo_showcase 1920x1080 d80, cpu contract, one pass (all launches of one frame)",
+        "classic_cpu_launches": classic_runs["cpu"]["counts"]["LAUNCHES"],
+        "classic_cpu_launches_are": "launches of the classic instance on the cpu-contract path (4 renders of "
+                                    "16 passes)",
+        "classic_cpu_device_ms": classic_device_ms["cpu"],
+        "classic_cpu_bound_ms": classic_bound["cpu"],
+        "classic_fog_ms": classic_ms["gpu"],
+        "classic_fog_device_ms": classic_device_ms["gpu"],
+        "classic_fog_bound_ms": classic_bound["gpu"],
+        "classic_fog_shape": "demo_showcase 1920x1080 d12, faithful fog, one pass (16 launches a chunk)",
+        "classic_fog_launches": classic_runs["gpu"]["counts"]["LAUNCHES"],
+    }, {
+        "name": "trace_grid",
+        "route": "cuda",
+        "source": "path_trace_golang_tpu_torch/csrc/classic.cu",
+        "replaces": "path_trace_golang_tpu/ops/pallas_trace.py:240",
+        "launches": trace_launches,
+        "launches_are": "calls of trace() that launched pt_trace_grid (and its state advance) in phase 18, "
+                        "timing included",
+        "max_abs_err": trace_err,
+        "ms": trace_ms["cpu"],
+        "plain_ms": trace_plain_ms["cpu"],
+        "bound_ms": trace_bound["cpu"][0],
+        "bound_by": trace_bound["cpu"][1],
+        "library_ms": None,
+        "shape": f"{chunk} primary rays of demo_showcase 1920x1080 (the first chunk, frame seed 1), cpu "
+                 f"contract, depth 80",
+        "ops": trace_bound["cpu"][2],
+        "fog_ms": trace_ms["gpu"],
+        "fog_plain_ms": trace_plain_ms["gpu"],
+        "fog_bound_ms": trace_bound["gpu"][0],
+        "fog_shape": "the same rays, gpu contract with the in-trace fog march, depth 12",
+        "max_abs_err_over": "2,048 and 16,384 camera and random rays on demo_showcase, demo_cornell and "
+                            "bench_mesh, cpu contract d80, gpu contract d12, in-trace fog d12, a batch with "
+                            "an active mask; the timed primary rays; radiance, state and segments bit for bit",
     }, {
         "name": "paged_walk",
         "route": "cuda",

@@ -2,16 +2,19 @@
 
 A port of the JAX package ``path_trace_golang_tpu`` (which stays the
 reference) to PyTorch on an NVIDIA H100: same scene format, same packed
-layouts, same counter-seeded RNG, same gpu physics contract.  The hot
-path, a whole progressive pass per pixel lane, is one CUDA C++ kernel
-(``csrc/render_pass.cu``); every module also runs as plain PyTorch on the
-CPU, which is what the tests compare with the JAX package.
+layouts, same counter-seeded RNG, same two physics contracts.  The hot
+path, a whole progressive pass per pixel lane, is a CUDA C++ kernel
+(``csrc/render_pass.cu`` for the gpu contract's regeneration loop,
+``csrc/classic.cu`` for the classic per-sample loop of the cpu contract and
+faithful fog, and for :func:`trace`); every module also runs as plain
+PyTorch on the CPU, which is what the tests compare with the JAX package.
 
 Public facade (``internal/engine`` parity):
 
 * :class:`Renderer`, :class:`RenderConfig`, :class:`RenderStats`
 * :func:`set_backend` / :func:`get_backend` — physics-contract switch
-  (only "gpu" is ported)
+  ("cpu", the default, or "gpu")
+* :func:`trace` — trace given rays (row vectors) with the classic loop
 * :func:`save_png`, :func:`pack_scene`
 * ``scene`` subpackage — JSON scene model and IO
 
@@ -20,6 +23,7 @@ This package imports neither JAX nor the JAX package.
 """
 
 from . import scene
+from .integrator import trace
 from .io_png import save_png
 from .render import (
     BACKEND_CPU,
@@ -48,6 +52,7 @@ __all__ = [
     "render_settings_for_mode",
     "save_png",
     "scene",
+    "trace",
     "set_backend",
     "get_backend",
     "BACKEND_CPU",

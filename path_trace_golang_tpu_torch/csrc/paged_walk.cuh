@@ -38,10 +38,11 @@
 // stack over a tree above the pages, warp-cooperative sweeps and tiles
 // staged in shared memory are later work.
 //
-// Included by render_pass.cu after its vector helpers and OPS macros;
+// Included by common.cuh after its vector helpers and OPS macros;
 // intersect() and occluded() there call paged_traverse()/paged_occluded()
-// when the launch carries pages.  pt_paged_walk() there launches the same
-// device functions alone (paged_walk_kernel below), one thread per given ray.
+// when the launch carries pages.  pt_paged_walk() in render_pass.cu launches
+// the same device functions alone (paged_walk_kernel below), one thread per
+// given ray.
 
 #pragma once
 

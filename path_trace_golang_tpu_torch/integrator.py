@@ -1,17 +1,22 @@
-"""The gpu-contract integrator on lane tensors: the plain PyTorch version.
+"""Both physics contracts' integrators on lane tensors: the plain PyTorch version.
 
-Torch counterpart of the gpu-contract half of
-``path_trace_golang_tpu/integrator.py``: the shader's iterative rayColor
-(gpu.go:1300-1671) with NEE, GGX metals, tracked-glass dielectrics with
-Beer-Lambert, russian roulette, and the merged sample+bounce loop with
-per-lane path regeneration (:func:`pass_regen_gpu`).  Every lane draws its
-uniforms on one fixed schedule per loop iteration, whatever branch it
-takes (PHYSICS.md D7), which is what lets the CUDA kernel
-(``ops/cuda_trace.py``) run one thread per lane and agree lane for lane.
+Torch counterpart of ``path_trace_golang_tpu/integrator.py``.
 
-Not ported yet (ROADMAP.md Queue A item 8): the classic per-sample loop
-(``_trace_gpu``/``gpu_phase``, used for faithful fog), the cpu contract,
-and ``trace_grid``/``trace``.  Each raises NotImplementedError.
+* gpu contract: the shader's iterative rayColor (gpu.go:1300-1671) with
+  NEE, GGX metals, tracked-glass dielectrics with Beer-Lambert and russian
+  roulette, run by the merged sample+bounce loop with per-lane path
+  regeneration (:func:`pass_regen_gpu`) or by the classic per-sample loop
+  (:func:`_trace_gpu`, with the in-trace fog march of faithful fog);
+* cpu contract: the recursive Go rayColorOpt (renderer.go:286-404) with
+  materials.go's scatter, no NEE, no fog, the dielectric exit scan
+  (:func:`_trace_cpu`).
+
+Every lane draws its uniforms on one fixed schedule per loop iteration,
+whatever branch it takes (PHYSICS.md D7), which is what lets the CUDA
+kernels (``ops/cuda_trace.py``) run one thread per lane and agree lane for
+lane.  The classic loops run while any lane of the call is alive, and dead
+lanes keep drawing: the state they return depends on the longest path of
+the call (:func:`trace_grid`).
 """
 
 from __future__ import annotations
@@ -21,11 +26,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from .ops import cuda_trace
 from .ops import fog as fog_ops
 from .ops import geometry, optics, sampling
 from .ops import lights as lights_ops
 from .ops.camera import camera_basis, camera_rays
-from .ops.geometry import Hit, intersect_world
+from .ops.geometry import BIG_T, Hit, intersect_world
 from .ops.rng import MASK32, LaneRng, seed_lanes
 from .ops.sky import background_color
 from .ops.vec import V3
@@ -36,6 +42,7 @@ from .soa import (
     MAT_METAL,
     MAT_MIRROR,
     OBJ_BOX,
+    OBJ_PLANE,
     OBJ_SPHERE,
     ScenePack,
 )
@@ -51,10 +58,6 @@ __all__ = [
 ]
 
 _f = np.float32
-_TODO_CLASSIC = (
-    "the classic per-sample gpu loop (faithful fog), the cpu contract and "
-    "trace()/trace_grid() are not ported yet (ROADMAP.md Queue A item 8, kernel B3)"
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -283,6 +286,70 @@ def _shade_gpu(hit: Hit, dirv: V3, throughput: V3, radiance: V3, rng: LaneRng, p
     )
 
 
+def _bounce_gpu(pack: ScenePack, cfg: TraceConfig, orig: V3, dirv: V3, throughput: V3, col: V3, alive, d,
+                rng: LaneRng, glass_obj, glass_dist):
+    """One gpu-contract bounce of the lanes ``alive`` at path depth ``d``
+    (an int, or an int lane tensor): closest hit, sky on a miss, shading,
+    the glass state, russian roulette (gpu.go:1343-1660).  The body of both
+    the regeneration loop and the classic loop (integrator.py:428-504,
+    659-727); a path also ends where depth ``d + 1`` reaches ``max_depth``.
+    Returns (orig, dirv, throughput, col, alive, glass_obj, glass_dist)."""
+    fog_block = pack.host("fog")
+    zero3 = V3.zeros_like(orig.x)
+    hit = intersect_world(
+        orig, dirv, pack, 0.001, exclude_obj=glass_obj if cfg.has_dielectric else None, skip=~alive,
+    )
+    bg = background_color(dirv.normalize(), pack.sky)
+    if fog_block[0] > 0 and fog_block[2] > _f(0.5):  # legacy sky fog (gpu.go:1392)
+        bg = fog_ops.apply_legacy_fog(bg, 50.0, fog_block)
+    miss = alive & ~hit.hit
+    col = col + V3.where(miss, throughput * bg, zero3)
+    alive = alive & hit.hit
+
+    live_throughput = V3.where(alive, throughput, zero3)
+    (new_dir, attenuation, col, scattered_ok, enter_glass, exit_glass,
+     travel, absorption, abs_scale, tint) = _shade_gpu(
+        hit, dirv, live_throughput, col, rng, pack, cfg, alive=alive
+    )
+
+    if cfg.has_dielectric:
+        eff_abs = absorption * abs_scale
+        absorb_exit = (-(eff_abs * glass_dist)).exp()
+        tint_mul = V3.where(tint.any_positive(), tint, V3.full_like(orig.x, 1.0))
+        exit_mul = (absorb_exit * 0.9 + 0.1) * tint_mul
+        exit_apply = alive & exit_glass & (glass_dist > 0)
+        attenuation = V3.where(exit_apply, attenuation * exit_mul, attenuation)
+
+        enter_ok = alive & enter_glass
+        exit_ok = alive & exit_glass
+        glass_obj = torch.where(
+            enter_ok, hit.obj_idx.to(torch.int64), torch.where(exit_ok, -1, glass_obj)
+        )
+        glass_dist = torch.where(
+            enter_ok & (travel > 0), travel, torch.where(exit_ok, 0.0, glass_dist)
+        )
+
+    rr_kill, attenuation = _russian_roulette(cfg, d, rng, attenuation)
+    alive = alive & scattered_ok & ~rr_kill & (d + 1 < cfg.max_depth)
+    throughput = V3.where(alive, throughput * attenuation, throughput)
+    orig = V3.where(alive, hit.p + hit.normal * 0.001, orig)
+    dirv = V3.where(alive, new_dir, dirv)
+    return orig, dirv, throughput, col, alive, glass_obj, glass_dist
+
+
+def _russian_roulette(cfg: TraceConfig, d, rng: LaneRng, attenuation: V3):
+    """Russian roulette on the remaining depth (gpu.go:1648-1660,
+    renderer.go:373-393); one draw.  Returns (killed, attenuation)."""
+    remaining = cfg.max_depth - d
+    u_rr = rng.next()
+    max_comp = attenuation.max_comp()
+    rr_active = remaining <= cfg.rr_threshold
+    rr_prob = torch.clamp_max(max_comp, 0.95)
+    rr_kill = rr_active & ((max_comp < 1e-6) | (u_rr > rr_prob))
+    rr_scale = torch.where(rr_active & ~rr_kill, 1.0 / torch.clamp_min(rr_prob, 1e-6), 1.0)
+    return rr_kill, attenuation * rr_scale
+
+
 # ---------------------------------------------------------------------------
 # Merged sample + bounce loop with path regeneration
 # ---------------------------------------------------------------------------
@@ -318,10 +385,7 @@ def pass_regen_gpu(
     Returns (col V3 = sum over all samples, state, segments int64 tensor).
     """
     pxf = px.to(torch.float32)
-    zero3 = V3.zeros_like(pxf)
-    col = col_init if col_init is not None else zero3
-    fog_block = pack.host("fog")
-    sky_fog = fog_block[0] > 0 and fog_block[2] > _f(0.5)
+    col = col_init if col_init is not None else V3.zeros_like(pxf)
     basis = camera_basis(pack.cam, width, height)
 
     inv_w = _f(1.0) / _f(width - 1 if width > 1 else 1)
@@ -376,63 +440,198 @@ def pass_regen_gpu(
 
         # ---- one bounce
         segments = segments + alive.sum()
-        hit = intersect_world(
-            orig, dirv, pack, 0.001, exclude_obj=glass_obj if cfg.has_dielectric else None,
-            skip=~alive,
+        orig, dirv, throughput, col, alive, glass_obj, glass_dist = _bounce_gpu(
+            pack, cfg, orig, dirv, throughput, col, alive, d, rng, glass_obj, glass_dist
         )
-        bg = background_color(dirv.normalize(), pack.sky)
-        if sky_fog:
-            bg = fog_ops.apply_legacy_fog(bg, 50.0, fog_block)
-        miss = alive & ~hit.hit
-        col = col + V3.where(miss, throughput * bg, zero3)
-        alive = alive & hit.hit
-
-        live_throughput = V3.where(alive, throughput, zero3)
-        (new_dir, attenuation, col, scattered_ok, enter_glass, exit_glass,
-         travel, absorption, abs_scale, tint) = _shade_gpu(
-            hit, dirv, live_throughput, col, rng, pack, cfg, alive=alive
-        )
-
-        if cfg.has_dielectric:
-            eff_abs = absorption * abs_scale
-            absorb_exit = (-(eff_abs * glass_dist)).exp()
-            tint_mul = V3.where(tint.any_positive(), tint, V3.full_like(pxf, 1.0))
-            exit_mul = (absorb_exit * 0.9 + 0.1) * tint_mul
-            exit_apply = alive & exit_glass & (glass_dist > 0)
-            attenuation = V3.where(exit_apply, attenuation * exit_mul, attenuation)
-
-            enter_ok = alive & enter_glass
-            exit_ok = alive & exit_glass
-            glass_obj = torch.where(
-                enter_ok, hit.obj_idx.to(torch.int64), torch.where(exit_ok, -1, glass_obj)
-            )
-            glass_dist = torch.where(
-                enter_ok & (travel > 0), travel, torch.where(exit_ok, 0.0, glass_dist)
-            )
-
-        # ---- russian roulette on per-lane remaining depth (gpu.go:1648-1660)
-        remaining = cfg.max_depth - d
-        u_rr = rng.next()
-        max_comp = attenuation.max_comp()
-        rr_active = remaining <= cfg.rr_threshold
-        rr_prob = torch.clamp_max(max_comp, 0.95)
-        rr_kill = rr_active & ((max_comp < 1e-6) | (u_rr > rr_prob))
-        rr_scale = torch.where(rr_active & ~rr_kill, 1.0 / torch.clamp_min(rr_prob, 1e-6), 1.0)
-        attenuation = attenuation * rr_scale
-
-        d = torch.where(alive, d + 1, d)
-        alive = alive & scattered_ok & ~rr_kill & (d < cfg.max_depth)
-        throughput = V3.where(alive, throughput * attenuation, throughput)
-        orig = V3.where(alive, hit.p + hit.normal * 0.001, orig)
-        dirv = V3.where(alive, new_dir, dirv)
+        d = d + 1  # only live lanes read it, and regeneration resets it
         st = rng.state
 
     return col, st, segments
 
 
-def trace_grid(*_args, **_kwargs):
-    raise NotImplementedError(_TODO_CLASSIC)
+# ---------------------------------------------------------------------------
+# The classic per-sample loop: gpu contract (faithful fog) and cpu contract
+# ---------------------------------------------------------------------------
 
 
-def trace(*_args, **_kwargs):
-    raise NotImplementedError(_TODO_CLASSIC)
+def _trace_gpu(orig: V3, dirv: V3, state, pack: ScenePack, cfg: TraceConfig, active=None):
+    """GPU-contract bounce loop for given rays (integrator.py:376-506,
+    ``_trace_gpu`` with ``gpu_phase``): with faithful fog first the fog
+    march on the trace's own stream (PHYSICS.md D12, 2 draws per light and
+    step), then bounces while any lane of the call is alive, up to
+    ``max_depth``; every lane draws each bounce's quota (D7).
+    ``active``: bool lanes that start alive (None = all).
+    Returns (radiance V3, state, segments int64 0-d tensor)."""
+    radiance = V3.zeros_like(orig.x)
+    if cfg.enable_fog_march and cfg.fog_in_trace:
+        radiance, state = fog_prepass_grid(orig, dirv, state, pack)
+        if active is not None:
+            radiance = V3.where(active, radiance, V3.zeros_like(orig.x))
+    alive = torch.ones_like(orig.x, dtype=torch.bool) if active is None else active
+    throughput = V3.full_like(orig.x, 1.0)
+    glass_obj = torch.full_like(orig.x, -1, dtype=torch.int64)
+    glass_dist = torch.zeros_like(orig.x)
+    segments = torch.zeros((), dtype=torch.int64, device=orig.x.device)
+    d = 0
+    while d < cfg.max_depth and bool(alive.any()):
+        segments = segments + alive.sum()
+        rng = LaneRng(state)
+        orig, dirv, throughput, radiance, alive, glass_obj, glass_dist = _bounce_gpu(
+            pack, cfg, orig, dirv, throughput, radiance, alive, d, rng, glass_obj, glass_dist
+        )
+        state = rng.state
+        d += 1
+    return radiance, state, segments
+
+
+def _dielectric_exit_scan(orig: V3, dirv: V3, pack: ScenePack):
+    """Closest dielectric backface along a refracted ray (renderer.go:316-371,
+    integrator.py:752-792): candidates are the analytic objects with a
+    dielectric material, hit from behind, at squared distance in (1e-8,
+    1000) from the origin, with t_min 1e-4.  Returns (found, exit_p V3)."""
+    best_t = torch.full_like(orig.x, BIG_T)
+    obj = pack.host("obj")
+    for m, t, ok in geometry._object_candidates(orig, dirv, pack, 1e-4):  # exitTMin (renderer.go:322)
+        if pack.mat_types[pack.obj_mats[m]] != MAT_DIELECTRIC:
+            continue
+        typ = pack.obj_types[m]
+        cx, cy, cz, sx, sy = obj[m, 4], obj[m, 5], obj[m, 6], obj[m, 8], obj[m, 9]
+        px, py, pz = orig.x + dirv.x * t, orig.y + dirv.y * t, orig.z + dirv.z * t
+        if typ == OBJ_SPHERE:
+            front = (dirv.x * (px - cx) + dirv.y * (py - cy) + dirv.z * (pz - cz)) < 0
+        elif typ == OBJ_PLANE:
+            front = dirv.y < 0
+        else:  # box: the nearest-face normal chain (objects.go:186-219)
+            lx, ly, lz = px - cx, py - cy, pz - cz
+            on_x = torch.abs(torch.abs(lx) - sx * _f(0.5)) < 1e-4
+            on_y = torch.abs(torch.abs(ly) - sy * _f(0.5)) < 1e-4
+            ndot = torch.where(
+                on_x, dirv.x * torch.sign(lx), torch.where(on_y, dirv.y * torch.sign(ly), dirv.z * torch.sign(lz))
+            )
+            front = ndot < 0
+        ex, ey, ez = px - orig.x, py - orig.y, pz - orig.z
+        dist_sq = ex * ex + ey * ey + ez * ez
+        ok = ok & ~front & (dist_sq > 1e-8) & (dist_sq < 1000.0)
+        best_t = torch.where(ok & (t < best_t), t, best_t)
+    found = best_t < BIG_T
+    exit_p = orig + dirv * torch.where(found, best_t, 0.0)
+    return found, exit_p
+
+
+def _trace_cpu(orig: V3, dirv: V3, state, pack: ScenePack, cfg: TraceConfig, active=None):
+    """CPU-contract bounce loop for given rays (renderer.go:286-404,
+    materials.go:74-224; integrator.py:795-935).  Nine draws per bounce:
+    2 + 3 for the Lambert cosine and its rough jitter, 2 for the metal's
+    cosine lobe, 1 Fresnel, 1 russian roulette.  Unlike the gpu contract:
+    the scatter ray starts at the hit point itself, ``ior == 0`` means
+    1.5, roughness comes from smoothness, Schlick takes the refraction
+    ratio, an entering refracted ray jumps to the exit point found by the
+    exit scan (Beer-Lambert over that distance), no NEE, no fog.
+    Returns (radiance V3, state, segments int64 0-d tensor)."""
+    radiance = V3.zeros_like(orig.x)
+    throughput = V3.full_like(orig.x, 1.0)
+    alive = torch.ones_like(orig.x, dtype=torch.bool) if active is None else active
+    segments = torch.zeros((), dtype=torch.int64, device=orig.x.device)
+    zero3 = V3.zeros_like(orig.x)
+    d = 0
+    while d < cfg.max_depth and bool(alive.any()):
+        segments = segments + alive.sum()
+        rng = LaneRng(state)
+        hit = intersect_world(orig, dirv, pack, 0.001, skip=~alive)
+        miss = alive & ~hit.hit
+        radiance = radiance + V3.where(miss, throughput * background_color(dirv.normalize(), pack.sky), zero3)
+        alive = alive & hit.hit
+
+        typ = hit.mtyp
+        rough = torch.where(
+            (typ == MAT_METAL) & (hit.smoothness > 0),
+            torch.clamp(1.0 - hit.smoothness, 0.0, 1.0),
+            torch.clamp(hit.rough, 0.0, 1.0),
+        )
+        ior = torch.where(hit.ior == 0, 1.5, hit.ior)  # materials.go:42-45
+        n = hit.normal
+        p = hit.p
+        view_dir = dirv.normalize()
+        is_lambert = typ == MAT_LAMBERT
+        is_metal = typ == MAT_METAL
+        is_mirror = typ == MAT_MIRROR
+        is_diel = typ == MAT_DIELECTRIC
+        is_emissive = typ == MAT_EMISSIVE
+
+        radiance = radiance + V3.where(alive & is_emissive, throughput * hit.emit, zero3)
+
+        # Lambert: cosine lobe plus a rough jitter (materials.go:76-97)
+        cos_dir = sampling.cosine_direction_onb(n, rng.next(), rng.next())
+        jit_ball = sampling.unit_ball(*rng.next3())
+        lam_dir = (cos_dir + jit_ball * (rough * 0.1)).normalize()
+        lambert_dir = V3.where(rough > 1e-6, lam_dir, cos_dir)
+
+        # metal: mirror blended toward a cosine lobe by rough^2 (materials.go:99-160)
+        reflected = optics.reflect(view_dir, n)
+        cos_around_refl = sampling.cosine_direction_onb(reflected, rng.next(), rng.next())
+        alpha = rough * rough
+        blended = reflected * (1.0 - alpha) + cos_around_refl * alpha
+        blended = V3.where(blended.length_sq() < 1e-8, reflected, blended.normalize())
+        rough_metal_dir = V3.where(blended.dot(n) <= 0, reflected, blended)
+        metal_dir = V3.where(rough > 1e-6, rough_metal_dir, reflected)
+
+        # dielectric: Schlick on the refraction ratio (materials.go:162-200)
+        cos_t = torch.clamp_max(-(view_dir.dot(n)), 1.0)
+        sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+        entering = hit.front_face
+        ratio = torch.where(entering, 1.0 / ior, ior)
+        cannot = ratio * sin_t > 1.0
+        refl_prob = optics.schlick(cos_t, ratio)
+        do_reflect = cannot | (refl_prob > rng.next())
+        diel_dir = V3.where(do_reflect, optics.reflect(view_dir, n), optics.refract(view_dir, n, ratio))
+
+        new_dir = V3.where(
+            is_lambert, lambert_dir,
+            V3.where(is_diel, diel_dir, V3.where(is_metal | is_mirror, metal_dir, lambert_dir)),
+        )
+        attenuation = V3.where(is_diel, V3.full_like(orig.x, 1.0), hit.albedo)
+
+        # Beer-Lambert through the exit scan (renderer.go:316-371)
+        new_orig = p
+        if cfg.has_dielectric:
+            found, exit_p = _dielectric_exit_scan(p, new_dir, pack)
+            dist = (exit_p - p).length()
+            beer = (-(hit.absorption * dist)).exp()
+            apply = is_diel & entering & ~do_reflect & alive & found
+            attenuation = V3.where(apply & hit.absorption.any_positive(), beer, attenuation)
+            new_orig = V3.where(apply, exit_p, new_orig)
+
+        rr_kill, attenuation = _russian_roulette(cfg, d, rng, attenuation)
+        alive = alive & ~is_emissive & ~rr_kill
+        throughput = V3.where(alive, throughput * attenuation, throughput)
+        orig = V3.where(alive, new_orig, orig)  # no epsilon offset (renderer.go:292)
+        dirv = V3.where(alive, new_dir, dirv)
+        state = rng.state
+        d += 1
+    return radiance, state, segments
+
+
+def trace_grid(orig: V3, dirv: V3, state, pack: ScenePack, cfg: TraceConfig, active=None):
+    """Trace given rays on flat lanes (integrator.py:948-966): the bounce
+    loop of ``cfg.contract``, with the in-trace fog march when the config
+    asks for it.  ``state``: uint32 values in an integer tensor;
+    ``active``: optional bool lanes that start alive.  On a CUDA device
+    kernel B3 runs (ops/cuda_trace.py), on the CPU the plain version.
+
+    The returned state of every lane is its input state advanced by the
+    call's fixed draws: the fog march's, then one bounce quota for each
+    trip of the loop, whose count is the longest path among the call's
+    lanes (at most ``max_depth``).  One call is one batch, as in the JAX
+    package run on the CPU.
+    Returns (radiance V3, state int64, segments int64 0-d tensor)."""
+    return cuda_trace.trace_grid(orig, dirv, state, pack, cfg, active)
+
+
+def trace(orig, dirv, state, pack: ScenePack, cfg: TraceConfig):
+    """Row-vector form of :func:`trace_grid` (integrator.py:969-1007):
+    ``orig``/``dirv`` f32[N,3], ``state`` uint32 values [N].
+    Returns (radiance f32[N,3], state int64[N], segments)."""
+    o = V3(orig[:, 0], orig[:, 1], orig[:, 2])
+    d = V3(dirv[:, 0], dirv[:, 1], dirv[:, 2])
+    rad, st, segments = trace_grid(o, d, state, pack, cfg)
+    return rad.to_rows(), st, segments

@@ -1,30 +1,41 @@
 """The CUDA kernels and their wrappers: CUDA C++ on the card, the plain
 PyTorch versions on the CPU.
 
-Counterpart of ``path_trace_golang_tpu/ops/pallas_trace.py::render_pass_pallas``
-and of the per-lane paged walk that runs inside it
-(``ops/bvh.py::_traverse_gather`` / ``_occluded_gather``).
+Counterpart of ``path_trace_golang_tpu/ops/pallas_trace.py``
+(``render_pass_pallas`` and ``trace_grid_pallas``) and of the per-lane
+paged walk that runs inside them (``ops/bvh.py::_traverse_gather`` /
+``_occluded_gather``).
 
 :func:`render_pass` runs one progressive pass, or a window of ``n_passes``
 passes, for flat pixel lanes:
 
-* on CUDA tensors it launches ``csrc/render_pass.cu`` (one thread per
-  lane, the merged sample+bounce loop in registers, the scene tables in
-  shared memory; for a mesh above 128 triangles the paged walk of
-  ``csrc/paged_walk.cuh`` over page tiles in device memory), or raises;
+* on CUDA tensors it launches the whole-pass kernel (one thread per lane,
+  the loop in registers, the scene tables in shared memory; for a mesh
+  above 128 triangles the paged walk of ``csrc/paged_walk.cuh`` over page
+  tiles in device memory): the regeneration instance of
+  ``csrc/render_pass.cu`` for the gpu contract, or the classic instance of
+  ``csrc/classic.cu``, one launch a sample, for the cpu contract and
+  faithful fog; or it raises;
 * on CPU tensors it runs :func:`render_pass_plain`, the torch
   ``render.pass_body_grid``, which the kernel is held to.
+
+:func:`trace_grid` traces given rays with the classic loop: kernel B3 of
+``csrc/classic.cu`` on CUDA tensors, the torch ``integrator._trace_cpu`` /
+``_trace_gpu`` on CPU tensors.
 
 :func:`paged_traverse` and :func:`paged_occluded` run the paged walk alone
 for given rays: on CUDA tensors the same device functions through their
 own entry point, on CPU tensors ``ops/bvh.py``'s plain versions.
 
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into
-``build/torch_kernels/`` beside the package and bound with ``ctypes``.
-``LAUNCHES`` counts launches of the whole-pass kernel, ``PAGED_LAUNCHES``
-those of them that carried pages (the walk ran inside them),
-``WALK_LAUNCHES`` launches of the walk alone; ``PLAIN_CALLS`` and
-``WALK_PLAIN_CALLS`` count calls of the plain versions.
+``build/torch_kernels/`` beside the package, one library for each source
+(``render_pass``, ``classic``), and bound with ``ctypes``.  ``LAUNCHES``
+counts launches of the whole-pass kernel, ``PAGED_LAUNCHES`` those of them
+that carried pages (the walk ran inside them), ``CLASSIC_LAUNCHES`` those of
+them of the classic instance, ``TRACE_LAUNCHES`` calls that launched kernel
+B3, ``WALK_LAUNCHES`` launches of the walk alone; ``PLAIN_CALLS``,
+``TRACE_PLAIN_CALLS`` and ``WALK_PLAIN_CALLS`` count calls of the plain
+versions.
 """
 
 from __future__ import annotations
@@ -42,32 +53,40 @@ import torch
 from ..soa import ScenePack
 from . import bvh as bvh_mod
 from .camera import camera_basis
+from .rng import MASK32
 from .vec import V3
 
 __all__ = [
     "render_pass", "render_pass_plain", "render_pass_cuda", "count_ops", "count_ops_split", "build",
+    "trace_grid", "trace_grid_plain", "trace_grid_cuda", "trace_count_ops",
     "paged_traverse", "paged_occluded", "paged_count_ops",
-    "LAUNCHES", "PAGED_LAUNCHES", "WALK_LAUNCHES", "PLAIN_CALLS", "WALK_PLAIN_CALLS",
+    "LAUNCHES", "PAGED_LAUNCHES", "CLASSIC_LAUNCHES", "TRACE_LAUNCHES", "WALK_LAUNCHES",
+    "PLAIN_CALLS", "TRACE_PLAIN_CALLS", "WALK_PLAIN_CALLS",
 ]
 
 LAUNCHES = 0
 PAGED_LAUNCHES = 0
+CLASSIC_LAUNCHES = 0
+TRACE_LAUNCHES = 0
 WALK_LAUNCHES = 0
 PLAIN_CALLS = 0
+TRACE_PLAIN_CALLS = 0
 WALK_PLAIN_CALLS = 0
-BUILD_LOG = ""  # nvcc's -Xptxas -v report of the last build of the normal variant
+BUILD_LOG: dict = {}  # source name -> nvcc's -Xptxas -v report of its last normal build
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "render_pass.cu"
-HEADERS = (SOURCE.parent / "paged_walk.cuh",)
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = {"render_pass": CSRC / "render_pass.cu", "classic": CSRC / "classic.cu"}
+HEADERS = (CSRC / "common.cuh", CSRC / "paged_walk.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# flag bits (must match csrc/render_pass.cu)
+# flag bits (must match csrc/common.cuh)
 FLAG_APERTURE, FLAG_LENS_DISK, FLAG_ROUGH_METAL, FLAG_DIELECTRIC = 1, 2, 4, 8
 FLAG_FOG_ONCE, FLAG_NORMALIZE, FLAG_NEE, FLAG_TRI_EMISSIVE = 16, 32, 64, 128
+FLAG_CPU, FLAG_FOG_TRACE = 256, 512
 
 _LIBS: dict = {}
 
@@ -79,51 +98,59 @@ def _nvcc() -> str:
     cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build render_pass.cu")
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the port's kernels")
 
 
-def build(count_ops: bool = False) -> Path:
-    """Compile the kernel (once per source and flag set) and return the .so
+def build(count_ops: bool = False, source: str = "render_pass") -> Path:
+    """Compile one source (once per source and flag set) and return the .so
     path.  ``count_ops`` builds the operation-counting variant
-    (-DPT_COUNT_OPS), used only to compute the kernels' bounds.  The two
-    variants may be built at the same time from two threads."""
-    global BUILD_LOG
+    (-DPT_COUNT_OPS), used only to compute the kernels' bounds.  Builds of
+    other sources or variants may run at the same time from other threads."""
     flags = NVCC_FLAGS + (("-DPT_COUNT_OPS",) if count_ops else ())
-    src = SOURCE.read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
+    src = SOURCES[source].read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
     tag = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()[:12]
-    so = BUILD_DIR / f"render_pass_{'count_' if count_ops else ''}{tag}.so"
+    so = BUILD_DIR / f"{source}_{'count_' if count_ops else ''}{tag}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *flags, "-o", tmp, str(SOURCE)]
+    cmd = [_nvcc(), *flags, "-o", tmp, str(SOURCES[source])]
     res = subprocess.run(cmd, capture_output=True, text=True)
     log = res.stdout + res.stderr
     if not count_ops:
-        BUILD_LOG = log
+        BUILD_LOG[source] = log
     if res.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed on {source} ({res.returncode}):\n{log}")
     os.replace(tmp, so)
     return so
 
 
-def _lib(count_ops: bool = False):
-    if count_ops not in _LIBS:
-        lib = ctypes.CDLL(str(build(count_ops)))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pt_render_pass.argtypes = [
-            p, i, p, i, p, i, p, p, p, i, p, p, i, p, p, p, i, i, p, p, i,
-            ctypes.c_uint, i, i, i, i, i, i, i, i, p, p, p,
-        ]
-        lib.pt_render_pass.restype = i
-        lib.pt_paged_walk.argtypes = [p, p, i, i, p, p, p, i, ctypes.c_float, i, p, p, p, p, p]
-        lib.pt_paged_walk.restype = i
+# ctypes argument types of the scene arguments that every entry point takes first
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SCENE_ARGTYPES = [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I]
+
+
+def _lib(count_ops: bool = False, source: str = "render_pass"):
+    key = (count_ops, source)
+    if key not in _LIBS:
+        lib = ctypes.CDLL(str(build(count_ops, source)))
+        p, i, u = _P, _I, ctypes.c_uint
+        if source == "render_pass":
+            lib.pt_render_pass.argtypes = _SCENE_ARGTYPES + [p, p, i, u, i, i, i, i, i, i, i, i, p, p, p]
+            lib.pt_render_pass.restype = i
+            lib.pt_paged_walk.argtypes = [p, p, i, i, p, p, p, i, ctypes.c_float, i, p, p, p, p, p]
+            lib.pt_paged_walk.restype = i
+        else:
+            lib.pt_trace_grid.argtypes = _SCENE_ARGTYPES + [p, p, p, i, i, i, i, p, p, p, p, p, p]
+            lib.pt_trace_grid.restype = i
+            lib.pt_classic_pass.argtypes = _SCENE_ARGTYPES + [p, p, i, u, i, i, i, i, i, i, i, i, p, p, p, p, p, p]
+            lib.pt_classic_pass.restype = i
         lib.pt_error_string.argtypes = [i]
         lib.pt_error_string.restype = ctypes.c_char_p
-        _LIBS[count_ops] = lib
-    return _LIBS[count_ops]
+        _LIBS[key] = lib
+    return _LIBS[key]
 
 
 def _device_tables(pack: ScenePack):
@@ -183,15 +210,18 @@ def render_pass_cuda(
     normalize_pass: bool,
     n_passes: int = 1,
 ):
-    """Launch the CUDA kernel on the current stream."""
-    global LAUNCHES, PAGED_LAUNCHES
-    col, counters = _launch(
+    """Launch the whole-pass kernel on the current stream: the regeneration
+    instance, or the classic instance once for each sample."""
+    global LAUNCHES, PAGED_LAUNCHES, CLASSIC_LAUNCHES
+    col, counters, launches = _launch(
         False, pack, frame_seed, px, py, tcfg=tcfg, width=width, height=height, n_strata=n_strata,
         samples=samples, has_aperture=has_aperture, normalize_pass=normalize_pass, n_passes=n_passes,
     )
-    LAUNCHES += 1
+    LAUNCHES += launches
     if pack.paged is not None:
-        PAGED_LAUNCHES += 1
+        PAGED_LAUNCHES += launches
+    if not _regen(tcfg):
+        CLASSIC_LAUNCHES += launches
     return col, counters[0]
 
 
@@ -199,10 +229,13 @@ def count_ops(pack: ScenePack, frame_seed: int, px, py, **kw):
     """Run the operation-counting build of the kernel on the same inputs.
 
     Returns (segments, f32 operations) as Python ints: the work that these
-    inputs need, tallied by the kernel's own code (csrc/render_pass.cu).
+    inputs need, tallied by the kernel's own code (csrc/common.cuh).
     Not a launch of the render path: ``LAUNCHES`` does not change."""
     counts = count_ops_split(pack, frame_seed, px, py, **kw)
     return counts["segments"], counts["ops"]
+
+
+_COUNT_NAMES = ("segments", "ops", "walk_ops", "walk_cycles", "cycles")
 
 
 def count_ops_split(pack: ScenePack, frame_seed: int, px, py, **kw) -> dict:
@@ -211,33 +244,42 @@ def count_ops_split(pack: ScenePack, frame_seed: int, px, py, **kw) -> dict:
     ``walk_cycles`` and ``cycles`` (clock cycles, summed over lanes, spent
     inside the walk and in all; a lane that waits for its warp inside the
     walk counts as inside)."""
-    _col, counters = _launch(True, pack, frame_seed, px, py, **kw)
-    names = ("segments", "ops", "walk_ops", "walk_cycles", "cycles")
-    return dict(zip(names, (int(c) for c in counters)))
+    _col, counters, _n = _launch(True, pack, frame_seed, px, py, **kw)
+    return dict(zip(_COUNT_NAMES, (int(c) for c in counters)))
 
 
-def _launch(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, n_strata, samples,
-            has_aperture, normalize_pass, n_passes=1):
+def _regen(tcfg) -> bool:
     from ..integrator import regen_enabled
 
-    if not regen_enabled(tcfg):
-        raise NotImplementedError(
-            "the kernel runs the regeneration loop only; faithful fog and the cpu "
-            "contract need kernel B3 (ROADMAP.md Queue B)"
-        )
-    dev = px.device
+    return regen_enabled(tcfg)
+
+
+def _check_device(what: str, pack: ScenePack, *tensors):
+    dev = tensors[0].device
     if dev.type != "cuda":
-        raise ValueError(f"render_pass_cuda: the kernel needs CUDA tensors, got {dev}")
-    if pack.device != dev or py.device != dev:
-        raise ValueError("render_pass_cuda: pack, px and py must be on one device")
-    px = px.to(torch.int32).contiguous()
-    py = py.to(torch.int32).contiguous()
-    n = px.numel()
-    out = torch.empty((3, n), dtype=torch.float32, device=dev)
-    counters = torch.zeros(5, dtype=torch.int64, device=dev)  # segments; the counting build's tallies
-    basis = camera_basis(pack.cam, width, height).contiguous()
+        raise ValueError(f"{what}: the kernel needs CUDA tensors, got {dev}")
+    if pack.device != dev or any(t.device != dev for t in tensors):
+        raise ValueError(f"{what}: the pack and every tensor must be on one device")
+    tables = [pack.mat, pack.obj, pack.sky, pack.fog, pack.tri, pack.bvh_bounds, pack.page_tiles, pack.page_boxes]
+    if any(t.dtype != torch.float32 or not t.is_contiguous() for t in tables):
+        raise ValueError(f"{what}: scene tables must be contiguous float32")
+    return dev
+
+
+def _scene_args(pack: ScenePack, basis):
+    """The scene arguments that every entry point takes first (PT_SCENE_PARAMS)."""
     lights, topo, n_nodes, tri_rows = _device_tables(pack)
-    flags = (
+    n_pages, n_sub = (pack.paged.n_pages, pack.page_boxes.shape[1]) if pack.paged is not None else (0, 0)
+    return [
+        pack.mat.data_ptr(), pack.mat.shape[0], pack.obj.data_ptr(), pack.n_objects,
+        lights.data_ptr(), pack.n_lights, pack.sky.data_ptr(), pack.fog.data_ptr(),
+        pack.tri.data_ptr(), tri_rows, pack.bvh_bounds.data_ptr(), topo.data_ptr(), n_nodes,
+        basis.data_ptr(), pack.page_tiles.data_ptr(), pack.page_boxes.data_ptr(), n_pages, n_sub,
+    ]
+
+
+def _flags(pack: ScenePack, tcfg, has_aperture=False, normalize_pass=False) -> int:
+    return (
         (FLAG_APERTURE if has_aperture else 0)
         | (FLAG_LENS_DISK if pack.lens_disk else 0)
         | (FLAG_ROUGH_METAL if tcfg.has_rough_metal else 0)
@@ -246,24 +288,125 @@ def _launch(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, n_
         | (FLAG_NORMALIZE if normalize_pass else 0)
         | (FLAG_NEE if tcfg.enable_nee else 0)
         | (FLAG_TRI_EMISSIVE if pack.tri_any_emissive else 0)
+        | (FLAG_CPU if tcfg.contract == "cpu" else 0)
+        | (FLAG_FOG_TRACE if (tcfg.enable_fog_march and tcfg.fog_in_trace) else 0)
     )
-    n_pages, n_sub = (pack.paged.n_pages, pack.page_boxes.shape[1]) if pack.paged is not None else (0, 0)
-    tables = [pack.mat, pack.obj, pack.sky, pack.fog, pack.tri, pack.bvh_bounds, pack.page_tiles, pack.page_boxes]
-    if any(t.dtype != torch.float32 or not t.is_contiguous() for t in tables):
-        raise ValueError("render_pass_cuda: scene tables must be contiguous float32")
-    lib = _lib(counting)
-    err = lib.pt_render_pass(
-        pack.mat.data_ptr(), pack.mat.shape[0], pack.obj.data_ptr(), pack.n_objects,
-        lights.data_ptr(), pack.n_lights, pack.sky.data_ptr(), pack.fog.data_ptr(),
-        pack.tri.data_ptr(), tri_rows, pack.bvh_bounds.data_ptr(), topo.data_ptr(), n_nodes,
-        basis.data_ptr(), pack.page_tiles.data_ptr(), pack.page_boxes.data_ptr(), n_pages, n_sub,
-        px.data_ptr(), py.data_ptr(), n, int(frame_seed) & 0xFFFFFFFF,
-        width, height, n_strata, samples, n_passes, tcfg.max_depth, tcfg.rr_threshold,
-        flags, out.data_ptr(), counters.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
+
+
+def _raise_on(err: int, lib, what: str):
     if err != 0:
-        raise RuntimeError(f"render_pass kernel launch failed: {lib.pt_error_string(err).decode()}")
-    return V3(out[0], out[1], out[2]), counters
+        raise RuntimeError(f"{what} kernel launch failed: {lib.pt_error_string(err).decode()}")
+
+
+def _launch(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, n_strata, samples,
+            has_aperture, normalize_pass, n_passes=1):
+    """Returns (col V3, the five counters, kernel launches made)."""
+    regen = _regen(tcfg)
+    if not regen and n_passes != 1:
+        raise ValueError("n_passes > 1 requires the regeneration loop (gpu contract)")
+    dev = _check_device("render_pass_cuda", pack, px, py)
+    px = px.to(torch.int32).contiguous()
+    py = py.to(torch.int32).contiguous()
+    n = px.numel()
+    out = torch.empty((3, n), dtype=torch.float32, device=dev)
+    counters = torch.zeros(5, dtype=torch.int64, device=dev)  # segments; the counting build's tallies
+    basis = camera_basis(pack.cam, width, height).contiguous()
+    scene = _scene_args(pack, basis)
+    flags = _flags(pack, tcfg, has_aperture, normalize_pass)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    seed = int(frame_seed) & MASK32
+    if regen:
+        lib = _lib(counting, "render_pass")
+        err = lib.pt_render_pass(
+            *scene, px.data_ptr(), py.data_ptr(), n, seed, width, height, n_strata, samples, n_passes,
+            tcfg.max_depth, tcfg.rr_threshold, flags, out.data_ptr(), counters.data_ptr(), stream,
+        )
+        _raise_on(err, lib, "render_pass")
+        return V3(out[0], out[1], out[2]), counters, 1
+    # the classic instance: one launch a sample; state, path lengths and the
+    # trips of each sample stay on the card from one launch to the next
+    lib = _lib(counting, "classic")
+    state = torch.empty(n, dtype=torch.int32, device=dev)
+    lengths = torch.empty(n, dtype=torch.int32, device=dev)
+    trips = torch.zeros(max(samples, 1), dtype=torch.int32, device=dev)
+    for s in range(samples):
+        err = lib.pt_classic_pass(
+            *scene, px.data_ptr(), py.data_ptr(), n, seed, width, height, n_strata, samples, s,
+            tcfg.max_depth, tcfg.rr_threshold, flags, out.data_ptr(), state.data_ptr(), lengths.data_ptr(),
+            trips.data_ptr(), counters.data_ptr(), stream,
+        )
+        _raise_on(err, lib, "classic render_pass")
+    return V3(out[0], out[1], out[2]), counters, samples
+
+
+# ---------------------------------------------------------------------------
+# Kernel B3: the classic loop for given rays
+# ---------------------------------------------------------------------------
+
+
+def trace_grid(orig: V3, dirv: V3, state, pack: ScenePack, cfg, active=None):
+    """Trace given rays on flat lanes; arguments and result as
+    ``integrator.trace_grid``.  CUDA tensors go to kernel B3, CPU tensors
+    to the plain version; nothing falls back."""
+    if orig.x.is_cuda:
+        return trace_grid_cuda(orig, dirv, state, pack, cfg, active)
+    if orig.x.device.type == "cpu":
+        return trace_grid_plain(orig, dirv, state, pack, cfg, active)
+    raise NotImplementedError(f"trace_grid: no kernel for device {orig.x.device}")
+
+
+def trace_grid_plain(orig: V3, dirv: V3, state, pack: ScenePack, cfg, active=None):
+    """The plain version: the torch ``integrator._trace_cpu`` / ``_trace_gpu``
+    over all the given lanes as one batch."""
+    global TRACE_PLAIN_CALLS
+    from .. import integrator
+
+    TRACE_PLAIN_CALLS += 1
+    trace = integrator._trace_cpu if cfg.contract == "cpu" else integrator._trace_gpu
+    return trace(orig, dirv, state.to(torch.int64) & MASK32, pack, cfg, active)
+
+
+def trace_grid_cuda(orig: V3, dirv: V3, state, pack: ScenePack, cfg, active=None):
+    """Launch kernel B3 (and the launch that advances each lane's state by
+    the call's other trips) on the current stream."""
+    global TRACE_LAUNCHES
+    rad, st, counters = _launch_trace(False, orig, dirv, state, pack, cfg, active)
+    TRACE_LAUNCHES += 1
+    return rad, st, counters[0]
+
+
+def trace_count_ops(orig: V3, dirv: V3, state, pack: ScenePack, cfg, active=None) -> dict:
+    """The counting build of kernel B3 on the same rays: ``segments``,
+    ``ops``, ``walk_ops``, ``walk_cycles``, ``cycles`` as in
+    :func:`count_ops_split`.  Not a launch of the trace path:
+    ``TRACE_LAUNCHES`` does not change."""
+    _rad, _st, counters = _launch_trace(True, orig, dirv, state, pack, cfg, active)
+    return dict(zip(_COUNT_NAMES, (int(c) for c in counters)))
+
+
+def _launch_trace(counting: bool, orig: V3, dirv: V3, state, pack, cfg, active):
+    dev = _check_device("trace_grid_cuda", pack, orig.x, dirv.x, state, *(() if active is None else (active,)))
+    shape = orig.x.shape
+    n = orig.x.numel()
+    rays = torch.stack([c.reshape(-1) for c in (*orig, *dirv)]).to(torch.float32).contiguous()
+    st = state.reshape(-1).to(torch.int64) & MASK32
+    st_in = torch.where(st >= 2**31, st - 2**32, st).to(torch.int32).contiguous()
+    act = None if active is None else active.reshape(-1).to(torch.uint8).contiguous()
+    out = torch.empty((3, n), dtype=torch.float32, device=dev)
+    st_out = torch.empty(n, dtype=torch.int32, device=dev)
+    lengths = torch.empty(n, dtype=torch.int32, device=dev)
+    trips = torch.zeros(1, dtype=torch.int32, device=dev)
+    counters = torch.zeros(5, dtype=torch.int64, device=dev)
+    basis = torch.zeros(19, dtype=torch.float32, device=dev)  # the trace makes no camera rays
+    lib = _lib(counting, "classic")
+    err = lib.pt_trace_grid(
+        *_scene_args(pack, basis), rays.data_ptr(), st_in.data_ptr(), 0 if act is None else act.data_ptr(), n,
+        cfg.max_depth, cfg.rr_threshold, _flags(pack, cfg), out.data_ptr(), st_out.data_ptr(),
+        lengths.data_ptr(), trips.data_ptr(), counters.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, lib, "trace_grid")
+    rad = V3(out[0].reshape(shape), out[1].reshape(shape), out[2].reshape(shape))
+    return rad, (st_out.to(torch.int64) & MASK32).reshape(shape), counters
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ __all__ = [
     "unit_ball",
     "unit_disk",
     "cosine_direction",
+    "cosine_direction_onb",
     "sphere_surface",
     "sample_ggx",
 ]
@@ -84,6 +85,21 @@ def cosine_direction(normal: V3, u1, u2) -> V3:
     ly = sin_theta * sin_phi
     d = axis * lx + v * ly + normal * cos_theta
     return d.normalize()
+
+
+def cosine_direction_onb(normal: V3, u1, u2) -> V3:
+    """Cosine-weighted hemisphere direction around ``normal`` with a proper
+    orthonormal frame (v = n x axis normalized, u = v x n), the cpu
+    contract's sampler (math.go:94-131); not re-normalized."""
+    sin_phi, cos_phi = sincos_2pi(u1)
+    cos_theta = torch.sqrt(u2)
+    sin_theta = torch.sqrt(torch.clamp_min(1.0 - u2, 0.0))
+
+    use_y = torch.abs(normal.x) > 0.9
+    axis = _axis_frame(normal, use_y, (0, 1, 0), (1, 0, 0))
+    v = normal.cross(axis).normalize()
+    u = v.cross(normal)
+    return u * (sin_theta * cos_phi) + v * (sin_theta * sin_phi) + normal * cos_theta
 
 
 def sphere_surface(u1, u2) -> V3:

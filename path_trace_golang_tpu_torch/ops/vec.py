@@ -56,6 +56,9 @@ class V3(NamedTuple):
     def length_sq(self):
         return self.dot(self)
 
+    def length(self):
+        return torch.sqrt(torch.clamp_min(self.length_sq(), 0.0))
+
     def normalize(self, eps=1e-20) -> "V3":
         inv = 1.0 / torch.sqrt(torch.clamp_min(self.length_sq(), eps))
         return V3(self.x * inv, self.y * inv, self.z * inv)

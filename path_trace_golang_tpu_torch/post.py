@@ -3,7 +3,9 @@
 Counterpart of ``path_trace_golang_tpu/post.py``: ACES per channel
 (gpu.go:22-47), sqrt gamma with +0.5 byte rounding (gpu.go:2262-2284),
 the 3x3 bilateral denoise in byte-sRGB space (gpu.go:2355-2439) and the
-optional box blur (gpu.go:2441-2520), with the same boundary handling.
+optional box blur (gpu.go:2441-2520), with the same boundary handling;
+for the cpu contract sqrt gamma and truncation of v * 255.999
+(renderer.go:189-221).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ __all__ = [
     "bilateral_denoise",
     "box_smooth",
     "finalize_gpu_contract",
+    "finalize_cpu_contract",
 ]
 
 
@@ -40,10 +43,17 @@ def gamma_encode(x):
     return torch.clamp(torch.sqrt(torch.clamp_min(x, 0.0)), 0.0, 1.0)
 
 
-def tonemap_to_u8(linear):
-    """Linear HDR [H,W,3] -> u8 [H,W,3]: ACES, sqrt gamma, round via +0.5."""
-    v = gamma_encode(aces_tonemap(linear))
-    return (v * 255.0 + 0.5).to(torch.uint8)
+def tonemap_to_u8(linear, use_aces: bool):
+    """Linear HDR [H,W,3] -> u8 [H,W,3].
+
+    gpu contract (``use_aces``): ACES, sqrt gamma, round via +0.5
+    (gpu.go:2262-2284).  cpu contract: sqrt gamma, then v * 255.999
+    clipped and truncated (renderer.go:196-221)."""
+    if use_aces:
+        v = gamma_encode(aces_tonemap(linear))
+        return (v * 255.0 + 0.5).to(torch.uint8)
+    v = gamma_encode(linear)
+    return torch.clamp(v * 255.999, 0.0, 255.999).to(torch.uint8)
 
 
 def _shift2d(img, dy, dx):
@@ -105,7 +115,13 @@ def finalize_gpu_contract(accum, sample_count: int, denoise=True, denoise_sigma_
     """Accumulation buffer f32[H,W,3] -> display bytes u8[H,W,3]
     (gpu.go:1742-1747 averaging + readback processing)."""
     mean = _div(accum, float(max(sample_count, 1)))
-    u8 = tonemap_to_u8(mean)
+    u8 = tonemap_to_u8(mean, use_aces=True)
     if denoise:
         u8 = bilateral_denoise(u8, denoise_sigma_s, denoise_sigma_r)
     return u8
+
+
+def finalize_cpu_contract(accum, sample_count: int):
+    """cpu-contract display path: average, sqrt gamma, truncation
+    (renderer.go:189-221)."""
+    return tonemap_to_u8(_div(accum, float(max(sample_count, 1))), use_aces=False)

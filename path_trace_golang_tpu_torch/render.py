@@ -1,18 +1,20 @@
-"""Render orchestration: progressive pass windows, accumulation, streaming.
+"""Render orchestration: progressive passes, accumulation, streaming.
 
-Counterpart of ``path_trace_golang_tpu/render.py`` for the gpu contract.
-One pass takes the shader's 16 stratified samples per pixel and adds their
-SUM to the accumulator, counted as one sample (PHYSICS.md Q1);
-``normalize_pass=True`` gives a physically normalized render instead.
-Several passes run in one kernel launch (a pass window, default 8), each
-lane reseeding at every pass boundary, so a window render equals the
-pass-by-pass render.
+Counterpart of ``path_trace_golang_tpu/render.py`` for both physics
+contracts.  Under the gpu contract one pass takes the shader's 16
+stratified samples per pixel and adds their SUM to the accumulator,
+counted as one sample (PHYSICS.md Q1); ``normalize_pass=True`` gives a
+physically normalized render instead.  Several passes run in one kernel
+launch (a pass window, default 8), each lane reseeding at every pass
+boundary, so a window render equals the pass-by-pass render.  Faithful
+fog (``faithful_fog=True``) and the cpu contract (one sample a pass, the
+default backend) run the classic per-sample loop, one pass at a time.
 
 The renderer runs on the card (``device="cuda"``) unless the caller asks
 for the CPU; with no card it raises instead of falling back.  A failure
 of the gpu contract raises too: the JAX package's fallback to the cpu
-contract is not ported, nor are its checkpointing and metrics sink
-(ROADMAP.md Queue A item 9).
+contract is not ported (it would hide a kernel's failure), nor are its
+checkpointing and metrics sink (ROADMAP.md Queue A item 9).
 """
 
 from __future__ import annotations
@@ -25,12 +27,20 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .integrator import TraceConfig, fog_prepass_grid, pass_regen_gpu, regen_enabled, trace_config_for_scene
+from .integrator import (
+    TraceConfig,
+    _trace_cpu,
+    _trace_gpu,
+    fog_prepass_grid,
+    pass_regen_gpu,
+    regen_enabled,
+    trace_config_for_scene,
+)
 from .ops import cuda_trace
 from .ops.camera import camera_basis, camera_rays
 from .ops.rng import MASK32, LaneRng, seed_lanes
 from .ops.vec import V3
-from .post import box_smooth, finalize_gpu_contract
+from .post import box_smooth, finalize_cpu_contract, finalize_gpu_contract
 from .scene.model import RenderSettings, Scene
 from .soa import ScenePack, pack_scene, resolve_device
 from .utils import config as env_config
@@ -52,18 +62,13 @@ __all__ = [
 _f = np.float32
 
 # Backend switch parity (internal/engine/backend.go:5-28): the names select
-# the physics contract.  Only the gpu contract is ported.
+# the physics contract.
 BACKEND_CPU = "cpu"
 BACKEND_GPU = "gpu"
 _backend = BACKEND_CPU
 
 # Decorrelation constant for the fog estimate's own counter stream.
 FOG_STREAM_XOR = 0x9E3779B9
-
-_TODO_CPU_CONTRACT = (
-    "the cpu physics contract is not ported yet (ROADMAP.md Queue A item 8); "
-    "use contract='gpu' or set_backend('gpu')"
-)
 
 
 def set_backend(b: str) -> None:
@@ -131,23 +136,22 @@ def pass_body_grid(
     n_passes: int = 1,
 ):
     """A window of ``n_passes`` progressive passes on pixel-coordinate lanes
-    (render.py:194, regeneration branch): the fog estimate once per pass on
-    its own counter stream (``frame_seed ^ FOG_STREAM_XOR``, PHYSICS.md D6),
-    then the merged sample+bounce loop.  Returns (col V3, segments)."""
-    if not regen_enabled(tcfg):
-        raise NotImplementedError(
-            "only the regeneration loop is ported; faithful in-trace fog needs the "
-            "classic loop (ROADMAP.md Queue A item 8)"
-        )
+    (render.py:194): the fog estimate once per pass on its own counter
+    stream (``frame_seed ^ FOG_STREAM_XOR``, PHYSICS.md D6) where the
+    config asks for it, then the merged sample+bounce loop, or, for the cpu
+    contract and faithful fog, the classic loop (render.py:296-322): per
+    sample two jitter draws, the stratum, the camera ray, and the bounce
+    loop over all the given lanes, whose returned state starts the next
+    sample.  Returns (col V3, segments)."""
     state0 = seed_lanes(px, py, frame_seed)
     inv_w = _f(1.0) / _f(width - 1 if width > 1 else 1)
     inv_h = _f(1.0) / _f(height - 1 if height > 1 else 1)
     fy = _f(height - 1) - py.to(torch.float32)
     pxf = px.to(torch.float32)
+    basis = camera_basis(pack.cam, width, height)
 
-    col_pre = V3.zeros_like(pxf)
+    col = V3.zeros_like(pxf)
     if tcfg.enable_fog_march and not tcfg.fog_in_trace:
-        basis = camera_basis(pack.cam, width, height)
         for p in range(n_passes):
             fs = (int(frame_seed) + p) & MASK32
             rng0 = LaneRng(seed_lanes(px, py, fs ^ FOG_STREAM_XOR))
@@ -158,13 +162,36 @@ def pass_body_grid(
                 has_aperture, pack.lens_disk, basis=basis,
             )
             fog_rad, _ = fog_prepass_grid(fog_o, fog_d, rng0.state, pack)
-            col_pre = col_pre + fog_rad * _f(samples)
+            col = col + fog_rad * _f(samples)
 
-    col, _state, segs = pass_regen_gpu(
-        pack, px, py, state0, cfg=tcfg, width=width, height=height, n_strata=n_strata,
-        samples=samples, has_aperture=has_aperture, frame_seed=frame_seed,
-        n_passes=n_passes, col_init=col_pre,
-    )
+    if regen_enabled(tcfg):
+        col, _state, segs = pass_regen_gpu(
+            pack, px, py, state0, cfg=tcfg, width=width, height=height, n_strata=n_strata,
+            samples=samples, has_aperture=has_aperture, frame_seed=frame_seed,
+            n_passes=n_passes, col_init=col,
+        )
+    else:
+        if n_passes != 1:
+            raise ValueError("n_passes > 1 requires the regeneration loop (gpu contract)")
+        trace = _trace_cpu if tcfg.contract == BACKEND_CPU else _trace_gpu
+        inv_strata = _f(1.0 / n_strata)
+        state, segs = state0, torch.zeros((), dtype=torch.int64, device=px.device)
+        for s in range(samples):
+            rng = LaneRng(state)
+            jx = rng.next()
+            jy = rng.next()
+            if n_strata > 1:
+                su = (jx + float(s % n_strata)) * inv_strata
+                sv = (jy + float(s // n_strata)) * inv_strata
+            else:
+                su, sv = jx, jy
+            orig, dirv = camera_rays(
+                (pxf + su) * inv_w, (fy + sv) * inv_h, pack.cam, width, height, rng,
+                has_aperture, pack.lens_disk, basis=basis,
+            )
+            rad, state, seg = trace(orig, dirv, rng.state, pack, tcfg)
+            col = col + rad
+            segs = segs + seg
     if normalize_pass:
         col = col * _f(1.0 / samples)
     return col, segs
@@ -207,11 +234,13 @@ def trace_pass_lanes(
 
 
 class Renderer:
-    """Progressive path-trace renderer (gpu contract).
+    """Progressive path-trace renderer.
 
-    ``contract`` None follows the global backend switch.  ``progress``
-    callbacks receive ``(pass_index, u8_image[H,W,3])`` about every 10% of
-    passes (gpu.go:2209-2212); ``cancel()`` returning True stops after the
+    ``contract`` None follows the global backend switch ("cpu" unless
+    :func:`set_backend` says otherwise).  ``progress`` callbacks receive
+    ``(pass_index, u8_image[H,W,3])`` about every 10% of passes under the
+    gpu contract (gpu.go:2209-2212), every 5% under the cpu contract
+    (renderer.go:226-235); ``cancel()`` returning True stops after the
     current pass window.
     """
 
@@ -242,11 +271,11 @@ class Renderer:
         cancel: Optional[Callable[[], bool]] = None,
     ) -> np.ndarray:
         contract = self.contract or get_backend()
-        if contract != BACKEND_GPU:
-            raise NotImplementedError(_TODO_CPU_CONTRACT)
-        return self._render(sc, cfg, progress, cancel)
+        if contract not in (BACKEND_CPU, BACKEND_GPU):
+            raise ValueError(f"unknown contract {contract!r}")
+        return self._render(sc, cfg, contract, progress, cancel)
 
-    def _render(self, sc, cfg, progress, cancel) -> np.ndarray:
+    def _render(self, sc, cfg, contract, progress, cancel) -> np.ndarray:
         t0 = time.perf_counter()
         dev = self.device
         w, h = cfg.width, cfg.height
@@ -254,21 +283,27 @@ class Renderer:
         chunk = min(self.chunk, max(n, 1))
 
         pack = pack_scene(sc, w, h, device=dev)
-        tcfg = trace_config_for_scene(pack, sc, cfg.max_depth, BACKEND_GPU, faithful_fog=self.faithful_fog)
+        tcfg = trace_config_for_scene(pack, sc, cfg.max_depth, contract, faithful_fog=self.faithful_fog)
         has_aperture = sc.camera.aperture > 0
-        n_strata, samples = 4, 16  # shader strata arithmetic at 1 spp/pass
+        gpu = contract == BACKEND_GPU
+        # the shader's strata arithmetic at 1 spp a pass; one sample under the cpu contract
+        n_strata, samples = (4, 16) if gpu else (1, 1)
 
         passes = max(1, cfg.samples_per_px)
-        update_every = max(1, passes // 10)
-        window = max(1, int(os.environ.get("PATHTRACER_PASS_WINDOW", "8")))
-        if progress is not None or cancel is not None:
-            window = min(window, update_every)
+        update_every = max(1, passes // (10 if gpu else 20))
+        window = 1  # the classic loop renders one pass a launch
+        if regen_enabled(tcfg):
+            window = max(1, int(os.environ.get("PATHTRACER_PASS_WINDOW", "8")))
+            if progress is not None or cancel is not None:
+                window = min(window, update_every)
 
         accum = torch.zeros((n, 3), dtype=torch.float32, device=dev)
         total_segs = torch.zeros((), dtype=torch.int64, device=dev)
 
         def image(count, denoise):
             flat = accum.reshape(h, w, 3)
+            if not gpu:
+                return finalize_cpu_contract(flat, count)
             dn = env_config.get_denoise_config()
             u8 = finalize_gpu_contract(
                 flat, count, denoise=denoise and dn.enabled,

@@ -245,16 +245,3 @@ def test_trace_config_flags_match(name):
               "has_rough_metal", "has_dielectric", "rr_threshold", "regen"):
         assert getattr(jc, f) == getattr(tc, f), f
     assert TI.regen_enabled(tc) == JI.regen_enabled(jc)
-
-
-def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TI.trace(None, None, None, None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TI.trace_grid(None, None, None, None, None)
-    sc = TB.demo_showcase()
-    tp = _torch_pack("demo_showcase", W, H)
-    faithful = TI.trace_config_for_scene(tp, sc, DEPTH, "gpu", faithful_fog=True)
-    assert not TI.regen_enabled(faithful)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.pass_body_grid(tp, SEED, *_torch_lanes(LANES, W), tcfg=faithful, normalize_pass=False, **_kw(sc, W, H, 1))

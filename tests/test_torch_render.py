@@ -29,6 +29,7 @@ from path_trace_golang_tpu_torch import integrator as TI
 from path_trace_golang_tpu_torch import post as tpost
 from path_trace_golang_tpu_torch import render as TR
 from path_trace_golang_tpu_torch.ops import cuda_trace
+from path_trace_golang_tpu_torch.ops.vec import V3
 from path_trace_golang_tpu_torch.scene import builtin as TB
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -99,16 +100,6 @@ def test_renderer_needs_a_card_unless_cpu_is_asked_for(monkeypatch):
     with pytest.raises(RuntimeError):
         tpt.Renderer(contract="gpu", device="cuda")
     assert tpt.Renderer(device="cpu").device.type == "cpu"
-
-
-def test_cpu_contract_raises_until_ported():
-    r = tpt.Renderer(contract="cpu", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        r.render(TB.demo_cornell(), tpt.RenderConfig(8, 8, 1, 2))
-    tpt.set_backend("cpu")
-    assert tpt.get_backend() == "cpu"
-    with pytest.raises(ValueError):
-        tpt.set_backend("tpu")
 
 
 def test_render_settings_presets():
@@ -189,17 +180,23 @@ def test_kernel_rejects_what_it_does_not_run():
         has_aperture=False, normalize_pass=False,
     )
     assert cuda_trace.PLAIN_CALLS == before + 1 and col.x.shape == (64,) and int(segs) > 0
-    with pytest.raises(NotImplementedError, match="B3"):
+    # the classic loop renders one pass a launch, like its plain version
+    classic = TI.TraceConfig(max_depth=2, contract="cpu", regen=False)
+    with pytest.raises(ValueError, match="regeneration"):
         cuda_trace.render_pass_cuda(
-            pack, 1, idx % 8, idx // 8, tcfg=TI.TraceConfig(max_depth=2, contract="cpu", regen=False),
-            width=8, height=8, n_strata=4, samples=16, has_aperture=False, normalize_pass=False,
+            pack, 1, idx % 8, idx // 8, tcfg=classic, width=8, height=8, n_strata=1, samples=1,
+            has_aperture=False, normalize_pass=False, n_passes=2,
         )
-    # host tensors never reach the kernel: their pointers would be read on the card
+    # host tensors never reach a kernel: their pointers would be read on the card
+    for cfg in (tcfg, classic):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            cuda_trace.render_pass_cuda(
+                pack, 1, idx % 8, idx // 8, tcfg=cfg, width=8, height=8, n_strata=4, samples=16,
+                has_aperture=False, normalize_pass=False,
+            )
+    o = V3(*(torch.zeros(4) for _ in range(3)))
     with pytest.raises(ValueError, match="CUDA tensors"):
-        cuda_trace.render_pass_cuda(
-            pack, 1, idx % 8, idx // 8, tcfg=tcfg, width=8, height=8, n_strata=4, samples=16,
-            has_aperture=False, normalize_pass=False,
-        )
+        cuda_trace.trace_grid_cuda(o, o, torch.zeros(4, dtype=torch.int64), pack, classic)
 
 
 @pytest.mark.cuda
