@@ -6,9 +6,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. report the card (nvidia-smi name and power limit);
-2. build the kernels (csrc/render_pass.cu with csrc/paged_walk.cuh, nvcc
-   for sm_90a) and their operation-counting variant (-DPT_COUNT_OPS), the
-   two builds side by side, and print ptxas' registers, spills and shared
+2. build the kernels (csrc/render_pass.cu, csrc/classic.cu and
+   csrc/probes.cu, each with csrc/common.cuh and csrc/paged_walk.cuh, nvcc
+   for sm_90a) and their operation-counting variants (-DPT_COUNT_OPS), all
+   builds side by side, and print ptxas' registers, spills and shared
    memory;
 3. hold the whole-pass kernel against its plain PyTorch version on the
    card for demo_showcase and demo_cornell at 256x144, depth 12, one pass
@@ -79,12 +80,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     (frame seeds 1 and 2), and the whole first chunk (262,144 lanes) of the
     faithful-fog frame, phase 3's bands.
 
+20. perf probe T1 (op chains, csrc/probes.cu): every op class against its
+    plain version at 4 iterations (256 ops), on the TPU probe's 256x128
+    block and on a grid that fills the card (hash, select, sqrt, divide and
+    fma bit for bit, the others within rel 1e-5), and the IEEE-exact classes
+    at the full 2,000 iterations on the 256x128 block, bit for bit; then the probe's own
+    entry point (tools/perf/microbench.py) at full length with its launch
+    count, the fma-slot equivalents, and a check that half the iterations
+    take about half the time;
+21. T2 (the paged sweep): every variant on both packets, all 65,536 rays,
+    one traversal, against its plain version bit for bit, and all = dense =
+    gather; every variant on the incoherent packet at the probe's 16 chained
+    traversals, bit for bit; then tools/perf/paged_probe.py (16 traversals a launch) with
+    its time split, and the operations of each variant (counting build);
+22. T3 (page-tile fetch by layout): the four layouts on the TPU probe's 16
+    blocks and on a full-card grid against the plain version bit for bit;
+    then tools/perf/fetch_probe.py;
+23. T4 (the fetch taken apart): the five variants likewise; then
+    tools/perf/fetch_probe2.py, with the library call beside dyn_vec.
+
 The line before the last three says how long the phases took in all.  The
 third-to-last line is a JSON object describing every kernel
 (``max_abs_err`` is the largest the comparisons of that kernel found); the
 second-to-last is the card's name and power limit; the last line is
 {"ok": true, "device": {...}}.  ``--quick`` runs phases 1-3 only, at 64x36
 and depth 4, and a first, small run of B3 and of the classic instance.
+``--probes`` runs phases 1, 2 (the probes' library only) and 20-23.
 
 ``--render-only [scene width height passes depth renders]`` (defaults:
 demo_showcase 1920 1080 8 12 5) times the Renderer alone with the code of
@@ -485,6 +506,287 @@ def cuda_time_ms(fn, reps):
     return statistics.median(times)
 
 
+T1_CHECK_ITERS = 4  # iterations of T1's check: 256 ops a class (the hash 64 rounds), a known error bound
+T1_EXACT = ("hash", "select", "sqrt", "divide", "fma")  # IEEE-exact on both sides
+T1_RTOL = 1e-5  # ffma (the plain version rounds twice, via float64), rsqrt, exp, sin
+T1_CHAIN = 10  # dependent launches per timed T1 measurement
+PROBE_SOURCE = "path_trace_golang_tpu_torch/csrc/probes.cu"
+
+
+def probe_phases(card):
+    """Phases 20-23: the perf probes T1-T4 (ops/probes.py, csrc/probes.cu).
+    Each kernel is held to its plain version on the card, then the probe's
+    own entry point (path_trace_golang_tpu_torch/tools/perf/*.py) runs with
+    the launch counts set to 0 just before and read just after.  Returns the
+    kernels line's rows, or None after a failure (reported on stderr)."""
+    import numpy as np
+    import torch
+    from path_trace_golang_tpu_torch.ops import probes
+    from path_trace_golang_tpu_torch.tools.perf import fetch_probe, fetch_probe2, microbench, paged_probe, timing
+
+    t_probes = time.perf_counter()
+    dev = torch.device(DEVICE)
+
+    def drive(tag, key, fn):
+        for c in probes.PROBE_LAUNCHES:
+            probes.PROBE_LAUNCHES[c] = probes.PROBE_PLAIN_CALLS[c] = 0
+        res = fn()
+        torch.cuda.synchronize()
+        launches, plain = probes.PROBE_LAUNCHES[key], sum(probes.PROBE_PLAIN_CALLS.values())
+        print(f"[{tag}] {key} launches on the probe's own path: {launches}, plain calls: {plain}", flush=True)
+        return res, (launches if launches > 0 and plain == 0 else None)
+
+    def fail(tag, what):
+        print(f"[{tag}] FAIL: {what}", file=sys.stderr)
+
+    def i32(t):
+        return t.contiguous().view(torch.int32)
+
+    # ---- 20. T1, op chains: every class against its plain version at a short length, both shapes
+    shapes = microbench.shapes(dev)
+    t1_err = 0.0
+    for shape, (n, ilp) in shapes.items():
+        x = torch.from_numpy(np.random.RandomState(20).uniform(0.1, 2.0, n).astype(np.float32)).to(dev)
+        for kind in probes.OP_KINDS:
+            k = probes.op_chain(kind, x, T1_CHECK_ITERS, ilp)
+            p = probes.op_chain_plain(kind, x, T1_CHECK_ITERS)
+            torch.cuda.synchronize()
+            err = float((k - p).abs().max())
+            t1_err = max(t1_err, err)
+            ok = torch.equal(i32(k), i32(p)) if kind in T1_EXACT else bool(((k - p).abs() <= T1_RTOL * p.abs()).all())
+            print(f"[20] T1 {kind:6s} {shape} ({n} elements, {ilp} chain(s) a thread, {T1_CHECK_ITERS} iterations): "
+                  f"max |a-b| {err:.3g}, bit-equal {torch.equal(i32(k), i32(p))}", flush=True)
+            if not ok:
+                fail("20", f"T1 {kind} disagrees with its plain version")
+                return None
+    # the IEEE-exact classes at the probe's full length: every step rounds once on both sides
+    n_block = shapes["tpu-block"][0]
+    x = torch.from_numpy(np.random.RandomState(20).uniform(0.1, 2.0, n_block).astype(np.float32)).to(dev)
+    for kind in T1_EXACT:
+        t0 = time.perf_counter()
+        k = probes.op_chain(kind, x, microbench.ITERS, 1)
+        p = probes.op_chain_plain(kind, x, microbench.ITERS)
+        same = torch.equal(i32(k), i32(p))
+        print(f"[20] T1 {kind:6s} tpu-block ({n_block} elements, {microbench.ITERS} iterations): bit-equal {same}, "
+              f"finite {bool(torch.isfinite(k).all())} ({time.perf_counter() - t0:.1f} s)", flush=True)
+        if not same:
+            fail("20", f"T1 {kind} disagrees with its plain version at full length")
+            return None
+    n_card, ilp_card = shapes["full-card"]
+    x_card = torch.full((n_card,), 0.73, device=dev)
+    t1_plain_ms = cuda_time_ms(lambda: probes.op_chain_plain("ffma", x_card, T1_CHECK_ITERS), 1)
+    t1_small_ms = cuda_time_ms(lambda: probes.op_chain("ffma", x_card, T1_CHECK_ITERS, ilp_card), 3)
+    t1, t1_launches = drive("20", "op_chain", lambda: microbench.run(DEVICE, microbench.ITERS, T1_CHAIN))
+    if t1_launches is None or not all(r["finite"] for sh in t1.values() for r in sh.values()):
+        fail("20", "T1's path did not run on its kernel alone, or a chain came out non-finite")
+        return None
+    # the loop is really there: half the iterations take about half the time
+    half = cuda_time_ms(lambda: probes.op_chain("ffma", x_card, microbench.ITERS // 2, ilp_card), 3)
+    ratio = t1["full-card"]["ffma"]["ms"] / half
+    top = t1["full-card"]
+    flops = 2 * top["ffma"]["ops"]  # one fused multiply-add is 2 flops of the f32 peak
+    t1_bound = max(flops / PEAK_F32_FLOPS, n_card * 8 / PEAK_BYTES) * 1e3
+    print(f"[20] T1 ffma full card: {top['ffma']['ms']:.4f} ms a launch of {microbench.ITERS} iterations, "
+          f"{half:.4f} ms at half as many (ratio {ratio:.2f}); bound {t1_bound:.4f} ms ({flops:.6g} flops), "
+          f"{2 * top['ffma']['gops'] / 1e3:.2f} TFLOP/s; fma (FMUL + FADD) {top['fma']['gops'] / 1e3:.2f} Top/s "
+          f"against ffma {top['ffma']['gops'] / 1e3:.2f} | card {card}", flush=True)
+    if not 1.6 <= ratio <= 2.4:
+        fail("20", "T1's time does not follow its iterations: the loop was not compiled as written")
+        return None
+
+    # ---- 21. T2, the paged sweep: every variant against its plain version on all rays, keys bit for bit
+    pg, tiles, boxes, real_boxes = paged_probe.build_table(device=DEVICE)
+    n_rays = paged_probe.ROWS * paged_probe.N_BLOCKS * paged_probe.LANE
+    t2_plain_ms = t2_small_ms = None
+    for kind in paged_probe.KINDS:
+        rays = paged_probe.packets(kind, device=DEVICE)
+        keys = {}
+        for variant in probes.PAGED_VARIANTS:
+            bx = real_boxes if variant == "real" else boxes
+            k = probes.paged_probe(variant, tiles, bx, rays, 1)
+            pbox = []
+            p_ms = cuda_time_ms(lambda: pbox.append(probes.paged_probe_plain(variant, tiles, bx, rays, 1)), 1)
+            same = torch.equal(k, pbox[0])
+            keys[variant] = k
+            print(f"[21] T2 {kind} {variant}: {n_rays} rays, one traversal, bit-identical {same}; plain version "
+                  f"{p_ms:.1f} ms", flush=True)
+            if not same:
+                fail("21", f"T2 {variant} disagrees with its plain version")
+                return None
+            if kind == "incoherent" and variant == "dense":
+                t2_plain_ms = p_ms
+                t2_small_ms = cuda_time_ms(lambda: probes.paged_probe(variant, tiles, bx, rays, 1), 3)
+        if not (torch.equal(keys["all"], keys["dense"]) and torch.equal(keys["all"], keys["gather"])):
+            fail("21", "T2's all, dense and gather keys differ")
+            return None
+    # the chained traversals of one launch, at the probe's own REPS
+    rays = paged_probe.packets("incoherent", device=DEVICE)
+    for variant in probes.PAGED_VARIANTS:
+        t0 = time.perf_counter()
+        bx = real_boxes if variant == "real" else boxes
+        same = torch.equal(probes.paged_probe(variant, tiles, bx, rays, paged_probe.REPS),
+                           probes.paged_probe_plain(variant, tiles, bx, rays, paged_probe.REPS))
+        print(f"[21] T2 incoherent {variant}: {n_rays} rays, {paged_probe.REPS} chained traversals, bit-identical "
+              f"{same} ({time.perf_counter() - t0:.1f} s)", flush=True)
+        if not same:
+            fail("21", f"T2 {variant} disagrees with its plain version at {paged_probe.REPS} traversals")
+            return None
+    t2, t2_launches = drive("21", "paged_probe", lambda: paged_probe.run(DEVICE))
+    if t2_launches is None:
+        fail("21", "T2's path did not run on its kernel alone")
+        return None
+    t2_ops = {v: probes.paged_probe_count_ops(v, tiles, real_boxes if v == "real" else boxes, rays,
+                                              paged_probe.REPS) for v in probes.PAGED_VARIANTS}
+    t2_bytes = (tiles.numel() + boxes.numel() + rays.numel() + n_rays) * 4
+    t2_bound = {v: max(o / PEAK_F32_FLOPS, t2_bytes / PEAK_BYTES) * 1e3 for v, o in t2_ops.items()}
+    print(f"[21] T2 incoherent, {paged_probe.REPS} traversals: f32 operations by variant (counting build) "
+          f"{ {v: f'{o:.4g}' for v, o in t2_ops.items()} }; bounds (ms) { {v: round(b, 5) for v, b in t2_bound.items()} }"
+          f" | card {card}", flush=True)
+    # the row's bound: the fewest operations that produce these keys (all, dense and gather give the same keys)
+    t2_need = min(t2_ops[v] for v in ("all", "dense", "gather"))
+    t2_row_bound = max(t2_need / PEAK_F32_FLOPS, t2_bytes / PEAK_BYTES) * 1e3
+
+    # ---- 22. T3, page-tile fetch by layout: against the plain version bit for bit, both grids
+    grids = {"tpu-grid": fetch_probe.N_BLOCKS, "full-card": timing.full_card_blocks(dev)}
+    for grid, blocks in grids.items():
+        x = torch.from_numpy(np.random.RandomState(22).uniform(-1, 1, (32 * blocks, 128)).astype(np.float32)).to(dev)
+        for layout in probes.TILE_LAYOUTS:
+            table = fetch_probe.make_table(layout, 0, DEVICE)
+            same = torch.equal(i32(probes.tile_fetch(layout, table, x, fetch_probe.P)),
+                               i32(probes.tile_fetch_plain(layout, table, x, fetch_probe.P)))
+            print(f"[22] T3 layout {layout} {grid} ({blocks} blocks): bit-identical {same}", flush=True)
+            if not same:
+                fail("22", f"T3 layout {layout} disagrees with its plain version")
+                return None
+    xa = torch.zeros((32 * fetch_probe.N_BLOCKS, 128), device=dev)
+    ta = fetch_probe.make_table("a", 0, DEVICE)
+    t3_plain_ms = cuda_time_ms(lambda: probes.tile_fetch_plain("a", ta, xa, fetch_probe.P), 3)
+    t3, t3_launches = drive("22", "tile_fetch", lambda: fetch_probe.run(DEVICE))
+    if t3_launches is None:
+        fail("22", "T3's path did not run on its kernel alone")
+        return None
+
+    def fetch_bound(table_bytes, blocks):
+        return (table_bytes + 2 * 32 * 128 * 4 * blocks) / PEAK_BYTES * 1e3  # table read, x read, out written
+
+    t3_bound = fetch_bound(ta.numel() * 4, fetch_probe.N_BLOCKS)
+
+    # ---- 23. T4, the fetch taken apart: against the plain version bit for bit, both grids
+    table = fetch_probe2.make_table(0, DEVICE)
+    for grid, blocks in grids.items():
+        x = torch.from_numpy(np.random.RandomState(23).uniform(-1, 1, (32 * blocks, 128)).astype(np.float32)).to(dev)
+        for variant in probes.FETCH_VARIANTS:
+            same = torch.equal(i32(probes.fetch_attrib(variant, table, x, fetch_probe2.P)),
+                               i32(probes.fetch_attrib_plain(variant, table, x, fetch_probe2.P)))
+            print(f"[23] T4 {variant} {grid} ({blocks} blocks): bit-identical {same}", flush=True)
+            if not same:
+                fail("23", f"T4 {variant} disagrees with its plain version")
+                return None
+    t4_plain_ms = cuda_time_ms(lambda: probes.fetch_attrib_plain("dyn_vec", table, xa, fetch_probe2.P), 3)
+    t4, t4_launches = drive("23", "fetch_attrib", lambda: fetch_probe2.run(DEVICE))
+    if t4_launches is None:
+        fail("23", "T4's path did not run on its kernel alone")
+        return None
+    t4_bound = fetch_bound(table.numel() * 4, fetch_probe2.N_BLOCKS)
+    # the one PyTorch call that computes dyn_vec's column sums: a yardstick only, the port never calls it
+    t4_lib_ms = timing.ms_per_launch(lambda: table.view(-1, 128).sum(0), 10, dev)
+    print(f"[23] library call table.view(-1, 128).sum(0): {t4_lib_ms:.4f} ms; dyn_vec on 16 blocks "
+          f"{t4[('tpu-grid', 'dyn_vec')]['ms']:.4f} ms | card {card}", flush=True)
+    print(f"[20-23] the probes in {time.perf_counter() - t_probes:.1f} s | card {card}", flush=True)
+
+    def per(res, key_of):
+        return {key_of(k): round(v["ms"], 6) for k, v in res.items()}
+
+    return [{
+        "name": "op_chain",
+        "route": "cuda",
+        "source": PROBE_SOURCE,
+        "replaces": "tools/perf/microbench.py:45",
+        "launches": t1_launches,
+        "launches_are": "launches of pt_op_chain by the T1 tool (microbench.run): 9 classes x 2 shapes, a warm-up "
+                        f"and {T1_CHAIN} chained launches each",
+        "max_abs_err": t1_err,
+        "max_abs_err_over": f"every class, {T1_CHECK_ITERS} iterations, on {n_block} and {n_card} "
+                            f"elements; hash, select, sqrt, divide and fma bit for bit, ffma, rsqrt, exp and sin "
+                            f"within rel {T1_RTOL}; the bit-for-bit classes also at {microbench.ITERS} iterations "
+                            f"on {n_block} elements",
+        "ms": top["ffma"]["ms"],
+        "plain_ms": t1_plain_ms,
+        "bound_ms": t1_bound,
+        "bound_by": "operations",
+        "library_ms": None,
+        "shape": f"ffma class, {n_card} elements ({ilp_card} chains a thread, the full card), "
+                 f"{microbench.ITERS} iterations of 64",
+        "plain_shape": f"ffma class, {n_card} elements, {T1_CHECK_ITERS} iterations",
+        "kernel_ms_at_plain_shape": t1_small_ms,
+        "ms_by_shape_and_class": {sh: {c: round(r["ms"], 6) for c, r in res.items()} for sh, res in t1.items()},
+        "gops_by_shape_and_class": {sh: {c: round(r["gops"], 3) for c, r in res.items()} for sh, res in t1.items()},
+        "fma_slot_equivalents_vs_ffma": {c: round(top["ffma"]["gops"] / r["gops"], 3) for c, r in top.items()},
+        "fma_slot_equivalents_vs_fma": {c: round(top["fma"]["gops"] / r["gops"], 3) for c, r in top.items()},
+    }, {
+        "name": "paged_probe",
+        "route": "cuda",
+        "source": PROBE_SOURCE,
+        "replaces": "tools/perf/paged_probe.py:247",
+        "launches": t2_launches,
+        "launches_are": "launches of pt_paged_probe by the T2 tool (paged_probe.run): 5 variants x 2 packets, a "
+                        "warm-up and 5 timed launches each",
+        "max_abs_err": 0.0,
+        "max_abs_err_over": f"every variant on both packets, {n_rays} rays, one traversal, and on the incoherent "
+                            f"packet at {paged_probe.REPS} traversals; keys bit for bit, and all = dense = gather",
+        "ms": t2[("incoherent", "dense")]["ms"],
+        "plain_ms": t2_plain_ms,
+        "bound_ms": t2_row_bound,
+        "bound_by": "operations" if t2_need / PEAK_F32_FLOPS >= t2_bytes / PEAK_BYTES else "bytes",
+        "bound_ops": t2_need,
+        "bound_ops_are": "the f32 operations of the fewest-operation variant that gives these keys (gather: each "
+                         "ray sweeps only its own wanted pages), not those dense executes (ops_by_variant_incoherent)",
+        "library_ms": None,
+        "shape": f"dense variant, incoherent packet, {n_rays} rays, {paged_probe.REPS} traversals, "
+                 f"{pg.n_pages} pages of 128 triangles",
+        "plain_shape": f"dense variant, incoherent packet, {n_rays} rays, one traversal",
+        "kernel_ms_at_plain_shape": t2_small_ms,
+        "ms_by_packet_and_variant": per(t2, lambda k: f"{k[0]}:{k[1]}"),
+        "ops_by_variant_incoherent": t2_ops,
+        "bound_ms_by_variant_incoherent": t2_bound,
+    }, {
+        "name": "tile_fetch",
+        "route": "cuda",
+        "source": PROBE_SOURCE,
+        "replaces": "tools/perf/fetch_probe.py:69",
+        "launches": t3_launches,
+        "launches_are": "launches of pt_tile_fetch by the T3 tool (fetch_probe.run): 4 layouts x 2 grids, a "
+                        "warm-up and 10 timed launches each",
+        "max_abs_err": 0.0,
+        "max_abs_err_over": "every layout on both grids, bit for bit",
+        "ms": t3[("tpu-grid", "a")]["ms"],
+        "plain_ms": t3_plain_ms,
+        "bound_ms": t3_bound,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shape": f"layout a (P,128,32), {fetch_probe.P} tiles of 16 KB, {fetch_probe.N_BLOCKS} blocks of 32x128",
+        "ms_by_grid_and_layout": per(t3, lambda k: f"{k[0]}:{k[1]}"),
+    }, {
+        "name": "fetch_attrib",
+        "route": "cuda",
+        "source": PROBE_SOURCE,
+        "replaces": "tools/perf/fetch_probe2.py:46",
+        "launches": t4_launches,
+        "launches_are": "launches of pt_fetch_attrib by the T4 tool (fetch_probe2.run): 5 variants x 2 grids, a "
+                        "warm-up and 10 timed launches each",
+        "max_abs_err": 0.0,
+        "max_abs_err_over": "every variant on both grids, bit for bit",
+        "ms": t4[("tpu-grid", "dyn_vec")]["ms"],
+        "plain_ms": t4_plain_ms,
+        "bound_ms": t4_bound,
+        "bound_by": "bytes",
+        "library_ms": t4_lib_ms,
+        "library_call": "table.view(-1, 128).sum(0), the column sums of dyn_vec",
+        "shape": f"dyn_vec, table f32[{fetch_probe2.P * 32},128], {fetch_probe2.N_BLOCKS} blocks of 32x128",
+        "ms_by_grid_and_variant": per(t4, lambda k: f"{k[0]}:{k[1]}"),
+    }]
+
+
 def main(argv) -> int:
     quick = "--quick" in argv
     t_start = time.perf_counter()
@@ -534,11 +836,12 @@ def main(argv) -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
 
-    # ---- 2. build: one nvcc for each source and variant, all started together
+    # ---- 2. build: one nvcc for each source and variant, all started together (--probes: the probes' only)
+    probes_only = "--probes" in argv
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=2 * len(cuda_trace.SOURCES)) as pool:
         builds = [pool.submit(cuda_trace.build, count_ops=c, source=src)
-                  for src in cuda_trace.SOURCES for c in (False, True)]
+                  for src in (("probes",) if probes_only else cuda_trace.SOURCES) for c in (False, True)]
         sos = [b.result() for b in builds]
     print(
         f"[2] built {', '.join(os.path.relpath(so, HERE) for so in sos)} in {time.perf_counter() - t0:.1f} s",
@@ -548,6 +851,16 @@ def main(argv) -> int:
         for line in log.splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill", "smem", "error", "warning")):
                 print(f"    ptxas {src}: {line.strip()}", flush=True)
+
+    if probes_only:
+        rows = probe_phases(card)
+        if rows is None:
+            return 1
+        print(f"[done] phases 1, 2 and 20-23 in {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(json.dumps({"kernels": rows}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- 3. kernel vs plain version on the card
     cw, ch, cdepth = (64, 36, 4) if quick else (256, 144, 12)
@@ -933,6 +1246,11 @@ def main(argv) -> int:
         return 1
     max_abs_err = max(max_abs_err, classic_err)
 
+    # ---- 20-23. the perf probes T1-T4
+    probe_rows = probe_phases(card)
+    if probe_rows is None:
+        return 1
+
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": "render_pass",
@@ -1022,7 +1340,7 @@ def main(argv) -> int:
                             "closest hit (open; start distance, far limit, excluded object, skipped rays) "
                             "and any hit; the 262,144 primary rays of the timed frame, closest hit and any "
                             "hit; every output bit for bit",
-    }]}))
+    }] + probe_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,0 +1,421 @@
+// The perf probes T1-T4 on Hopper: each a TPU probe of the JAX package's
+// tools/perf/ redone as a CUDA kernel, with the plain PyTorch version of
+// ops/probes.py beside it.  A probe's kernel is its measurement, so each is
+// simple and says what it times.
+//
+// T1 op_chain_kernel      replaces tools/perf/microbench.py::_bench
+// T2 paged_probe_kernel   replaces tools/perf/paged_probe.py::make_fn
+// T3 tile_fetch_kernel    replaces tools/perf/fetch_probe.py::make_fn
+// T4 fetch_attrib_kernel  replaces tools/perf/fetch_probe2.py::make_fn
+//
+// Built by path_trace_golang_tpu_torch/ops/cuda_trace.py like the renderer's
+// kernels (nvcc for sm_90a, -O3 --fmad=false, no fast math), so that T1's
+// multiply-add classes time what the renderer's own code compiles to, and
+// bound with ctypes through the plain C functions at the end.
+
+#include "common.cuh"
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// T1: op throughput.  Replaces microbench.py::_bench, which runs ITERS
+// iterations of 64 dependent ops of one class (the hash: 16 rounds) on one
+// VMEM-resident f32[256,128] block and chains 20 calls.
+//
+// What bounds it: the op itself, the chain's latency at a few threads an SM
+// and the issue rate of the op's unit on a full card.  One thread runs
+// `ILP` independent chains (elements t, t + T, ... for T threads), each in
+// registers for the whole launch; nothing leaves the chip but the result,
+// which the wrapper's caller checks, so nvcc cannot drop the loop.  Under
+// --fmad=false the `fma` class compiles to FMUL + FADD, as every multiply-
+// add of the renderer's kernels does; `ffma` is one FFMA (__fmaf_rn), the
+// slot that the 67 TFLOP/s f32 peak counts twice.
+// ---------------------------------------------------------------------------
+
+enum OpKind { K_FMA, K_FFMA, K_SQRT, K_RSQRT, K_DIVIDE, K_EXP, K_SIN, K_HASH, K_SELECT };
+
+template <int KIND>
+struct OpInner {
+  static constexpr int value = 64;
+};
+template <>
+struct OpInner<K_HASH> {
+  static constexpr int value = 16;
+};
+
+__device__ __forceinline__ uint32_t probe_hash_round(uint32_t s) {
+  s ^= s >> 17;
+  s *= 0xED5AD4BBu;
+  s ^= s >> 11;
+  s *= 0xAC4C1B51u;
+  s ^= s >> 15;
+  s *= 0x31848BABu;
+  s ^= s >> 14;
+  return s;
+}
+
+// one iteration: OpInner<KIND> ops of the class (microbench.py:71-138)
+template <int KIND>
+__device__ __forceinline__ float op_iteration(float x) {
+  if constexpr (KIND == K_HASH) {
+    uint32_t s = __float_as_uint(x);
+#pragma unroll
+    for (int k = 0; k < OpInner<KIND>::value; ++k) s = probe_hash_round(s);
+    return (float)(int)s * __int_as_float(0x2F800000) + 0.5f;  // * 2^-32
+  } else {
+#pragma unroll
+    for (int k = 0; k < OpInner<KIND>::value; ++k) {
+      if constexpr (KIND == K_FMA) x = x * F(1.000001) + F(1e-7);
+      else if constexpr (KIND == K_FFMA) x = __fmaf_rn(x, F(1.000001), F(1e-7));
+      else if constexpr (KIND == K_SQRT) x = sqrtf(x + F(0.31));
+      else if constexpr (KIND == K_RSQRT) x = rsqrtf(x + F(0.77));
+      else if constexpr (KIND == K_DIVIDE) x = F(1.37) / (x + F(1.11));
+      else if constexpr (KIND == K_EXP) x = expf(-x) + F(0.1);
+      else if constexpr (KIND == K_SIN) x = sinf(x) + F(0.7);
+      else x = x > 0.5f ? x * F(0.731) : x + F(0.31);
+    }
+    return x;
+  }
+}
+
+template <int KIND, int ILP>
+__global__ void __launch_bounds__(256) op_chain_kernel(const float* __restrict__ x, float* __restrict__ out,
+                                                       int threads, int iters) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= threads) return;
+  float v[ILP];
+#pragma unroll
+  for (int j = 0; j < ILP; ++j) v[j] = x[t + j * threads];
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int j = 0; j < ILP; ++j) v[j] = op_iteration<KIND>(v[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < ILP; ++j) out[t + j * threads] = v[j];
+}
+
+template <int KIND>
+int launch_op_chain(const float* x, float* out, int n, int iters, int ilp, cudaStream_t stream) {
+  const int threads = n / ilp, grid = (threads + 255) / 256;
+  if (ilp == 1) op_chain_kernel<KIND, 1><<<grid, 256, 0, stream>>>(x, out, threads, iters);
+  else op_chain_kernel<KIND, 4><<<grid, 256, 0, stream>>>(x, out, threads, iters);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// T2: the paged sweep.  Replaces paged_probe.py::make_fn, whose Pallas
+// kernel runs REPS traversals of one block of 32x128 rays over the paged
+// table of a 10,240-triangle sphere and returns per-ray winner keys.
+//
+// One thread per ray, on the tiles, boxes and device functions of kernel
+// B2 (paged_walk.cuh: page_wanted, page_row_key, paged_traverse).  What
+// bounds it: f32 work of 32 operations per (row, ray) pair and 22 per box
+// test, fed from the 1.3 MB table in L2; the variants take the walk apart:
+//   fetch   one tile element a page (the load floor; the element's index
+//           depends on the chained key, so nvcc cannot hoist the loop),
+//   all     every page swept by every ray, no entry test,
+//   dense   the TPU kernel's block cursor mapped to a warp: the warp visits
+//           the union of its 32 rays' wanted pages in ascending order
+//           (__reduce_min_sync over each ray's next wanted page) and every
+//           thread sweeps each visited page,
+//   gather  B2's per-thread walk, keys only: a ray sweeps the pages it
+//           enters,
+//   real    B2's closest-hit walk (paged_traverse: the winner's exact t and
+//           normal) and the merge of its t into the ray's best distance,
+//           as intersect() in common.cuh merges it; the result is the bits
+//           of that distance (the merged normal, material and object are
+//           unused here, as in the JAX probe, and compiled away).
+// The traversals of one launch are chained through the key: a traversal
+// starts 1e-6 further in x when the previous one returned PROBE_MAGIC.
+// ---------------------------------------------------------------------------
+
+enum PagedVariant { V_FETCH, V_ALL, V_DENSE, V_GATHER, V_REAL };
+constexpr int PROBE_MAGIC = 0x12345678;
+
+__device__ __forceinline__ int sweep_page(const Pages& G, int p, V o, V d, float t_min, int best_key OPS_PARAM) {
+  const float t_upper = __int_as_float(best_key | KEY_SLOT_MASK);
+  int page_key = paged_big_key();
+  for (int k = 0; k < PAGE_TRIS; ++k) {
+    int key = page_row_key(G.tiles, p, k, o, d, t_min, t_upper, __int_as_float(0x7f800000), -1.0f OPS_ARG);
+    page_key = key < page_key ? key : page_key;
+  }
+  return page_key < best_key ? page_key : best_key;
+}
+
+// the first page at or after `from` that the ray enters, else n_pages
+__device__ __forceinline__ int next_wanted(const Pages& G, int from, V o, V inv, float t_min, float best_t
+                                           OPS_PARAM) {
+  for (int p = from; p < G.n_pages; ++p)
+    if (page_wanted(G, p, o, inv, t_min, best_t, __int_as_float(0x7f800000) OPS_ARG)) return p;
+  return G.n_pages;
+}
+
+template <int VARIANT>
+__device__ __forceinline__ int probe_traversal(const Pages& G, V o, V d, V inv, float t_min, float best_t, int key,
+                                               bool live OPS_PARAM) {
+  const int key0 = __float_as_int(best_t + o.x * 0.0f) | KEY_SLOT_MASK;
+  if constexpr (VARIANT == V_FETCH) {
+    const int sel = key == PROBE_MAGIC;
+    unsigned acc = 0u;
+    for (int p = 0; p < G.n_pages; ++p) acc += (unsigned)(int)G.tiles[(size_t)p * PAGE_TRIS * PAGE_ATTRS + sel];
+    return (int)((unsigned)key0 + acc);
+  } else if constexpr (VARIANT == V_ALL) {
+    int best_key = key0;
+    for (int p = 0; p < G.n_pages; ++p) best_key = sweep_page(G, p, o, d, t_min, best_key OPS_ARG);
+    return best_key;
+  } else if constexpr (VARIANT == V_GATHER) {
+    int best_key = key0;
+    for (int p = 0; p < G.n_pages; ++p) {
+      if (!live || !page_wanted(G, p, o, inv, t_min, best_t, __int_as_float(0x7f800000) OPS_ARG)) continue;
+      best_key = sweep_page(G, p, o, d, t_min, best_key OPS_ARG);
+    }
+    return best_key;
+  } else if constexpr (VARIANT == V_DENSE) {
+    // every thread of the warp runs this loop to the end: the vote needs all 32
+    int best_key = key0;
+    int cursor = live ? next_wanted(G, 0, o, inv, t_min, best_t OPS_ARG) : G.n_pages;
+    for (;;) {
+      const int p = __reduce_min_sync(0xffffffffu, cursor);
+      if (p >= G.n_pages) break;
+      best_key = sweep_page(G, p, o, d, t_min, best_key OPS_ARG);
+      if (cursor == p) cursor = next_wanted(G, p + 1, o, inv, t_min, best_t OPS_ARG);
+    }
+    return best_key;
+  } else {
+    if (!live) return key0;
+    PagedWinner w = paged_traverse(G, o, d, inv, t_min, best_t, __int_as_float(0x7f800000), -1.0f OPS_ARG);
+    float t = best_t;
+    if (w.hit && w.t < t) t = w.t;
+    return __float_as_int(t);
+  }
+}
+
+// rays f32[6, n]: ox oy oz dx dy dz; out i32[n]; ops: one uint64 (counting build)
+template <int VARIANT>
+__global__ void __launch_bounds__(128) paged_probe_kernel(Pages G, const float* __restrict__ rays, int n, int reps,
+                                                          float t_min, float best_t, int* __restrict__ out,
+                                                          unsigned long long* __restrict__ ops_out) {
+  OPS_DECL;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < n;
+  const int j = live ? i : n - 1;  // a tail thread stays in its warp (dense) and wants no page
+  const V o0 = mk(rays[j], rays[n + j], rays[2 * n + j]);
+  const V d = mk(rays[3 * n + j], rays[4 * n + j], rays[5 * n + j]);
+  const V inv = mk(1.0f / d.x, 1.0f / d.y, 1.0f / d.z);
+  OPS(3);
+  int key = 0;
+  for (int r = 0; r < reps; ++r) {
+    const float eps = key == PROBE_MAGIC ? F(1e-6) : 0.0f;
+    const V o = mk(o0.x + eps, o0.y, o0.z);
+    OPS(1);
+    key = probe_traversal<VARIANT>(G, o, d, inv, t_min, best_t, key, live OPS_ARG);
+  }
+  if (live) out[i] = key;
+#ifdef PT_COUNT_OPS
+  unsigned long long all = live ? ops.all : 0ull;
+  for (int off = 16; off > 0; off >>= 1) all += __shfl_down_sync(0xffffffffu, all, off);
+  if ((threadIdx.x & 31) == 0 && all) atomicAdd(ops_out, all);
+#else
+  (void)ops_out;
+#endif
+}
+
+// ---------------------------------------------------------------------------
+// T3: one page tile's fetch, by layout.  Replaces fetch_probe.py::make_fn:
+// a block of 32x128 outputs loops over the P page tiles of a VMEM table at
+// a traced index and adds each tile's first and last element.
+//
+// Here a tile moves whole into shared memory, as a redesigned walk would
+// stage it: layouts a (P,128,32), b (P,32,128) and c (P*32,128) are the same
+// 16 KB of contiguous bytes, d (P*8,128) 4 KB.  Each block copies every tile
+// in turn with 16-byte cp.async (coalesced, and opaque to the compiler, so
+// the copy cannot shrink to the two loads used), waits, then every thread
+// reads the two elements and adds them to the sum in page order, so the
+// result is bit-identical with the TPU probe's.  What bounds it: with 16
+// blocks, the latency of P dependent copies; on a full card, L2 bandwidth
+// (the 1.3 MB table stays in the 50 MB L2).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+constexpr int PROBE_ROWS = 32, PROBE_LANE = 128, PROBE_BLOCK = 256;
+
+__global__ void __launch_bounds__(PROBE_BLOCK) tile_fetch_kernel(const float* __restrict__ table, int tile_elems,
+                                                                 const float* __restrict__ x, float* __restrict__ out,
+                                                                 int p) {
+  extern __shared__ float4 s_tile[];
+  const float* s = reinterpret_cast<const float*>(s_tile);
+  const float4* t4 = reinterpret_cast<const float4*>(table);
+  const int n4 = tile_elems / 4;
+  float acc = 0.0f;
+  for (int q = 0; q < p; ++q) {
+    for (int k = threadIdx.x; k < n4; k += PROBE_BLOCK) cp_async16(&s_tile[k], &t4[(size_t)q * n4 + k]);
+    cp_async_wait_all();
+    __syncthreads();
+    acc = acc + (s[0] + s[tile_elems - 1]);
+    __syncthreads();
+  }
+  const size_t base = (size_t)blockIdx.x * PROBE_ROWS * PROBE_LANE;
+  for (int k = threadIdx.x; k < PROBE_ROWS * PROBE_LANE; k += PROBE_BLOCK) out[base + k] = x[base + k] + acc;
+}
+
+// ---------------------------------------------------------------------------
+// T4: the fetch's cost taken apart.  Replaces fetch_probe2.py::make_fn, five
+// Pallas kernels over a f32[P*32,128] table read as P tiles of 32x128.
+//   loop_only   x + sum of q: the loop alone, nothing read,
+//   dyn_row     x + sum of each tile's first row: one 512-byte row a page,
+//               a float per thread of the first 128,
+//   dyn_vec     x + column sums of the elementwise sum of the tiles: every
+//               tile streamed with coalesced 16-byte loads, 4 float4 a
+//               thread, summed in page order, then over rows 0..31 in order,
+//   static_vec  the same with the page loop unrolled over 80 tiles,
+//   dyn_scalar  x + sum of each tile's first element (one broadcast load).
+// What bounds it: with 16 blocks, the latency of the dependent page loop;
+// on a full card, L2 bandwidth (the table is 1.3 MB).
+// ---------------------------------------------------------------------------
+
+enum FetchVariant { F_LOOP_ONLY, F_DYN_ROW, F_DYN_VEC, F_STATIC_VEC, F_DYN_SCALAR };
+constexpr int STATIC_PAGES = 80;
+constexpr int TILE4 = PROBE_ROWS * PROBE_LANE / 4;  // float4 in one 32x128 tile
+
+__device__ __forceinline__ void add4(float4& a, const float4 b) {
+  a.x = a.x + b.x;
+  a.y = a.y + b.y;
+  a.z = a.z + b.z;
+  a.w = a.w + b.w;
+}
+
+template <int VARIANT>
+__global__ void __launch_bounds__(PROBE_BLOCK) fetch_attrib_kernel(const float* __restrict__ table,
+                                                                   const float* __restrict__ x,
+                                                                   float* __restrict__ out, int p) {
+  __shared__ float4 s_acc[TILE4];
+  __shared__ float s_col[PROBE_LANE];
+  const int tid = threadIdx.x;
+  float scalar = 0.0f;
+  if constexpr (VARIANT == F_LOOP_ONLY) {
+    for (int q = 0; q < p; ++q) scalar = scalar + (float)q;
+  } else if constexpr (VARIANT == F_DYN_SCALAR) {
+    for (int q = 0; q < p; ++q) scalar = scalar + table[(size_t)q * PROBE_ROWS * PROBE_LANE];
+  } else if constexpr (VARIANT == F_DYN_ROW) {
+    if (tid < PROBE_LANE) {
+      float a = 0.0f;
+      for (int q = 0; q < p; ++q) a = a + table[(size_t)q * PROBE_ROWS * PROBE_LANE + tid];
+      s_col[tid] = a;
+    }
+    __syncthreads();
+  } else {
+    // thread tid owns float4 slots tid, tid + 256, tid + 512, tid + 768 of a
+    // tile: rows tid / 32 + 8k, float4 column tid % 32
+    const float4* t4 = reinterpret_cast<const float4*>(table);
+    float4 a[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) a[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if constexpr (VARIANT == F_STATIC_VEC) {
+#pragma unroll
+      for (int q = 0; q < STATIC_PAGES; ++q)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) add4(a[k], t4[q * TILE4 + tid + k * PROBE_BLOCK]);
+    } else {
+      for (int q = 0; q < p; ++q)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) add4(a[k], t4[(size_t)q * TILE4 + tid + k * PROBE_BLOCK]);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) s_acc[tid + k * PROBE_BLOCK] = a[k];
+    __syncthreads();
+    if (tid < PROBE_LANE) {
+      const float* acc = reinterpret_cast<const float*>(s_acc);
+      float c = 0.0f;
+      for (int r = 0; r < PROBE_ROWS; ++r) c = c + acc[r * PROBE_LANE + tid];
+      s_col[tid] = c;
+    }
+    __syncthreads();
+  }
+  const size_t base = (size_t)blockIdx.x * PROBE_ROWS * PROBE_LANE;
+  for (int k = tid; k < PROBE_ROWS * PROBE_LANE; k += PROBE_BLOCK) {
+    const float add = (VARIANT == F_LOOP_ONLY || VARIANT == F_DYN_SCALAR) ? scalar : s_col[k % PROBE_LANE];
+    out[base + k] = x[base + k] + add;
+  }
+}
+
+}  // namespace
+
+// T1: kind indexes OpKind; inner must be the class's ops per iteration
+// (64, the hash 16); ilp 1 or 4 divides n.
+extern "C" int pt_op_chain(int kind, const float* x, float* out, int n, int iters, int inner, int ilp, void* stream) {
+  if (n <= 0) return 0;
+  if (kind < K_FMA || kind > K_SELECT || inner != (kind == K_HASH ? 16 : 64) || (ilp != 1 && ilp != 4) || n % ilp)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (kind) {
+    case K_FMA: return launch_op_chain<K_FMA>(x, out, n, iters, ilp, s);
+    case K_FFMA: return launch_op_chain<K_FFMA>(x, out, n, iters, ilp, s);
+    case K_SQRT: return launch_op_chain<K_SQRT>(x, out, n, iters, ilp, s);
+    case K_RSQRT: return launch_op_chain<K_RSQRT>(x, out, n, iters, ilp, s);
+    case K_DIVIDE: return launch_op_chain<K_DIVIDE>(x, out, n, iters, ilp, s);
+    case K_EXP: return launch_op_chain<K_EXP>(x, out, n, iters, ilp, s);
+    case K_SIN: return launch_op_chain<K_SIN>(x, out, n, iters, ilp, s);
+    case K_HASH: return launch_op_chain<K_HASH>(x, out, n, iters, ilp, s);
+    default: return launch_op_chain<K_SELECT>(x, out, n, iters, ilp, s);
+  }
+}
+
+// T2: variant indexes PagedVariant; tiles f32[n_pages,128,32], boxes
+// f32[n_pages,n_sub,6], rays f32[6,n]; out i32[n]; ops one uint64, written
+// by the counting build only.
+extern "C" int pt_paged_probe(int variant, const float* tiles, const float* boxes, int n_pages, int n_sub,
+                              const float* rays, int n, int reps, float t_min, float best_t, int* out,
+                              unsigned long long* ops, void* stream) {
+  if (n <= 0) return 0;
+  if (variant < V_FETCH || variant > V_REAL || n_pages < 0 || n_sub < 1) return (int)cudaErrorInvalidValue;
+  Pages G;
+  G.tiles = tiles; G.boxes = boxes; G.n_pages = n_pages; G.n_sub = n_sub;
+  const int grid = (n + 127) / 128;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (variant) {
+    case V_FETCH: paged_probe_kernel<V_FETCH><<<grid, 128, 0, s>>>(G, rays, n, reps, t_min, best_t, out, ops); break;
+    case V_ALL: paged_probe_kernel<V_ALL><<<grid, 128, 0, s>>>(G, rays, n, reps, t_min, best_t, out, ops); break;
+    case V_DENSE: paged_probe_kernel<V_DENSE><<<grid, 128, 0, s>>>(G, rays, n, reps, t_min, best_t, out, ops); break;
+    case V_GATHER: paged_probe_kernel<V_GATHER><<<grid, 128, 0, s>>>(G, rays, n, reps, t_min, best_t, out, ops); break;
+    default: paged_probe_kernel<V_REAL><<<grid, 128, 0, s>>>(G, rays, n, reps, t_min, best_t, out, ops); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+// T3: layout 0-3 = a, b, c (16 KB tiles), d (4 KB); x and out
+// f32[32*blocks, 128]; the table holds at least p tiles.
+extern "C" int pt_tile_fetch(int layout, const float* table, const float* x, float* out, int p, int blocks,
+                             void* stream) {
+  if (blocks <= 0) return 0;
+  if (layout < 0 || layout > 3 || p < 0) return (int)cudaErrorInvalidValue;
+  const int tile_elems = layout == 3 ? 8 * PROBE_LANE : PROBE_ROWS * PROBE_LANE;
+  tile_fetch_kernel<<<blocks, PROBE_BLOCK, tile_elems * sizeof(float), (cudaStream_t)stream>>>(table, tile_elems, x,
+                                                                                              out, p);
+  return (int)cudaGetLastError();
+}
+
+// T4: variant indexes FetchVariant (static_vec needs p == 80); table
+// f32[>=32*p, 128]; x and out f32[32*blocks, 128].
+extern "C" int pt_fetch_attrib(int variant, const float* table, const float* x, float* out, int p, int blocks,
+                               void* stream) {
+  if (blocks <= 0) return 0;
+  if (variant < F_LOOP_ONLY || variant > F_DYN_SCALAR || p < 0 || (variant == F_STATIC_VEC && p != STATIC_PAGES))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (variant) {
+    case F_LOOP_ONLY: fetch_attrib_kernel<F_LOOP_ONLY><<<blocks, PROBE_BLOCK, 0, s>>>(table, x, out, p); break;
+    case F_DYN_ROW: fetch_attrib_kernel<F_DYN_ROW><<<blocks, PROBE_BLOCK, 0, s>>>(table, x, out, p); break;
+    case F_DYN_VEC: fetch_attrib_kernel<F_DYN_VEC><<<blocks, PROBE_BLOCK, 0, s>>>(table, x, out, p); break;
+    case F_STATIC_VEC: fetch_attrib_kernel<F_STATIC_VEC><<<blocks, PROBE_BLOCK, 0, s>>>(table, x, out, p); break;
+    default: fetch_attrib_kernel<F_DYN_SCALAR><<<blocks, PROBE_BLOCK, 0, s>>>(table, x, out, p); break;
+  }
+  return (int)cudaGetLastError();
+}

@@ -29,7 +29,8 @@ own entry point, on CPU tensors ``ops/bvh.py``'s plain versions.
 
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into
 ``build/torch_kernels/`` beside the package, one library for each source
-(``render_pass``, ``classic``), and bound with ``ctypes``.  ``LAUNCHES``
+(``render_pass``, ``classic``, and ``probes``, the perf probes, whose
+entry points ``ops/probes.py`` binds), and bound with ``ctypes``.  ``LAUNCHES``
 counts launches of the whole-pass kernel, ``PAGED_LAUNCHES`` those of them
 that carried pages (the walk ran inside them), ``CLASSIC_LAUNCHES`` those of
 them of the classic instance, ``TRACE_LAUNCHES`` calls that launched kernel
@@ -75,7 +76,7 @@ WALK_PLAIN_CALLS = 0
 BUILD_LOG: dict = {}  # source name -> nvcc's -Xptxas -v report of its last normal build
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = {"render_pass": CSRC / "render_pass.cu", "classic": CSRC / "classic.cu"}
+SOURCES = {"render_pass": CSRC / "render_pass.cu", "classic": CSRC / "classic.cu", "probes": CSRC / "probes.cu"}
 HEADERS = (CSRC / "common.cuh", CSRC / "paged_walk.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
@@ -142,7 +143,7 @@ def _lib(count_ops: bool = False, source: str = "render_pass"):
             lib.pt_render_pass.restype = i
             lib.pt_paged_walk.argtypes = [p, p, i, i, p, p, p, i, ctypes.c_float, i, p, p, p, p, p]
             lib.pt_paged_walk.restype = i
-        else:
+        elif source == "classic":
             lib.pt_trace_grid.argtypes = _SCENE_ARGTYPES + [p, p, p, i, i, i, i, p, p, p, p, p, p]
             lib.pt_trace_grid.restype = i
             lib.pt_classic_pass.argtypes = _SCENE_ARGTYPES + [p, p, i, u, i, i, i, i, i, i, i, i, p, p, p, p, p, p]

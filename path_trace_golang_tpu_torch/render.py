@@ -280,7 +280,13 @@ class Renderer:
         dev = self.device
         w, h = cfg.width, cfg.height
         n = w * h
+        # as the JAX Renderer: every chunk traces ``chunk`` lanes, the last
+        # one too; its lanes past w*h are off-frame pixel rows (py >= h) that
+        # trace like real ones, count their segments and, under the classic
+        # loop, take part in the chunk's longest path, but never reach the
+        # image
         chunk = min(self.chunk, max(n, 1))
+        n_pad = -(-n // chunk) * chunk
 
         pack = pack_scene(sc, w, h, device=dev)
         tcfg = trace_config_for_scene(pack, sc, cfg.max_depth, contract, faithful_fog=self.faithful_fog)
@@ -297,11 +303,11 @@ class Renderer:
             if progress is not None or cancel is not None:
                 window = min(window, update_every)
 
-        accum = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        accum = torch.zeros((n_pad, 3), dtype=torch.float32, device=dev)
         total_segs = torch.zeros((), dtype=torch.int64, device=dev)
 
         def image(count, denoise):
-            flat = accum.reshape(h, w, 3)
+            flat = accum[:n].reshape(h, w, 3)
             if not gpu:
                 return finalize_cpu_contract(flat, count)
             dn = env_config.get_denoise_config()
@@ -318,14 +324,14 @@ class Renderer:
         while p < passes:
             nw = min(window, passes - p)
             frame_seed = (self.seed + p) & MASK32
-            for start in range(0, n, chunk):
-                idx = torch.arange(start, min(start + chunk, n), dtype=torch.int32, device=dev)
+            for start in range(0, n_pad, chunk):
+                idx = torch.arange(start, start + chunk, dtype=torch.int32, device=dev)
                 col, segs = trace_pass_lanes(
                     pack, frame_seed, idx, tcfg=tcfg, width=w, height=h, n_strata=n_strata,
                     samples=samples, has_aperture=has_aperture,
                     normalize_pass=self.normalize_pass, n_passes=nw,
                 )
-                accum[start:start + idx.numel()] += col
+                accum[start:start + chunk] += col
                 total_segs = total_segs + segs
             p += nw
             if progress is not None and ((p % update_every) < nw or p == passes):
@@ -335,7 +341,7 @@ class Renderer:
                 break
 
         img = image(p, denoise=True).cpu().numpy()
-        nonfinite = int((~torch.isfinite(accum)).sum())
+        nonfinite = int((~torch.isfinite(accum)).sum())  # the padding lanes too, as the JAX Renderer counts
         segs_total = int(total_segs)
         self.stats = RenderStats(
             passes=p,

@@ -347,6 +347,62 @@ def test_pass_body_classic_matches_jax(jax_passes, name):
     assert np.all(np.abs(mt - mj) <= 0.01 * np.abs(mj) + 1e-6), (mt, mj)
 
 
+PAD_CHUNK = 230  # about 0.6 of the faithful-fog frame's 384 lanes: two chunks, the second padded by 76 lanes
+
+
+def test_renderer_traces_the_padded_last_chunk(monkeypatch):
+    """The Renderer traces its last chunk at the full ``chunk`` lanes, as the
+    JAX Renderer does (``n_chunks * chunk`` lanes; the lanes past w*h are
+    off-frame pixel rows, py >= h, that trace like real ones): the
+    faithful-fog frame in two chunks of 230 lanes, the second padded by 76.
+    ``ray_segments`` equal the JAX Renderer's, and the second chunk's lanes,
+    its real pixels and its padding, are in the pass-body band against the
+    program that the JAX Renderer runs for that chunk.  Under faithful fog
+    the padding lanes take part in the chunk's longest path, whose trips
+    advance every lane's state between samples, so a Renderer that traced
+    only the 154 real lanes of that chunk counts fewer segments and can draw
+    other samples for its pixels.  Measured (x86-64): segments equal (12,650),
+    100% of the second chunk's lanes in the band; a Renderer that stopped
+    the chunk at w*h counted 10,196 segments (its pixels stayed in the band
+    here: depth 4 bounds the longest path either way)."""
+    scene, contract, faithful, w, h, spp, depth, seed, n_strata, samples, _key = _classic("faithful_fog")
+    chunk = PAD_CHUNK
+    assert w * h < 2 * chunk
+    sc = scene(JS)
+    jp = jsoa.pack_scene(sc, w, h)
+    tcfg = JI.trace_config_for_scene(jp, sc, depth, contract, faithful_fog=faithful)
+    accum, jsegs = jnp.zeros((2 * chunk, 3), jnp.float32), 0
+    for c in range(2):
+        accum, segs = JR._render_pass_chunk(
+            accum, jp, jnp.uint32(seed), jnp.int32(c * chunk), tcfg=tcfg, width=w, height=h, n_strata=n_strata,
+            samples=samples, has_aperture=sc.camera.aperture > 0, chunk=chunk, normalize_pass=False, n_passes=1)
+        jsegs += int(segs)
+    jc = np.asarray(accum)
+    jr = jpt.Renderer(contract=contract, seed=seed, chunk=chunk, faithful_fog=faithful)
+    jr.render(sc, jpt.RenderConfig(w, h, spp, depth))
+    assert jr.stats.ray_segments == jsegs
+
+    seen = []
+    traced = TR.trace_pass_lanes
+
+    def spy(pack, frame_seed, idx, **kw):
+        col, segs = traced(pack, frame_seed, idx, **kw)
+        seen.append((idx.tolist(), col.numpy().copy(), int(segs)))
+        return col, segs
+
+    monkeypatch.setattr(TR, "trace_pass_lanes", spy)
+    r = tpt.Renderer(contract=contract, seed=seed, chunk=chunk, faithful_fog=faithful, device="cpu")
+    img = r.render(scene(TS), tpt.RenderConfig(w, h, spp, depth))
+    assert img.shape == (h, w, 3) and r.stats.nonfinite == 0
+    assert [s[0] for s in seen] == [list(range(0, chunk)), list(range(chunk, 2 * chunk))]
+    tc = seen[1][1]
+    ok = (np.abs(tc - jc[chunk:]) <= 1e-3 * np.abs(jc[chunk:]) + 1e-3).all(axis=-1)
+    print(f"padded last chunk: {ok.mean():.4%} of its lanes in the band ({ok[:w * h - chunk].mean():.4%} of "
+          f"its pixels), segments {r.stats.ray_segments} vs {jr.stats.ray_segments}")
+    assert r.stats.ray_segments == jr.stats.ray_segments == sum(s[2] for s in seen)
+    assert ok[:w * h - chunk].mean() >= 0.95 and ok.mean() >= 0.95
+
+
 def _stats(img):
     f = np.asarray(img).astype(np.float64)
     return {"mean": [round(float(x), 4) for x in f.mean(axis=(0, 1))],
