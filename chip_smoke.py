@@ -7,10 +7,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. report the card (nvidia-smi name and power limit);
 2. build the kernels (csrc/render_pass.cu, csrc/classic.cu and
-   csrc/probes.cu, each with csrc/common.cuh and csrc/paged_walk.cuh, nvcc
-   for sm_90a) and their operation-counting variants (-DPT_COUNT_OPS), all
-   builds side by side, and print ptxas' registers, spills and shared
-   memory;
+   csrc/probes.cu, each with csrc/common.cuh and csrc/paged_walk.cuh, and
+   csrc/repro.cu, nvcc for sm_90a) and the first three's operation-counting
+   variants (-DPT_COUNT_OPS), all builds side by side, and print ptxas'
+   registers, spills and shared memory;
 3. hold the whole-pass kernel against its plain PyTorch version on the
    card for demo_showcase and demo_cornell at 256x144, depth 12, one pass
    and one 2-pass window: at least 95% of lanes within |a-b| <= 1e-3|b| +
@@ -99,13 +99,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 23. T4 (the fetch taken apart): the five variants likewise; then
     tools/perf/fetch_probe2.py, with the library call beside dyn_vec.
 
+24. repro T5 (csrc/repro.cu, the windowed one-hot gather): layouts A and B
+    against the plain version bit for bit, on the tool's pages and on two
+    page sets whose window starts past 0; then
+    tools/repro/window_slice_probe.py;
+25. T6 (the guarded chain of products): cond true, cond false and the
+    control at 1 and 3 rounds, on the tool's ones and on a random b, bit
+    for bit, and true != false on the random b; then
+    tools/repro/mosaic_cond_skip.py at the JAX default of 16,384 rounds (at
+    fewer, printed, if a call would pass 2 s), which must show control ~
+    true >> false, and half the rounds about half the time; the library
+    call torch.matmul a step beside it;
+26. T7 (the staged relayout): stages 1-5 at G = 1, 2, 4, 8 bit for bit;
+    then tools/repro/mosaic_reshape_repro.py at each G;
+27. T8 (the grouped rows): G = 1, 2, 4, 8 bit for bit; then
+    tools/repro/group_rows_relayout.py at each G.
+
 The line before the last three says how long the phases took in all.  The
 third-to-last line is a JSON object describing every kernel
 (``max_abs_err`` is the largest the comparisons of that kernel found); the
 second-to-last is the card's name and power limit; the last line is
 {"ok": true, "device": {...}}.  ``--quick`` runs phases 1-3 only, at 64x36
 and depth 4, and a first, small run of B3 and of the classic instance.
-``--probes`` runs phases 1, 2 (the probes' library only) and 20-23.
+``--probes`` runs phases 1, 2 (the probes' library only) and 20-23;
+``--repro`` phases 1, 2 (the repros' library only) and 24-27.
 
 ``--render-only [scene width height passes depth renders]`` (defaults:
 demo_showcase 1920 1080 8 12 5) times the Renderer alone with the code of
@@ -787,6 +804,285 @@ def probe_phases(card):
     }]
 
 
+REPRO_SOURCE = "path_trace_golang_tpu_torch/csrc/repro.cu"
+REPRO_GROUPS = (1, 2, 4, 8)  # G of T7's and T8's comparisons and tool runs
+T6_CHECK_ROUNDS = (1, 3)  # rounds of T6's bit-for-bit comparisons (32 and 96 products)
+T6_ROUNDS = 16384  # the JAX script's default
+
+
+def repro_phases(card):
+    """Phases 24-27: the Mosaic repros T5-T8 (ops/repro.py, csrc/repro.cu).
+    Each kernel is held to its plain version on the card bit for bit, then
+    the repro's own entry point (path_trace_golang_tpu_torch/tools/repro/*.py)
+    runs with the launch counts set to 0 just before and read just after.
+    Returns the kernels line's rows, or None after a failure (reported on
+    stderr)."""
+    import numpy as np
+    import torch
+    from path_trace_golang_tpu_torch.ops import repro
+    from path_trace_golang_tpu_torch.tools.perf import timing
+    from path_trace_golang_tpu_torch.tools.repro import group_rows_relayout as t8
+    from path_trace_golang_tpu_torch.tools.repro import mosaic_cond_skip as t6
+    from path_trace_golang_tpu_torch.tools.repro import mosaic_reshape_repro as t7
+    from path_trace_golang_tpu_torch.tools.repro import window_slice_probe as t5
+
+    t_repro = time.perf_counter()
+    dev = torch.device(DEVICE)
+
+    def drive(tag, key, fn, checks=0):
+        """``checks``: the plain version's calls that the tool makes to hold the kernel to it."""
+        for c in repro.REPRO_LAUNCHES:
+            repro.REPRO_LAUNCHES[c] = repro.REPRO_PLAIN_CALLS[c] = 0
+        res = fn()
+        torch.cuda.synchronize()
+        launches, plain = repro.REPRO_LAUNCHES[key], sum(repro.REPRO_PLAIN_CALLS.values())
+        print(f"[{tag}] {key} launches on the repro's own path: {launches}, plain calls: {plain} (the tool's "
+              f"checks: {checks})", flush=True)
+        return res, (launches if launches > 0 and plain == checks else None)
+
+    def fail(tag, what):
+        print(f"[{tag}] FAIL: {what}", file=sys.stderr)
+
+    def same(a, b):
+        return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+    def err(a, b):
+        return float((a - b).abs().max())
+
+    # ---- 24. T5, the windowed gather: both layouts against the plain version, on the tool's pages and on two
+    # sets whose window starts past 0 (floored; clamped to P - W, with pages outside the window)
+    table, p_l, want = t5.make_inputs(DEVICE)
+    rs = np.random.RandomState(24)
+    page_sets = {"tool": p_l}
+    for label, lo, hi in (("floored", 130, 450), ("clamped", 300, 512)):
+        p = rs.randint(lo, hi, (1, t5.LANE)).astype(np.int32)
+        p[0, ::9] = -1
+        page_sets[label] = torch.from_numpy(p).to(dev)
+    t5_err = 0.0
+    for layout in repro.LAYOUTS:
+        tab = t5.layout_table(table, layout)
+        for label, pages in page_sets.items():
+            k = repro.window_slice(tab, pages, layout)
+            p = repro.window_slice_plain(tab, pages, layout)
+            ok = same(k, p) and (label != "tool" or np.array_equal(k.cpu().numpy(), want))
+            t5_err = max(t5_err, err(k, p))
+            base = repro.window_base(pages.reshape(-1), t5.P)
+            print(f"[24] T5 layout {layout}, {label} pages (window base {base}): bit-identical {ok}", flush=True)
+            if not ok:
+                fail("24", f"T5 layout {layout} disagrees with its plain version")
+                return None
+    tab_a = t5.layout_table(table, "A")
+    t5_plain_ms = cuda_time_ms(lambda: repro.window_slice_plain(tab_a, p_l, "A"), 3)
+    t5_res, t5_launches = drive("24", "window_slice", lambda: t5.run(DEVICE))
+    if t5_launches is None or not all(r["correct"] for r in t5_res.values()):
+        fail("24", "T5's path did not run on its kernel alone, or came out wrong")
+        return None
+    # the least work that gives the output is a copy: the distinct live columns that the lanes take from the
+    # window, the pages and the output; the one-hot contraction's products and sums are what the kernel executes
+    lanes = p_l.reshape(-1)
+    t5_base = repro.window_base(lanes, t5.P)
+    t5_cols = int(torch.unique(lanes[(lanes >= t5_base) & (lanes < t5_base + repro.WINDOW)]).numel())
+    t5_bytes = t5.R * t5_cols * 2 + t5.LANE * 4 + t5.R * t5.LANE * 4
+    t5_ops_executed = 2 * t5.R * t5.LANE * repro.WINDOW
+    t5_bound = t5_bytes / PEAK_BYTES * 1e3
+    print(f"[24] T5 A {t5_res['A']['ms']:.4f} ms, B {t5_res['B']['ms']:.4f} ms a launch; bound {t5_bound:.6f} ms "
+          f"({t5_bytes} bytes: {t5_cols} live columns, the pages, the output); "
+          f"plain {t5_plain_ms:.4f} ms | card {card}", flush=True)
+
+    # ---- 25. T6, the guarded chain: cond true, cond false and the control against the plain version at a few
+    # rounds, on the tool's ones and on a random b (where true must differ from false); then the tool
+    a, ones = t6.make_inputs(DEVICE)
+    b_rand = torch.from_numpy(np.random.RandomState(0).uniform(-1, 1, (t6.N, t6.N)).astype(np.float32)).to(dev)
+    flags = {v: torch.full((1,), v, dtype=torch.int32, device=dev) for v in (0, 1)}
+    runs = {"true": (1, False), "false": (0, False), "ctrl": (1, True)}
+    for bname, b in (("ones", ones), ("random", b_rand)):
+        for rounds in T6_CHECK_ROUNDS:
+            outs = {}
+            for name, (flag, control) in runs.items():
+                k = repro.cond_chain(flags[flag], a, b, rounds, control)
+                p = repro.cond_chain_plain(flags[flag], a, b, rounds, control)
+                if not same(k, p):
+                    fail("25", f"T6 {name} on {bname} b, {rounds} rounds, disagrees with its plain version "
+                               f"(max |a-b| {err(k, p):.3g})")
+                    return None
+                outs[name] = k
+            moved = not same(outs["true"], outs["false"])
+            print(f"[25] T6 {bname} b, {rounds} round(s): true, false, ctrl bit-identical to the plain version; "
+                  f"true differs from false {moved}", flush=True)
+            if bname == "random" and not moved:
+                fail("25", "T6 cond-true equals cond-false on a random b: the chain did not run")
+                return None
+    t6_plain_ms = cuda_time_ms(lambda: repro.cond_chain_plain(flags[1], a, b_rand, 1), 1)
+    t6_small_ms = cuda_time_ms(lambda: repro.cond_chain(flags[1], a, b_rand, 1), 3)
+    t6_res, t6_launches = drive("25", "cond_chain", lambda: t6.run(T6_ROUNDS, DEVICE))
+    if t6_launches is None:
+        fail("25", "T6's path did not run on its kernel alone")
+        return None
+    # the tool's ones are a fixed point of a: hold cond-true at the tool's length on the random b as well
+    t_full = time.perf_counter()
+    full = repro.cond_chain(flags[1], a, b_rand, T6_ROUNDS)
+    full_same = same(full, repro.cond_chain_plain(flags[1], a, b_rand, T6_ROUNDS))
+    full_moved = not same(full, b_rand)
+    print(f"[25] T6 cond true on the random b, {T6_ROUNDS} rounds: bit-identical to the plain version {full_same}, "
+          f"differs from b {full_moved} ({time.perf_counter() - t_full:.1f} s)", flush=True)
+    if not (full_same and full_moved):
+        fail("25", f"T6 cond true at {T6_ROUNDS} rounds on a random b disagrees with its plain version, or left b "
+                   f"as it was (max |a-b| {err(full, b_rand):.3g})")
+        return None
+    t6_ms = {k: min(v) for k, v in t6_res["ms"].items()}
+    half = cuda_time_ms(lambda: repro.cond_chain(flags[1], a, b_rand, T6_ROUNDS // 2), 3)
+    ratio = t6_ms["true"] / half
+    print(f"[25] T6 {T6_ROUNDS} rounds: ctrl {t6_ms['ctrl']:.3f} ms, true {t6_ms['true']:.3f} ms, false "
+          f"{t6_ms['false']:.4f} ms; half the rounds {half:.3f} ms (ratio {ratio:.2f}) | card {card}", flush=True)
+    if not (t6_ms["true"] > 10 * t6_ms["false"] and 0.8 <= t6_ms["ctrl"] / t6_ms["true"] <= 1.25
+            and 1.6 <= ratio <= 2.4):
+        fail("25", "T6's times do not show control ~ true >> false, or do not follow the rounds")
+        return None
+    steps = T6_ROUNDS * repro.INNER
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t6_lib_ms = timing.ms_per_launch(lambda: torch.matmul(a, b_rand), 50, dev) * steps
+    t6_flops = 2 * t6.N ** 3 * steps
+    t6_bound = t6_flops / PEAK_F32_FLOPS * 1e3
+    print(f"[25] T6 bound {t6_bound:.3f} ms ({t6_flops:.4g} flops at 67 TFLOP/s; {2 * t6_bound:.3f} ms at the 33.5 "
+          f"Tops/s of unfused code); library torch.matmul a step x {steps} steps {t6_lib_ms:.3f} ms; plain "
+          f"{t6_plain_ms:.3f} ms at 1 round (kernel {t6_small_ms:.4f} ms there) | card {card}", flush=True)
+
+    # ---- 26. T7, the staged relayout: every stage at every G against the plain version; then the tool at every G
+    x7, w7 = t7.make_inputs(DEVICE)
+    t7_err = 0.0
+    for g in REPRO_GROUPS:
+        for stage in repro.STAGES:
+            k, p = repro.reshape_stage(x7, w7, stage, g), repro.reshape_stage_plain(x7, w7, stage, g)
+            t7_err = max(t7_err, err(k, p))
+            if not same(k, p):
+                fail("26", f"T7 stage {stage} at G={g} disagrees with its plain version")
+                return None
+        print(f"[26] T7 G={g}: stages 1-5 bit-identical to the plain version", flush=True)
+    t7_plain_ms = cuda_time_ms(lambda: repro.reshape_stage_plain(x7, w7, 5, 4), 3)
+    t7_res, t7_launches = drive("26", "reshape_stage", lambda: {g: t7.run(g, DEVICE) for g in REPRO_GROUPS},
+                                  len(REPRO_GROUPS) * len(repro.STAGES))
+    if t7_launches is None or not all(r["ok"] for res in t7_res.values() for r in res.values()):
+        fail("26", "T7's path did not run on its kernel alone, or a stage disagreed")
+        return None
+    # stage 5's least work: x, the output and the columns of w that the pops reach (each converted to bf16 and
+    # reduced to its minimum), and acc + contrib * row for each lane a trip; the one-hot contraction over all 128
+    # rows is what the kernel executes
+    n7, words, t7_cols = x7.numel(), repro.STAGE45_WORDS, set()
+    for _ in range(repro.TRIPS):
+        if words:
+            t7_cols.add((words & -words).bit_length() - 1)
+            words &= words - 1
+    t7_bytes = (2 * n7 + len(t7_cols) * repro.LANE) * 4
+    t7_ops = 2 * repro.TRIPS * n7 + len(t7_cols) * (2 * repro.LANE - 1)
+    t7_ops_executed = 2 * repro.TRIPS * n7 * repro.LANE * repro.LANE
+    t7_bound = max(t7_bytes / PEAK_BYTES, t7_ops / PEAK_F32_FLOPS) * 1e3
+
+    # ---- 27. T8, the grouped rows: every G against the plain version; then the tool at every G
+    x8 = t8.make_input(DEVICE)
+    for g in REPRO_GROUPS:
+        if not same(repro.group_rows(x8, g), repro.group_rows_plain(x8, g)):
+            fail("27", f"T8 at G={g} disagrees with its plain version")
+            return None
+    print("[27] T8 G=1, 2, 4, 8: bit-identical to the plain version", flush=True)
+    t8_plain_ms = cuda_time_ms(lambda: repro.group_rows_plain(x8, 4), 3)
+    t8_res, t8_launches = drive("27", "group_rows", lambda: {g: t8.run(g, DEVICE) for g in REPRO_GROUPS},
+                                  len(REPRO_GROUPS))
+    if t8_launches is None or not all(r["bit_equal"] for r in t8_res.values()):
+        fail("27", "T8's path did not run on its kernel alone, or disagreed")
+        return None
+    t8_bound = 2 * x8.numel() * 4 / PEAK_BYTES * 1e3
+    print(f"[26-27] T7 stage 5 at G=4 {t7_res[4][5]['ms']:.4f} ms (bound {t7_bound:.6f} ms, plain {t7_plain_ms:.3f} "
+          f"ms); T8 at G=4 {t8_res[4]['ms']:.4f} ms (bound {t8_bound:.6f} ms, plain {t8_plain_ms:.3f} ms) | card "
+          f"{card}", flush=True)
+    print(f"[24-27] the repros in {time.perf_counter() - t_repro:.1f} s | card {card}", flush=True)
+
+    return [{
+        "name": "window_slice",
+        "route": "cuda",
+        "source": REPRO_SOURCE,
+        "replaces": "tools/repro/window_slice_probe.py:75",
+        "launches": t5_launches,
+        "launches_are": "launches of pt_window_slice by the T5 tool (window_slice_probe.run): 2 layouts, a check, "
+                        "a warm-up and 20 timed launches each",
+        "max_abs_err": t5_err,
+        "max_abs_err_over": "layouts A and B on the tool's pages and on two page sets whose window starts at 128 "
+                            "and at the clamp P - W = 256; bit for bit, and equal to the numpy gather",
+        "ms": t5_res["A"]["ms"],
+        "plain_ms": t5_plain_ms,
+        "bound_ms": t5_bound,
+        "bound_by": "bytes",
+        "bound_bytes": t5_bytes,
+        "bound_bytes_are": f"the {t5_cols} distinct live columns of the window (bf16), the pages, the f32 output",
+        "ops_executed": t5_ops_executed,
+        "library_ms": None,
+        "shape": f"layout A, table bf16[{t5.R},{t5.P}], {t5.LANE} lanes, window {repro.WINDOW}",
+        "ms_by_layout": {k: round(v["ms"], 6) for k, v in t5_res.items()},
+    }, {
+        "name": "cond_chain",
+        "route": "cuda",
+        "source": REPRO_SOURCE,
+        "replaces": "tools/repro/mosaic_cond_skip.py:81",
+        "launches": t6_launches,
+        "launches_are": "launches of pt_cond_chain by the T6 tool (mosaic_cond_skip.run): 2 warm-ups and 4 "
+                        "interleaved rounds of ctrl, true, false",
+        "max_abs_err": 0.0,
+        "max_abs_err_over": f"cond true, cond false and control at {T6_CHECK_ROUNDS} rounds on the ones and on a "
+                            f"random b, and cond true at {T6_ROUNDS} rounds on the random b, bit for bit",
+        "ms": t6_ms["true"],
+        "plain_ms": t6_plain_ms,
+        "bound_ms": t6_bound,
+        "bound_by": "operations",
+        "bound_unfused_ms": 2 * t6_bound,
+        "library_ms": t6_lib_ms,
+        "library_call": f"torch.matmul(a, c) (TF32 off), one a step, timed over 50 calls, times {steps} steps",
+        "shape": f"cond true, f32[{t6.N},{t6.N}], {T6_ROUNDS} rounds of {repro.INNER} products",
+        "plain_shape": f"cond true, 1 round of {repro.INNER} products",
+        "kernel_ms_at_plain_shape": t6_small_ms,
+        "ctrl_ms": t6_ms["ctrl"],
+        "false_ms": t6_ms["false"],
+        "half_rounds_ms": half,
+    }, {
+        "name": "reshape_stage",
+        "route": "cuda",
+        "source": REPRO_SOURCE,
+        "replaces": "tools/repro/mosaic_reshape_repro.py:129",
+        "launches": t7_launches,
+        "launches_are": "launches of pt_reshape_stage by the T7 tool (mosaic_reshape_repro.run) at G = 1, 2, 4, "
+                        "8: 5 stages, a check against the plain version, a warm-up and 20 timed launches each",
+        "max_abs_err": t7_err,
+        "max_abs_err_over": "stages 1-5 at G = 1, 2, 4, 8, bit for bit",
+        "ms": t7_res[4][5]["ms"],
+        "plain_ms": t7_plain_ms,
+        "bound_ms": t7_bound,
+        "bound_by": "operations" if t7_ops / PEAK_F32_FLOPS >= t7_bytes / PEAK_BYTES else "bytes",
+        "bound_bytes": t7_bytes,
+        "bound_ops": t7_ops,
+        "bound_are": f"x, the output and the {len(t7_cols)} columns of w that the pops reach; acc + contrib * row a "
+                     f"lane a trip and those columns' conversions and minima",
+        "ops_executed": t7_ops_executed,
+        "library_ms": None,
+        "shape": "stage 5 at G=4, x f32[8,128], w f32[128,128]",
+        "ms_by_g_and_stage": {f"{g}:{s}": round(r["ms"], 6) for g, res in t7_res.items() for s, r in res.items()},
+    }, {
+        "name": "group_rows",
+        "route": "cuda",
+        "source": REPRO_SOURCE,
+        "replaces": "tools/repro/group_rows_relayout.py:94",
+        "launches": t8_launches,
+        "launches_are": "launches of pt_group_rows by the T8 tool (group_rows_relayout.run) at G = 1, 2, 4, 8: a "
+                        "check against the plain version, a warm-up and 20 timed launches each",
+        "max_abs_err": 0.0,
+        "max_abs_err_over": "G = 1, 2, 4, 8, bit for bit",
+        "ms": t8_res[4]["ms"],
+        "plain_ms": t8_plain_ms,
+        "bound_ms": t8_bound,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shape": "G=4, x f32[32,128]",
+        "ms_by_g": {g: round(r["ms"], 6) for g, r in t8_res.items()},
+    }]
+
+
 def main(argv) -> int:
     quick = "--quick" in argv
     t_start = time.perf_counter()
@@ -836,12 +1132,14 @@ def main(argv) -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
 
-    # ---- 2. build: one nvcc for each source and variant, all started together (--probes: the probes' only)
-    probes_only = "--probes" in argv
+    # ---- 2. build: one nvcc for each source and variant, all started together (--probes, --repro: that
+    # library only; the repros have no counting variant: their bounds come from their shapes)
+    probes_only, repro_only = "--probes" in argv, "--repro" in argv
+    sources = ("probes",) if probes_only else ("repro",) if repro_only else tuple(cuda_trace.SOURCES)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2 * len(cuda_trace.SOURCES)) as pool:
+    with ThreadPoolExecutor(max_workers=2 * len(sources)) as pool:
         builds = [pool.submit(cuda_trace.build, count_ops=c, source=src)
-                  for src in (("probes",) if probes_only else cuda_trace.SOURCES) for c in (False, True)]
+                  for src in sources for c in ((False,) if src == "repro" else (False, True))]
         sos = [b.result() for b in builds]
     print(
         f"[2] built {', '.join(os.path.relpath(so, HERE) for so in sos)} in {time.perf_counter() - t0:.1f} s",
@@ -857,6 +1155,15 @@ def main(argv) -> int:
         if rows is None:
             return 1
         print(f"[done] phases 1, 2 and 20-23 in {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(json.dumps({"kernels": rows}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
+    if repro_only:
+        rows = repro_phases(card)
+        if rows is None:
+            return 1
+        print(f"[done] phases 1, 2 and 24-27 in {time.perf_counter() - t_start:.1f} s", flush=True)
         print(json.dumps({"kernels": rows}))
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1251,6 +1558,11 @@ def main(argv) -> int:
     if probe_rows is None:
         return 1
 
+    # ---- 24-27. the Mosaic repros T5-T8
+    repro_rows = repro_phases(card)
+    if repro_rows is None:
+        return 1
+
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": "render_pass",
@@ -1340,7 +1652,7 @@ def main(argv) -> int:
                             "closest hit (open; start distance, far limit, excluded object, skipped rays) "
                             "and any hit; the 262,144 primary rays of the timed frame, closest hit and any "
                             "hit; every output bit for bit",
-    }] + probe_rows}))
+    }] + probe_rows + repro_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

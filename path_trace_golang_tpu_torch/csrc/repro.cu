@@ -1,0 +1,386 @@
+// The Mosaic repros T5-T8 on Hopper: each a small TPU kernel of the JAX
+// package's tools/repro/ redone as a CUDA kernel, with the plain PyTorch
+// version of ops/repro.py beside it.  On the TPU each repro checked that
+// Mosaic compiles one pattern right; here each is also a small probe of a
+// Hopper mechanism that the redesigns of B1/B2 need priced.
+//
+// T5 window_slice_kernel<layout>  replaces tools/repro/window_slice_probe.py::_kernel_a / _kernel_b
+// T6 cond_chain_kernel,           replaces tools/repro/mosaic_cond_skip.py::cond_kernel
+//    ctrl_chain_kernel                     and ::ctrl_kernel
+// T7 reshape_stage_kernel<stage>  replaces tools/repro/mosaic_reshape_repro.py::run_stage (_body)
+// T8 group_rows_kernel            replaces tools/repro/group_rows_relayout.py::main (body)
+//
+// Built by path_trace_golang_tpu_torch/ops/cuda_trace.py like the renderer's
+// kernels (nvcc for sm_90a, -O3 --fmad=false, no fast math): every product
+// and every sum is rounded on its own, as in the plain versions' separate
+// tensor ops; min propagates NaN like torch.amin and XLA's min.  Bound with
+// ctypes through the plain C functions at the end.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int LANE = 128;
+constexpr int TRIPS = 3;               // T7's and T8's loop trips
+constexpr int STAGE45_WORDS = 0b10110;  // T7 stages 4/5: each lane's mask word before the first pop
+constexpr int P_GROUPS = 32;           // T7 stage 5: thread groups that split the minimum over w's rows
+constexpr int STAGE5_LANES = 32;       // T7 stage 5: lanes a block
+
+__device__ __forceinline__ float nan_min(float a, float b) { return (a < b || a != a) ? a : b; }
+
+// the block-wide minimum of v over all threads (blockDim a multiple of 32);
+// every thread gets it.  `scratch` holds 33 floats of shared memory.
+__device__ float block_min(float v, float* scratch) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int warps = (blockDim.x * blockDim.y) >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = nan_min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if ((tid & 31) == 0) scratch[tid >> 5] = v;
+  __syncthreads();
+  if (tid < 32) {
+    float m = tid < warps ? scratch[tid] : __int_as_float(0x7f800000);  // +inf
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = nan_min(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (tid == 0) scratch[32] = m;
+  }
+  __syncthreads();
+  const float m = scratch[32];
+  __syncthreads();  // scratch may be written again by the next call
+  return m;
+}
+
+// ---------------------------------------------------------------------------
+// T5: the windowed one-hot gather.  Replaces window_slice_probe.py's
+// _kernel_a (lane-dim dynamic slice of the table bf16[R, P]) and _kernel_b
+// (sublane slice of its transpose bf16[P, R]), which gather one table column
+// per lane through a one-hot MXU product over a W-page window at a
+// data-dependent base.
+//
+// Design: every block computes the base itself (a block minimum over the
+// live lanes, floored to 128 and clamped), then stages the whole window,
+// R x W bf16 (48 KB at R 96, W 256), into shared memory with 16-byte loads:
+// layout A as R runs of W*2 bytes, one per table row (a strided window),
+// layout B as one contiguous run of W*R*2 bytes.  The layouts differ only in
+// that copy, which is the probe's question.  Then each thread owns one
+// output element (a warp spans 32 lanes of one row, so every shared read is
+// a broadcast) and runs the contraction over the window in f32: one product
+// and one sum a page, a one-hot weight of 1 or 0.  With one nonzero term a
+// sum the result is exact in any order.  What bounds it: launch and the
+// window's copy; the 2*R*N*W operations are a few microseconds of one SM,
+// spread over R/32 x N/32 blocks.
+// ---------------------------------------------------------------------------
+
+template <int LAYOUT>  // 0: A, table[R][P]; 1: B, table[P][R]
+__global__ void __launch_bounds__(1024) window_slice_kernel(const __nv_bfloat16* __restrict__ table, int R, int P,
+                                                            int W, const int* __restrict__ p_l, int n,
+                                                            float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* win = reinterpret_cast<__nv_bfloat16*>(smem);  // A: [R][W], B: [W][R]
+  __shared__ int s_min[33];
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+
+  int m = P;  // a dead lane (page < 0) counts as P
+  for (int i = tid; i < n; i += nthreads) {
+    const int v = p_l[i];
+    m = min(m, v >= 0 ? v : P);
+  }
+  m = __reduce_min_sync(0xffffffffu, m);
+  if ((tid & 31) == 0) s_min[tid >> 5] = m;
+  __syncthreads();
+  if (tid < 32) {
+    int v = tid < (nthreads >> 5) ? s_min[tid] : P;
+    v = __reduce_min_sync(0xffffffffu, v);
+    if (tid == 0) s_min[32] = v;
+  }
+  __syncthreads();
+  const int base = max(min((s_min[32] / 128) * 128, P - W), 0);
+
+  const int chunks = W / 8;  // 16-byte chunks of one row's window
+  if (LAYOUT == 0) {
+    for (int k = tid; k < R * chunks; k += nthreads) {
+      const int r = k / chunks, c = k - r * chunks;
+      reinterpret_cast<uint4*>(win)[k] = *reinterpret_cast<const uint4*>(table + (size_t)r * P + base + c * 8);
+    }
+  } else {
+    const uint4* src = reinterpret_cast<const uint4*>(table + (size_t)base * R);
+    for (int k = tid; k < R * chunks; k += nthreads) reinterpret_cast<uint4*>(win)[k] = src[k];
+  }
+  __syncthreads();
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // lane
+  const int r = blockIdx.y * blockDim.y + threadIdx.y;  // table row
+  if (i >= n || r >= R) return;
+  const int page = p_l[i];
+  float acc = 0.0f;
+  for (int w = 0; w < W; ++w) {
+    const float t = __bfloat162float(LAYOUT == 0 ? win[r * W + w] : win[w * R + r]);
+    const float onehot = (base + w == page) ? 1.0f : 0.0f;
+    acc = acc + t * onehot;
+  }
+  out[(size_t)r * n + i] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// T6: a guarded chain of matrix products.  Replaces mosaic_cond_skip.py's
+// cond_kernel (rounds x lax.cond(flag, 32 serial dots c <- a @ c)) and
+// ctrl_kernel (the same without the cond), which ask whether a uniform
+// branch skips its work or executes it predicated.
+//
+// Design: column j of a @ c depends only on column j of c, so the chain
+// splits into N independent matrix-vector chains, one block each (N = 128
+// blocks of 128 threads, no grid-wide sync).  Thread k keeps row k of `a` in
+// registers for the whole launch and the column in shared memory, double
+// buffered: a step is 32 broadcast 16-byte reads, N products and N sums in
+// four interleaved partial sums, one write and one barrier.  The flag is
+// read from device memory, so nvcc cannot fold the branch.  The partial
+// sums change the order of a row's sum: the result equals the plain
+// version's (a[:, :, None] * c[None]).sum(1) bit for bit where each row of a
+// has at most two nonzero entries (T6's matrix), and within rounding of the
+// order otherwise.  What bounds it: the f32 instruction rate, 2*N^3 operations a
+// step (a multiply and an add each, unfused); the chain of steps serialises
+// the blocks' barriers.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void chain_column(bool active, const float* __restrict__ a, const float* __restrict__ b,
+                                             float* __restrict__ out, int rounds, int inner) {
+  __shared__ __align__(16) float v[2][LANE];
+  const int k = threadIdx.x, j = blockIdx.x;
+  float ar[LANE];
+#pragma unroll
+  for (int q = 0; q < LANE / 4; ++q) {
+    const float4 t = reinterpret_cast<const float4*>(a + (size_t)k * LANE)[q];
+    ar[4 * q] = t.x, ar[4 * q + 1] = t.y, ar[4 * q + 2] = t.z, ar[4 * q + 3] = t.w;
+  }
+  v[0][k] = b[(size_t)k * LANE + j];
+  __syncthreads();
+  int cur = 0;
+  for (int rr = 0; rr < rounds; ++rr) {
+    if (!active) continue;
+    for (int s = 0; s < inner; ++s) {
+      const float4* c4 = reinterpret_cast<const float4*>(v[cur]);
+      float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+#pragma unroll
+      for (int q = 0; q < LANE / 4; ++q) {
+        const float4 c = c4[q];
+        s0 = s0 + ar[4 * q] * c.x;
+        s1 = s1 + ar[4 * q + 1] * c.y;
+        s2 = s2 + ar[4 * q + 2] * c.z;
+        s3 = s3 + ar[4 * q + 3] * c.w;
+      }
+      cur ^= 1;
+      v[cur][k] = (s0 + s1) + (s2 + s3);
+      __syncthreads();
+    }
+  }
+  out[(size_t)k * LANE + j] = v[cur][k];
+}
+
+__global__ void __launch_bounds__(LANE) cond_chain_kernel(const int* __restrict__ flag, const float* __restrict__ a,
+                                                          const float* __restrict__ b, float* __restrict__ out,
+                                                          int rounds, int inner) {
+  chain_column(flag[0] > 0, a, b, out, rounds, inner);
+}
+
+__global__ void __launch_bounds__(LANE) ctrl_chain_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                                                          float* __restrict__ out, int rounds, int inner) {
+  chain_column(true, a, b, out, rounds, inner);
+}
+
+// ---------------------------------------------------------------------------
+// T7: the staged relayout repro.  Replaces mosaic_reshape_repro.py's
+// run_stage, whose kernels regroup x f32[rows, 128] to (rows/G, G*128)
+// inside the kernel and run _body's stage on each wide row: 1 the identity,
+// 2 x*2 + 1, 3 a 3-trip carry acc <- acc*0.5 + row, 4 acc <- acc + p*row
+// over 3 pops p of a mask word, 5 as 4 with p replaced by the minimum over
+// the rows of bf16(w) @ onehot(p).
+//
+// Design: the regrouping is an index map.  Thread e of the grid owns lane
+// j = e mod G*128 of wide row s = e div G*128, which is element s*G*128 + j
+// of x and of the output, so the reshape and its inverse cost nothing.
+// Stages 1-4: 128 lanes a block.  Stage 5: 32 lanes a block, each lane
+// served by P_GROUPS warps-worth of threads; the block stages bf16(w) (RNE)
+// in shared memory, each group takes 128/P_GROUPS of w's rows, runs the
+// one-hot contraction over w's 128 columns (8 columns a 16-byte read, one
+// product and one sum a column, one nonzero term: exact) and their minimum,
+// and the first group folds the groups' minima in order.  What bounds it:
+// stages 1-4 launch; stage 5 the 2*128*128 operations a lane and trip, on
+// rows*128/32 blocks.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int pop_lane(int& words) {
+  const uint32_t u = (uint32_t)words;
+  const uint32_t low = u & (0u - u);
+  const int idx = (__float_as_int((float)(int)low) >> 23) - 127;  // the float exponent of the lowest set bit
+  const int p = words > 0 ? idx : LANE;
+  words = (int)(u & ~low);
+  return p;
+}
+
+template <int STAGE>
+__global__ void __launch_bounds__(1024) reshape_stage_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                                                             float* __restrict__ out, int g) {
+  const int gl = g * LANE;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  const int s = e / gl, j = e - s * gl;  // wide row, lane of it
+  const size_t at = (size_t)s * gl + j;  // the regrouping's index map: x's and the output's element
+  const float row = x[at];
+  if constexpr (STAGE == 1) {
+    out[at] = row;
+  } else if constexpr (STAGE == 2) {
+    out[at] = row * 2.0f + 1.0f;
+  } else if constexpr (STAGE == 3) {
+    float acc = row * 0.0f;
+    for (int i = 0; i < TRIPS; ++i) acc = acc * 0.5f + row;
+    out[at] = acc;
+  } else if constexpr (STAGE == 4) {
+    float acc = row * 0.0f;
+    int words = (int)(row * 0.0f) | STAGE45_WORDS;
+    for (int i = 0; i < TRIPS; ++i) {
+      const int p = pop_lane(words);
+      acc = acc + (float)p * row;
+    }
+    out[at] = acc;
+  } else {
+    __shared__ __align__(16) __nv_bfloat16 wb[LANE * LANE];
+    __shared__ float part[P_GROUPS][STAGE5_LANES];
+    const int t = threadIdx.x, pg = threadIdx.y;
+    for (int k = pg * STAGE5_LANES + t; k < LANE * LANE; k += P_GROUPS * STAGE5_LANES)
+      wb[k] = __float2bfloat16_rn(w[k]);
+    __syncthreads();
+    float acc = row * 0.0f;
+    int words = (int)(row * 0.0f) | STAGE45_WORDS;
+    constexpr int ROWS_PER_GROUP = LANE / P_GROUPS;
+    for (int i = 0; i < TRIPS; ++i) {
+      const int p = pop_lane(words);
+      float m = __int_as_float(0x7f800000);  // +inf
+      for (int r = pg * ROWS_PER_GROUP; r < (pg + 1) * ROWS_PER_GROUP; ++r) {
+        const uint4* wr = reinterpret_cast<const uint4*>(wb + r * LANE);
+        float gth = 0.0f;
+#pragma unroll 4
+        for (int q8 = 0; q8 < LANE / 8; ++q8) {
+          const uint4 u = wr[q8];
+          const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float2 f = __bfloat1622float2(h[k]);
+            const int q = q8 * 8 + 2 * k;
+            gth = gth + f.x * (q == p ? 1.0f : 0.0f);
+            gth = gth + f.y * (q + 1 == p ? 1.0f : 0.0f);
+          }
+        }
+        m = nan_min(m, gth);
+      }
+      part[pg][t] = m;
+      __syncthreads();
+      if (pg == 0) {
+        float contrib = part[0][t];
+        for (int k = 1; k < P_GROUPS; ++k) contrib = nan_min(contrib, part[k][t]);
+        acc = acc + contrib * row;
+      }
+      __syncthreads();
+    }
+    if (pg == 0) out[at] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// T8: the grouped-rows relayout repro.  Replaces group_rows_relayout.py's
+// kernel, which regroups x f32[rows, 128] to (rows/G, G*128), runs per wide
+// row a 3-trip loop acc <- acc + (acc > min(acc)) from 2*row, and regroups
+// back.
+//
+// Design: one block a wide row, one thread a lane (G*128 <= 1024 threads);
+// the regrouping is the index map s*G*128 + t.  Each trip is one block
+// minimum (warp shuffles, then one warp over the warps' minima,
+// NaN-propagating) and one compare and add a lane.  What bounds it: launch;
+// three block-wide barriers a trip.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(1024) group_rows_kernel(const float* __restrict__ x, float* __restrict__ out) {
+  __shared__ float scratch[33];
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  float acc = x[e] * 2.0f;
+  for (int i = 0; i < TRIPS; ++i) {
+    const float m = block_min(acc, scratch);
+    acc = acc + (acc > m ? 1.0f : 0.0f);
+  }
+  out[e] = acc;
+}
+
+template <int LAYOUT>
+int launch_window_slice(const __nv_bfloat16* table, int R, int P, int W, const int* p_l, int n, float* out,
+                        cudaStream_t s) {
+  const size_t bytes = (size_t)R * W * sizeof(__nv_bfloat16);
+  cudaError_t err = cudaFuncSetAttribute(window_slice_kernel<LAYOUT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 block(32, 32), grid((n + 31) / 32, (R + 31) / 32);
+  window_slice_kernel<LAYOUT><<<grid, block, bytes, s>>>(table, R, P, W, p_l, n, out);
+  return (int)cudaGetLastError();
+}
+
+template <int STAGE>
+int launch_reshape_stage(const float* x, const float* w, float* out, int grows, int g, cudaStream_t s) {
+  const int lanes = grows * g * LANE;
+  const dim3 block = STAGE == 5 ? dim3(STAGE5_LANES, P_GROUPS) : dim3(LANE, 1);
+  reshape_stage_kernel<STAGE><<<lanes / block.x, block, 0, s>>>(x, w, out, g);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// T5: layout 0 (A: table bf16[R, P]) or 1 (B: bf16[P, R]); p_l i32[n]; out
+// f32[R, n].  W <= P; R*W*2 bytes of shared memory (at most 227 KB); the
+// 16-byte copies need P, W and R multiples of 8 and a 16-byte aligned table.
+extern "C" int pt_window_slice(int layout, const void* table, int R, int P, int W, const int* p_l, int n, float* out,
+                               void* stream) {
+  if (n <= 0 || R <= 0) return 0;
+  if ((layout != 0 && layout != 1) || W <= 0 || W > P || P % 8 || W % 8 || R % 8 || (uintptr_t)table % 16 ||
+      (size_t)R * W * 2 > 232448 - 33 * sizeof(int))
+    return (int)cudaErrorInvalidValue;
+  const __nv_bfloat16* t = static_cast<const __nv_bfloat16*>(table);
+  cudaStream_t s = (cudaStream_t)stream;
+  return layout == 0 ? launch_window_slice<0>(t, R, P, W, p_l, n, out, s)
+                     : launch_window_slice<1>(t, R, P, W, p_l, n, out, s);
+}
+
+// T6: control 0 runs cond_chain_kernel (flag i32[1] read on the device),
+// 1 ctrl_chain_kernel; a, b, out f32[128, 128]; inner products a round.
+extern "C" int pt_cond_chain(int control, const int* flag, const float* a, const float* b, float* out, int rounds,
+                             int inner, void* stream) {
+  if (rounds < 0 || inner <= 0 || (uintptr_t)a % 16) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (control)
+    ctrl_chain_kernel<<<LANE, LANE, 0, s>>>(a, b, out, rounds, inner);
+  else
+    cond_chain_kernel<<<LANE, LANE, 0, s>>>(flag, a, b, out, rounds, inner);
+  return (int)cudaGetLastError();
+}
+
+// T7: stage 1-5; x and out f32[grows*g, 128]; w f32[128, 128].
+extern "C" int pt_reshape_stage(int stage, const float* x, const float* w, float* out, int grows, int g,
+                                void* stream) {
+  if (grows <= 0) return 0;
+  if (g < 1 || stage < 1 || stage > 5) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (stage) {
+    case 1: return launch_reshape_stage<1>(x, w, out, grows, g, s);
+    case 2: return launch_reshape_stage<2>(x, w, out, grows, g, s);
+    case 3: return launch_reshape_stage<3>(x, w, out, grows, g, s);
+    case 4: return launch_reshape_stage<4>(x, w, out, grows, g, s);
+    default: return launch_reshape_stage<5>(x, w, out, grows, g, s);
+  }
+}
+
+// T8: x and out f32[grows*g, 128]; g*128 <= 1024.
+extern "C" int pt_group_rows(const float* x, float* out, int grows, int g, void* stream) {
+  if (grows <= 0) return 0;
+  if (g < 1 || g * LANE > 1024) return (int)cudaErrorInvalidValue;
+  group_rows_kernel<<<grows, g * LANE, 0, (cudaStream_t)stream>>>(x, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* pt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -29,8 +29,9 @@ own entry point, on CPU tensors ``ops/bvh.py``'s plain versions.
 
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into
 ``build/torch_kernels/`` beside the package, one library for each source
-(``render_pass``, ``classic``, and ``probes``, the perf probes, whose
-entry points ``ops/probes.py`` binds), and bound with ``ctypes``.  ``LAUNCHES``
+(``render_pass``, ``classic``; ``probes``, the perf probes, and ``repro``,
+the Mosaic repros, whose entry points ``ops/probes.py`` and ``ops/repro.py``
+bind), and bound with ``ctypes``.  ``LAUNCHES``
 counts launches of the whole-pass kernel, ``PAGED_LAUNCHES`` those of them
 that carried pages (the walk ran inside them), ``CLASSIC_LAUNCHES`` those of
 them of the classic instance, ``TRACE_LAUNCHES`` calls that launched kernel
@@ -53,6 +54,7 @@ import torch
 
 from ..soa import ScenePack
 from . import bvh as bvh_mod
+from ._launch import raise_on
 from .camera import camera_basis
 from .rng import MASK32
 from .vec import V3
@@ -76,7 +78,8 @@ WALK_PLAIN_CALLS = 0
 BUILD_LOG: dict = {}  # source name -> nvcc's -Xptxas -v report of its last normal build
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = {"render_pass": CSRC / "render_pass.cu", "classic": CSRC / "classic.cu", "probes": CSRC / "probes.cu"}
+SOURCES = {"render_pass": CSRC / "render_pass.cu", "classic": CSRC / "classic.cu", "probes": CSRC / "probes.cu",
+           "repro": CSRC / "repro.cu"}
 HEADERS = (CSRC / "common.cuh", CSRC / "paged_walk.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
@@ -294,11 +297,6 @@ def _flags(pack: ScenePack, tcfg, has_aperture=False, normalize_pass=False) -> i
     )
 
 
-def _raise_on(err: int, lib, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: {lib.pt_error_string(err).decode()}")
-
-
 def _launch(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, n_strata, samples,
             has_aperture, normalize_pass, n_passes=1):
     """Returns (col V3, the five counters, kernel launches made)."""
@@ -322,7 +320,7 @@ def _launch(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, n_
             *scene, px.data_ptr(), py.data_ptr(), n, seed, width, height, n_strata, samples, n_passes,
             tcfg.max_depth, tcfg.rr_threshold, flags, out.data_ptr(), counters.data_ptr(), stream,
         )
-        _raise_on(err, lib, "render_pass")
+        raise_on(err, lib, "render_pass")
         return V3(out[0], out[1], out[2]), counters, 1
     # the classic instance: one launch a sample; state, path lengths and the
     # trips of each sample stay on the card from one launch to the next
@@ -336,7 +334,7 @@ def _launch(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, n_
             tcfg.max_depth, tcfg.rr_threshold, flags, out.data_ptr(), state.data_ptr(), lengths.data_ptr(),
             trips.data_ptr(), counters.data_ptr(), stream,
         )
-        _raise_on(err, lib, "classic render_pass")
+        raise_on(err, lib, "classic render_pass")
     return V3(out[0], out[1], out[2]), counters, samples
 
 
@@ -405,7 +403,7 @@ def _launch_trace(counting: bool, orig: V3, dirv: V3, state, pack, cfg, active):
         cfg.max_depth, cfg.rr_threshold, _flags(pack, cfg), out.data_ptr(), st_out.data_ptr(),
         lengths.data_ptr(), trips.data_ptr(), counters.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(err, lib, "trace_grid")
+    raise_on(err, lib, "trace_grid")
     rad = V3(out[0].reshape(shape), out[1].reshape(shape), out[2].reshape(shape))
     return rad, (st_out.to(torch.int64) & MASK32).reshape(shape), counters
 

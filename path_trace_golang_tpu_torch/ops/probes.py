@@ -33,6 +33,7 @@ import torch
 
 from . import bvh as bvh_mod
 from . import cuda_trace
+from ._launch import check, on_device, raise_on, stream
 from .rng import MASK32, hash_u
 from .vec import V3
 
@@ -65,25 +66,6 @@ PROBE_PLAIN_CALLS = dict.fromkeys(PROBE_LAUNCHES, 0)
 _F32 = torch.float32
 
 
-def _on(what: str, t: torch.Tensor, plain, cuda, *args):
-    """Dispatch on the device of ``t``: the kernel on CUDA, the plain version on the CPU."""
-    if t.is_cuda:
-        return cuda(*args)
-    if t.device.type == "cpu":
-        return plain(*args)
-    raise NotImplementedError(f"{what}: no kernel for device {t.device}")
-
-
-def _check(what: str, *tensors):
-    for t in tensors:
-        if not t.is_cuda:
-            raise ValueError(f"{what}: the kernel needs CUDA tensors, got {t.device}")
-        if t.dtype != _F32 or not t.is_contiguous():
-            raise ValueError(f"{what}: needs contiguous float32 tensors, got {t.dtype}")
-        if t.device != tensors[0].device:
-            raise ValueError(f"{what}: every tensor must be on one device")
-
-
 _BOUND: set[bool] = set()  # the builds whose entry points have their ctypes signatures
 
 
@@ -93,15 +75,6 @@ def _lib(counting: bool = False):
         _bind(lib)
         _BOUND.add(counting)
     return lib
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on(err: int, lib, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: {lib.pt_error_string(err).decode()}")
 
 
 def _c(v: float, like: torch.Tensor) -> torch.Tensor:
@@ -150,7 +123,7 @@ def op_chain(kind: str, x: torch.Tensor, iters: int, ilp: int = 1) -> torch.Tens
     class on every element of ``x`` (f32); returns the chain's end values.
     ``ilp``: independent chains a CUDA thread interleaves (1 or 4; the
     plain version ignores it)."""
-    return _on("op_chain", x, op_chain_plain, op_chain_cuda, kind, x, iters, ilp)
+    return on_device("op_chain", x, op_chain_plain, op_chain_cuda, kind, x, iters, ilp)
 
 
 def op_chain_plain(kind: str, x: torch.Tensor, iters: int, ilp: int = 1) -> torch.Tensor:
@@ -170,7 +143,7 @@ def op_chain_plain(kind: str, x: torch.Tensor, iters: int, ilp: int = 1) -> torc
 
 def op_chain_cuda(kind: str, x: torch.Tensor, iters: int, ilp: int = 1) -> torch.Tensor:
     """Launch T1's kernel (csrc/probes.cu, op_chain_kernel) on the current stream."""
-    _check("op_chain", x)
+    check("op_chain", (x, _F32))
     if kind not in OP_KINDS:
         raise ValueError(f"unknown op class {kind!r}")
     n = x.numel()
@@ -179,8 +152,8 @@ def op_chain_cuda(kind: str, x: torch.Tensor, iters: int, ilp: int = 1) -> torch
     out = torch.empty_like(x)
     lib = _lib()
     err = lib.pt_op_chain(OP_KINDS.index(kind), x.data_ptr(), out.data_ptr(), n, int(iters), OP_INNER[kind], ilp,
-                          _stream(x))
-    _raise_on(err, lib, "op_chain")
+                          stream(x))
+    raise_on(err, lib, "op_chain")
     PROBE_LAUNCHES["op_chain"] += 1
     return out
 
@@ -202,8 +175,8 @@ def paged_probe(variant: str, tiles, boxes, rays, reps: int, t_min: float = 1e-3
     element per page), ``all``, ``dense`` and ``gather``; the bits of the
     merged closest-hit distance for ``real``.  ``best_t``: the distance a
     ray comes in with (default 3e38, and 1e20 for ``real``)."""
-    return _on("paged_probe", rays, paged_probe_plain, paged_probe_cuda, variant, tiles, boxes, rays, reps, t_min,
-               best_t)
+    return on_device("paged_probe", rays, paged_probe_plain, paged_probe_cuda, variant, tiles, boxes, rays, reps,
+                     t_min, best_t)
 
 
 def _default_best_t(variant: str, best_t) -> float:
@@ -283,7 +256,7 @@ def paged_probe_count_ops(variant: str, tiles, boxes, rays, reps: int, t_min: fl
 
 
 def _launch_paged(counting, variant, tiles, boxes, rays, reps, t_min, best_t):
-    _check("paged_probe", rays, tiles, boxes)
+    check("paged_probe", (rays, _F32), (tiles, _F32), (boxes, _F32))
     if variant not in PAGED_VARIANTS:
         raise ValueError(f"unknown variant {variant!r}")
     if tiles.dim() != 3 or tuple(tiles.shape[1:]) != (bvh_mod.PAGE_TRIS, bvh_mod.N_PAGE_ATTRS):
@@ -299,9 +272,9 @@ def _launch_paged(counting, variant, tiles, boxes, rays, reps, t_min, best_t):
     err = lib.pt_paged_probe(
         PAGED_VARIANTS.index(variant), tiles.data_ptr(), boxes.data_ptr(), tiles.shape[0], boxes.shape[1],
         rays.data_ptr(), n, int(reps), float(t_min), _default_best_t(variant, best_t), out.data_ptr(),
-        ops.data_ptr(), _stream(rays),
+        ops.data_ptr(), stream(rays),
     )
-    _raise_on(err, lib, "paged_probe")
+    raise_on(err, lib, "paged_probe")
     return out, (int(ops) if counting else None)
 
 
@@ -327,7 +300,7 @@ def tile_fetch(layout: str, table, x, p: int):
     ``p`` page tiles of ``table``, summed in page order; a tile is
     ``TILE_ELEMS[layout]`` contiguous floats (layouts a, b and c: the same
     16 KB; d: 4 KB)."""
-    return _on("tile_fetch", x, tile_fetch_plain, tile_fetch_cuda, layout, table, x, p)
+    return on_device("tile_fetch", x, tile_fetch_plain, tile_fetch_cuda, layout, table, x, p)
 
 
 def tile_fetch_plain(layout: str, table, x, p: int):
@@ -345,14 +318,14 @@ def tile_fetch_plain(layout: str, table, x, p: int):
 
 def tile_fetch_cuda(layout: str, table, x, p: int):
     """Launch T3's kernel (csrc/probes.cu, tile_fetch_kernel) on the current stream."""
-    _check("tile_fetch", x, table)
+    check("tile_fetch", (x, _F32), (table, _F32))
     blocks = _blocks("tile_fetch", x)
     _pages("tile_fetch", table, TILE_ELEMS[layout], p)
     out = torch.empty_like(x)
     lib = _lib()
     err = lib.pt_tile_fetch(TILE_LAYOUTS.index(layout), table.data_ptr(), x.data_ptr(), out.data_ptr(), int(p),
-                            blocks, _stream(x))
-    _raise_on(err, lib, "tile_fetch")
+                            blocks, stream(x))
+    raise_on(err, lib, "tile_fetch")
     PROBE_LAUNCHES["tile_fetch"] += 1
     return out
 
@@ -369,7 +342,7 @@ def fetch_attrib(variant: str, table, x, p: int):
     the elementwise sum of the tiles; ``dyn_scalar`` x + sum of each tile's
     first element.  Sums over tiles run in page order; the column sum runs
     over rows 0..31 in order."""
-    return _on("fetch_attrib", x, fetch_attrib_plain, fetch_attrib_cuda, variant, table, x, p)
+    return on_device("fetch_attrib", x, fetch_attrib_plain, fetch_attrib_cuda, variant, table, x, p)
 
 
 def fetch_attrib_plain(variant: str, table, x, p: int):
@@ -397,7 +370,7 @@ def fetch_attrib_plain(variant: str, table, x, p: int):
 
 def fetch_attrib_cuda(variant: str, table, x, p: int):
     """Launch T4's kernel (csrc/probes.cu, fetch_attrib_kernel) on the current stream."""
-    _check("fetch_attrib", x, table)
+    check("fetch_attrib", (x, _F32), (table, _F32))
     if variant not in FETCH_VARIANTS:
         raise ValueError(f"unknown variant {variant!r}")
     if table.dim() != 2 or table.shape[1] != LANE:
@@ -409,8 +382,8 @@ def fetch_attrib_cuda(variant: str, table, x, p: int):
     out = torch.empty_like(x)
     lib = _lib()
     err = lib.pt_fetch_attrib(FETCH_VARIANTS.index(variant), table.data_ptr(), x.data_ptr(), out.data_ptr(), int(p),
-                              blocks, _stream(x))
-    _raise_on(err, lib, "fetch_attrib")
+                              blocks, stream(x))
+    raise_on(err, lib, "fetch_attrib")
     PROBE_LAUNCHES["fetch_attrib"] += 1
     return out
 

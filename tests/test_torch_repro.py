@@ -1,0 +1,434 @@
+"""The Mosaic repros T5-T8 of the PyTorch port against the JAX package's TPU
+repros, and on a card only their CUDA kernels against their plain versions.
+
+The JAX repros (``tools/repro/window_slice_probe.py``,
+``mosaic_cond_skip.py``, ``mosaic_reshape_repro.py``,
+``group_rows_relayout.py``) are imported as they are, with ``pallas_call``
+in interpret mode for the length of a test, and their own kernel functions
+run on the scripts' own inputs (numpy seeds): ``_kernel_a``/``_kernel_b``,
+``cond_kernel``/``ctrl_kernel``, ``_body`` through ``run_stage``, and
+``body`` inside the kernel that T8's ``main`` builds (its ``main`` cannot
+run on the CPU: it asks for the compiled kernel).  The port's plain
+versions (``ops/repro.py``) get the same inputs.
+
+Tolerances:
+
+* T5: the bf16 table and both layouts' outputs bit-equal;
+* T6, 2 rounds (64 products), cond true, cond false and the control, on the
+  script's ones: bit-equal (checksum 16384: ``a @ ones == ones``).  On a
+  random ``b`` (``RandomState(0)``, uniform in [-1, 1)) the port's plain
+  version differs between cond true and cond false, equals an unfused numpy
+  chain bit for bit, and is within ``max|a-b| <= 1e-5 * max|b|`` of the
+  JAX chain.  Not bit-equal, and not element by element: XLA's CPU dot
+  computes each row's two-term sum as a fused multiply-add in ascending
+  order (this test asserts that the JAX chain equals that fused numpy chain
+  or the unfused one), and it does so also in a process under
+  ``--xla_cpu_max_isa=AVX``, so no subprocess gives the unfused sum.  After
+  64 steps the fused and unfused chains are 4.6e-7 of the largest entry
+  apart, and entries near zero (cancellation of 0.9x + 0.1y) up to 2.9e-4
+  relative (measured, x86-64);
+* T7 stages 1-4 and T8, G in {1, 2, 4, 8}: bit-equal;
+* T7 stage 5, G in {1, 2, 4, 8}: within rel 1e-6 in this process, where XLA
+  may contract ``acc + contrib*row`` into a fused multiply-add, and
+  bit-equal to the JAX kernel run in a process under
+  ``--xla_cpu_max_isa=AVX`` (no FMA).
+
+On a card, each kernel against its plain version, bit for bit (T6 on T6's
+own ``a``, whose rows have two nonzero entries).
+"""
+
+import functools
+import importlib
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from path_trace_golang_tpu_torch.ops import repro
+from path_trace_golang_tpu_torch.tools.repro import group_rows_relayout as t8
+from path_trace_golang_tpu_torch.tools.repro import mosaic_cond_skip as t6
+from path_trace_golang_tpu_torch.tools.repro import mosaic_reshape_repro as t7
+from path_trace_golang_tpu_torch.tools.repro import window_slice_probe as t5
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REPRO = os.path.join(REPO, "tools", "repro")
+GROUPS = (1, 2, 4, 8)
+T6_ROUNDS = 2
+T6_TOL = 1e-5  # max |port - jax| over max |jax|, T6 on a random b
+T7_STAGE5_RTOL = 1e-6
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Beside other test workers on the same cores one PyTorch thread is faster."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture
+def jax_repro(monkeypatch):
+    """Import one of the JAX package's repro scripts with ``pallas_call`` in
+    interpret mode (for this test only); the module leaves sys.modules after."""
+    monkeypatch.syspath_prepend(REPRO)
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+    loaded = []
+
+    def load(name):
+        sys.modules.pop(name, None)
+        mod = importlib.import_module(name)
+        loaded.append(name)
+        return mod
+
+    yield load
+    for name in loaded:
+        sys.modules.pop(name, None)
+
+
+def _bits(a):
+    a = np.ascontiguousarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a.view(np.uint16)
+
+
+def _random_b():
+    return np.random.RandomState(0).uniform(-1, 1, (t6.N, t6.N)).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# T5: the windowed one-hot gather
+# ---------------------------------------------------------------------------
+
+
+def _jax_window_inputs():
+    """window_slice_probe.main's inputs, as it draws them."""
+    rng = np.random.default_rng(0)
+    gt = rng.standard_normal((t5.R, t5.P)).astype(jnp.bfloat16)
+    p_l = rng.integers(100, 220, size=(1, t5.LANE)).astype(np.int32)
+    p_l[0, 7] = -1
+    return gt, p_l
+
+
+def test_window_table_bit_equal():
+    gt, p_l = _jax_window_inputs()
+    table, tp_l, want = t5.make_inputs("cpu")
+    assert np.array_equal(_bits(gt), table.view(torch.int16).numpy().view(np.uint16))
+    assert np.array_equal(p_l, tp_l.numpy())
+    assert (want[:, 7] == 0).all() and want.any()
+
+
+@pytest.mark.parametrize("layout", repro.LAYOUTS)
+def test_window_slice_matches_jax(jax_repro, layout):
+    ws = jax_repro("window_slice_probe")
+    gt, p_l = _jax_window_inputs()
+    kern, table = (ws._kernel_a, jnp.asarray(gt)) if layout == "A" else (ws._kernel_b, jnp.asarray(gt).T)
+    vm = functools.partial(pl.BlockSpec, memory_space=pltpu.VMEM)
+    want = np.asarray(pl.pallas_call(kern, in_specs=[vm(), vm()], out_specs=vm(),
+                                     out_shape=jax.ShapeDtypeStruct((t5.R, t5.LANE), jnp.float32))(
+        table, jnp.asarray(p_l)))
+    ttable, tp_l, _ = t5.make_inputs("cpu")
+    got = repro.window_slice(t5.layout_table(ttable, layout), tp_l, layout).numpy()
+    assert np.array_equal(_bits(got), _bits(want))
+
+
+def test_window_base_floors_and_clamps():
+    p = torch.tensor([300, 290, -1], dtype=torch.int32)
+    assert repro.window_base(p, 512) == 256  # floor(290) = 256, clamp to P - W = 256
+    assert repro.window_base(torch.tensor([-1, -1], dtype=torch.int32), 512) == 256  # no live lane
+    assert repro.window_base(torch.tensor([130, 400], dtype=torch.int32), 1024) == 128
+
+
+# ---------------------------------------------------------------------------
+# T6: the guarded chain
+# ---------------------------------------------------------------------------
+
+T6_RUNS = {"true": (1, False), "false": (0, False), "ctrl": (1, True)}
+
+
+def _jax_chain(cs, name, b, rounds=T6_ROUNDS):
+    flag, control = T6_RUNS[name]
+    kern = (cs.ctrl_kernel if control else cs.cond_kernel)(rounds)
+    fn = pl.pallas_call(kern, out_shape=jax.ShapeDtypeStruct((t6.N, t6.N), jnp.float32))
+    return np.asarray(fn(jnp.full((1,), flag, jnp.int32), cs._mk_a(), jnp.asarray(b)))
+
+
+def _port_chain(name, b, rounds=T6_ROUNDS):
+    flag, control = T6_RUNS[name]
+    a, _ = t6.make_inputs("cpu")
+    return repro.cond_chain(torch.tensor([flag], dtype=torch.int32), a, torch.from_numpy(b), rounds, control).numpy()
+
+
+def _numpy_chain(a, b, steps, fused):
+    """``steps`` products c <- a @ c in float32: each row's sum unfused (a
+    product rounded, then the sum), or with each further term as a fused
+    multiply-add in ascending column order (XLA's CPU dot)."""
+    c = b.copy()
+    nz = [np.nonzero(a[k])[0] for k in range(len(a))]
+    for _ in range(steps):
+        if not fused:
+            c = (a[:, :, None] * c[None]).sum(1, dtype=np.float32)
+            continue
+        out = np.empty_like(c)
+        for k, ms in enumerate(nz):
+            acc = (a[k, ms[0]] * c[ms[0]]).astype(np.float32)
+            for m in ms[1:]:
+                acc = (acc.astype(np.float64) + np.float64(a[k, m]) * c[m].astype(np.float64)).astype(np.float32)
+            out[k] = acc
+        c = out
+    return c
+
+
+def test_cond_chain_inputs_equal_jax(jax_repro):
+    cs = jax_repro("mosaic_cond_skip")
+    assert np.array_equal(_bits(np.asarray(cs._mk_a())), _bits(t6.make_a()))
+    assert all(len(np.nonzero(r)[0]) <= 2 for r in t6.make_a())  # what the kernel's bit-equality rests on
+
+
+@pytest.mark.parametrize("name", T6_RUNS)
+def test_cond_chain_matches_jax_on_ones(jax_repro, name):
+    """The JAX script's own b: every output is ones, checksum 16384, in all
+    three runs (the script's fold WARNING always fires)."""
+    cs = jax_repro("mosaic_cond_skip")
+    ones = np.ones((t6.N, t6.N), np.float32)
+    want = _jax_chain(cs, name, ones)
+    got = _port_chain(name, ones)
+    assert np.array_equal(_bits(got), _bits(want))
+    assert float(np.abs(got).sum()) == 16384.0
+
+
+def test_cond_chain_random_b(jax_repro):
+    """On a random b the chain moves: true differs from false, equals an
+    unfused numpy chain bit for bit, and the JAX chain within T6_TOL."""
+    cs = jax_repro("mosaic_cond_skip")
+    b = _random_b()
+    got = {name: _port_chain(name, b) for name in T6_RUNS}
+    assert not np.array_equal(got["true"], got["false"])
+    assert np.array_equal(_bits(got["false"]), _bits(b))
+    assert np.array_equal(_bits(got["true"]), _bits(got["ctrl"]))
+    a = t6.make_a()
+    steps = T6_ROUNDS * repro.INNER
+    assert np.array_equal(_bits(got["true"]), _bits(_numpy_chain(a, b, steps, fused=False)))
+    want = _jax_chain(cs, "true", b)
+    err = float(np.abs(got["true"] - want).max() / np.abs(want).max())
+    print(f"T6 random b: port vs JAX max|a-b|/max|b| {err:.3g}, bit-equal {np.array_equal(got['true'], want)}")
+    assert err <= T6_TOL
+    assert any(np.array_equal(_bits(want), _bits(_numpy_chain(a, b, steps, fused))) for fused in (True, False))
+
+
+def test_cond_chain_random_b_without_contraction(jax_no_fma):
+    """Under --xla_cpu_max_isa=AVX the JAX chain is still a fused or an
+    unfused chain, and within T6_TOL of the port's."""
+    want = jax_no_fma["t6:true"]
+    b = _random_b()
+    a = t6.make_a()
+    steps = T6_ROUNDS * repro.INNER
+    assert any(np.array_equal(_bits(want), _bits(_numpy_chain(a, b, steps, fused))) for fused in (True, False))
+    got = _port_chain("true", b)
+    assert float(np.abs(got - want).max() / np.abs(want).max()) <= T6_TOL
+
+
+# ---------------------------------------------------------------------------
+# T7 and T8: the regrouping repros
+# ---------------------------------------------------------------------------
+
+
+def _t7_inputs():
+    x, w = t7.make_inputs("cpu")
+    return x, w, jnp.asarray(x.numpy()), jnp.asarray(w.numpy())
+
+
+@pytest.mark.parametrize("g", GROUPS)
+@pytest.mark.parametrize("stage", (1, 2, 3, 4))
+def test_reshape_stage_matches_jax(jax_repro, stage, g):
+    rr = jax_repro("mosaic_reshape_repro")
+    x, w, jx, jw = _t7_inputs()
+    kernel_out, xla_out = rr.run_stage(stage, g, jx, jw)
+    got = repro.reshape_stage(x, w, stage, g).numpy()
+    assert np.array_equal(_bits(got), _bits(kernel_out))
+    assert np.array_equal(_bits(got), _bits(xla_out))
+
+
+@pytest.mark.parametrize("g", GROUPS)
+def test_reshape_stage5_matches_jax(jax_repro, g):
+    """In this process XLA may fuse ``acc + contrib*row``: rel 1e-6."""
+    rr = jax_repro("mosaic_reshape_repro")
+    x, w, jx, jw = _t7_inputs()
+    kernel_out, _ = rr.run_stage(5, g, jx, jw)
+    got = repro.reshape_stage(x, w, 5, g).numpy()
+    err = float(np.max(np.abs(got - kernel_out) / np.abs(kernel_out)))
+    print(f"T7 stage 5 G={g}: max rel err {err:.3g}, bit-equal {np.array_equal(got, kernel_out)}")
+    assert err <= T7_STAGE5_RTOL
+
+
+@pytest.mark.parametrize("g", GROUPS)
+def test_reshape_stage5_matches_jax_without_contraction(jax_no_fma, g):
+    x, w, _, _ = _t7_inputs()
+    got = repro.reshape_stage(x, w, 5, g).numpy()
+    assert np.array_equal(_bits(got), _bits(jax_no_fma[f"t7:{g}"]))
+
+
+def test_reshape_stages_ignore_g():
+    """The regrouping is an index map: no stage's output depends on G."""
+    x, w, _, _ = _t7_inputs()
+    for stage in repro.STAGES:
+        outs = [repro.reshape_stage_plain(x, w, stage, g) for g in GROUPS]
+        assert all(torch.equal(o, outs[0]) for o in outs), stage
+
+
+@pytest.mark.parametrize("g", GROUPS)
+def test_group_rows_matches_jax(jax_repro, g):
+    gr = jax_repro("group_rows_relayout")
+    x = t8.make_input("cpu")
+
+    def kernel(x_ref, o_ref):
+        o_ref[:] = gr.body(x_ref[:], g)
+
+    want = np.asarray(pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct((t8.ROWS, t8.LANE), jnp.float32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)], out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+    )(jnp.asarray(x.numpy())))
+    got = repro.group_rows(x, g).numpy()
+    assert np.array_equal(_bits(got), _bits(want))
+    assert np.array_equal(_bits(got), _bits(np.asarray(jax.jit(lambda a: gr.body(a, g))(jnp.asarray(x.numpy())))))
+
+
+# ---------------------------------------------------------------------------
+# the JAX repros in a process whose XLA does not contract multiply-adds
+# ---------------------------------------------------------------------------
+
+
+def _jax_no_fma_outputs(out_path):
+    """Run T7's stage 5 for every G and T6's cond-true chain on the random b
+    (interpret mode) and save them; run in a process under
+    ``--xla_cpu_max_isa=AVX``, which has no FMA."""
+    jax.config.update("jax_platforms", "cpu")
+    sys.path.insert(0, REPRO)
+    pl.pallas_call = functools.partial(pl.pallas_call, interpret=True)
+    rr = importlib.import_module("mosaic_reshape_repro")
+    _, _, jx, jw = _t7_inputs()
+    outs = {f"t7:{g}": np.asarray(rr.run_stage(5, g, jx, jw)[0]) for g in GROUPS}
+    outs["t6:true"] = _jax_chain(importlib.import_module("mosaic_cond_skip"), "true", _random_b())
+    np.savez(out_path, **outs)
+
+
+@pytest.fixture(scope="module")
+def jax_no_fma(tmp_path_factory):
+    out = tmp_path_factory.mktemp("no_fma") / "outputs.npz"
+    path = os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=AVX", PYTHONPATH=path)
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), str(out)], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    return dict(np.load(out))
+
+
+# ---------------------------------------------------------------------------
+# the wrappers and the tools on the CPU
+# ---------------------------------------------------------------------------
+
+
+def test_repro_tools_import_without_jax():
+    code = ("import sys\n"
+            "import path_trace_golang_tpu_torch.tools.repro.window_slice_probe, path_trace_golang_tpu_torch.tools."
+            "repro.mosaic_cond_skip, path_trace_golang_tpu_torch.tools.repro.mosaic_reshape_repro, "
+            "path_trace_golang_tpu_torch.tools.repro.group_rows_relayout\n"
+            "assert 'jax' not in sys.modules and not any(m.startswith('path_trace_golang_tpu.') or "
+            "m == 'path_trace_golang_tpu' for m in sys.modules)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr
+
+
+def test_repro_tools_run_on_cpu(capsys):
+    """Each tool's entry point runs the plain versions with --device cpu and
+    prints the JAX script's lines (T6's fold WARNING included)."""
+    assert t5.main(["--device", "cpu"]) == 0
+    assert t6.main(["1", "--device", "cpu"]) == 0
+    assert t7.main(["2", "--device", "cpu"]) == 0
+    assert t8.main(["8", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    for line in ("A lane-dim dslice: compiled, correct=True", "B transposed sublane dslice: compiled, correct=True",
+                 "WARNING: cond-true and cond-false agree", "true/false", "stage 5: ok", "plain-vs-kernel",
+                 "no mismatch", "host clock"):
+        assert line in out, line
+
+
+def test_repro_wrappers_dispatch_and_check():
+    before = dict(repro.REPRO_PLAIN_CALLS)
+    x = torch.zeros((8, 128))
+    repro.group_rows(x, 2)
+    repro.reshape_stage(x, torch.zeros((128, 128)), 1, 4)
+    assert repro.REPRO_PLAIN_CALLS["group_rows"] == before["group_rows"] + 1
+    assert repro.REPRO_PLAIN_CALLS["reshape_stage"] == before["reshape_stage"] + 1
+    with pytest.raises(NotImplementedError):
+        repro.group_rows(torch.zeros((8, 128), device="meta"), 2)
+    with pytest.raises(ValueError):
+        repro.group_rows_cuda(x, 2)  # a kernel takes CUDA tensors only
+    with pytest.raises(ValueError):
+        repro.group_rows(x, 3)  # G must divide the rows
+    with pytest.raises(ValueError):
+        repro.reshape_stage(x, torch.zeros((128, 128)), 6, 1)
+    with pytest.raises(ValueError):
+        repro.window_slice(torch.zeros((96, 128), dtype=torch.bfloat16), torch.zeros(4, dtype=torch.int32), "A")
+
+
+# ---------------------------------------------------------------------------
+# on a card: kernel = plain version, bit for bit
+# ---------------------------------------------------------------------------
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+
+
+def _same(a, b):
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_window_slice_kernel_matches_plain_on_card():
+    _need_card()
+    table, p_l, want = t5.make_inputs("cuda")
+    for layout in repro.LAYOUTS:
+        tab = t5.layout_table(table, layout)
+        k = repro.window_slice(tab, p_l, layout)
+        assert _same(k, repro.window_slice_plain(tab, p_l, layout)), layout
+        assert np.array_equal(k.cpu().numpy(), want), layout
+
+
+@pytest.mark.cuda
+def test_cond_chain_kernel_matches_plain_on_card():
+    _need_card()
+    a, ones = t6.make_inputs("cuda")
+    for b in (ones, torch.from_numpy(_random_b()).cuda()):
+        for name, (flag, control) in T6_RUNS.items():
+            f = torch.tensor([flag], dtype=torch.int32, device="cuda")
+            assert _same(repro.cond_chain(f, a, b, 2, control), repro.cond_chain_plain(f, a, b, 2, control)), name
+
+
+@pytest.mark.cuda
+def test_reshape_stage_kernel_matches_plain_on_card():
+    _need_card()
+    x, w = t7.make_inputs("cuda")
+    for g in GROUPS:
+        for stage in repro.STAGES:
+            assert _same(repro.reshape_stage(x, w, stage, g), repro.reshape_stage_plain(x, w, stage, g)), (stage, g)
+
+
+@pytest.mark.cuda
+def test_group_rows_kernel_matches_plain_on_card():
+    _need_card()
+    x = t8.make_input("cuda")
+    for g in GROUPS:
+        assert _same(repro.group_rows(x, g), repro.group_rows_plain(x, g)), g
+
+
+if __name__ == "__main__":
+    _jax_no_fma_outputs(sys.argv[1])
