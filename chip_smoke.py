@@ -16,7 +16,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and one 2-pass window: at least 95% of lanes within |a-b| <= 1e-3|b| +
    1e-3, segment counts within 2%, per-channel means within 1%; then a
    first, small run of the paged walk alone against its plain version
-   (2,048 rays, bench_mesh and demo_mesh), bit for bit;
+   (2,048 rays, bench_mesh and demo_mesh, with phase 8's cases), bit for
+   bit;
 4. drive the main path: Renderer(contract="gpu") on demo_showcase at
    1920x1080, depth 12, one 8-pass window, one warm-up and 3 timed renders;
 5. check that the main path launched the kernel and never called the plain
@@ -35,8 +36,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    plain version: camera and random rays on bench_mesh's pack (80 pages,
    flat) and demo_mesh's (smooth), closest hit with and without a start
    distance, an excluded object, a far limit and skipped rays, and any hit
-   with rays that come in blocked: key, page, t, normal, mat, obj and
-   blocked bit-identical on every ray;
+   with rays that come in blocked; then the cooperative walk's partial
+   working sets: the first 2,065 rays alone (the last warp holds 17), every
+   other ray skipped (closest hit) or come in blocked (any hit): key, page,
+   t, normal, mat, obj and blocked bit-identical on every ray;
 9. the whole-pass kernel on mesh scenes against its plain version
    (demo_mesh, bench_mesh; 192x192, depth 8, one pass and a 2-pass
    window), phase 3's bands;
@@ -49,8 +52,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 12. time the whole-pass kernel on that frame and count its operations; time
     the walk alone on the frame's 262,144 primary rays, its plain version on
     the same rays, hold the two against each other bit for bit on every one
-    of those rays (closest hit and any hit), count the walk's operations and
-    the bytes it must move, and derive its bound;
+    of those rays (closest hit and any hit), and on perf probe T2's 65,536
+    incoherent rays over T2's sphere (80 pages), count the walk's
+    operations and the bytes it must move, and derive its bound;
 13. hold the whole-pass kernel against its plain version at the mesh path's
     own arguments (bench_mesh 512x512, depth 8, frame seed 1, one 8-pass
     window): the lanes that phase 12's full-size launch produced, on 2,048
@@ -115,6 +119,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 27. T8 (the grouped rows): G = 1, 2, 4, 8 bit for bit; then
     tools/repro/group_rows_relayout.py at each G.
 
+28. the fuzzed scenes: the four scenes of tests/test_fuzz.py (seeds 11,
+    23, 37, 59, from tests/torch_fuzz_scenes.json), every lane of a 64x48
+    frame, depth 4, one pass: the gpu contract on B1's regeneration
+    instance and the cpu contract on the classic instance against their
+    plain versions, phase 3's bands, with the share of bit-identical lanes.
+
 The line before the last three says how long the phases took in all.  The
 third-to-last line is a JSON object describing every kernel
 (``max_abs_err`` is the largest the comparisons of that kernel found); the
@@ -130,7 +140,13 @@ phases 4, 11, 16 and 17: one warm-up render, which also builds the kernels,
 then ``renders`` timed ones, and one JSON line with Mrays/s and wall seconds
 (median, min, max), segments, launches per render and ptxas' report;
 ``--contract cpu`` renders the cpu contract, ``--faithful-fog`` faithful
-fog.  It imports the package that lies beside the script, so a copy of this
+fog.  ``--kernels`` also times the frame's kernels alone with CUDA events,
+as phases 12 and 18 do, at the render's scene and contract: the whole-pass
+kernel over the frame's chunks (a window of ``passes`` under the gpu
+contract, else one pass of the classic instance), kernel B3 through
+trace() on the first chunk's primary rays and, where the scene carries
+pages, the paged walk alone on the frame's primary rays (closest hit and
+any hit).  It imports the package that lies beside the script, so a copy of this
 file in the root of another commit's tree times that commit: to compare two
 commits, run them in turns in one shell on one card.
 """
@@ -156,6 +172,9 @@ COUNTERS = ("LAUNCHES", "PAGED_LAUNCHES", "CLASSIC_LAUNCHES", "TRACE_LAUNCHES", 
 PLAIN_COUNTERS = ("PLAIN_CALLS", "TRACE_PLAIN_CALLS", "WALK_PLAIN_CALLS")
 CLASSIC_CHECK_LANES = 8192  # lanes of the cpu-contract frame held to the plain version in phase 19
 B3_CHECK_RAYS = 8192  # camera rays (and as many random ones) of each B3 batch in phase 14
+PARTIAL_RAYS = 2048 + 17  # rays of the walk's partial-warp case: its launch's last warp holds 17
+FUZZ_SCENES = os.path.join(HERE, "tests", "torch_fuzz_scenes.json")  # tests/test_fuzz.py's scenes as JSON
+FUZZ_W, FUZZ_H, FUZZ_DEPTH = 64, 48, 4  # phase 28's frame
 
 
 def smi_line() -> str:
@@ -215,13 +234,14 @@ def many_lights_scene():
     )
 
 
-def scene_setup(pt, name, w, h, depth, contract="gpu", faithful=False):
-    """A scene, its pack on the card and the whole-pass arguments of one of
-    its passes as the Renderer would give them."""
+def scene_setup(pt, name, w, h, depth, contract="gpu", faithful=False, scene=None):
+    """A scene (``scene``, else the one ``name`` names), its pack on the
+    card and the whole-pass arguments of one of its passes as the Renderer
+    would give them."""
     from path_trace_golang_tpu_torch import integrator
     from path_trace_golang_tpu_torch.scene import builtin
 
-    sc = many_lights_scene() if name == "many_lights" else getattr(builtin, name)()
+    sc = scene if scene is not None else many_lights_scene() if name == "many_lights" else getattr(builtin, name)()
     pack = pt.pack_scene(sc, w, h, device=DEVICE)
     tcfg = integrator.trace_config_for_scene(pack, sc, depth, contract, faithful_fog=faithful)
     n_strata, samples = (4, 16) if contract == "gpu" else (1, 1)
@@ -265,6 +285,47 @@ def hold_pass(pt, cuda_trace, tag, name, w, h, depth, passes=(1, 2), contract="g
         )
         good = good and share >= 0.95 and seg_gap <= 0.02 and mean_gap <= 0.01
     return good, worst, plain_secs
+
+
+def fuzz_phase(pt, cuda_trace, card):
+    """Phase 28: the whole-pass kernel against its plain version on the four
+    fuzzed scenes of tests/test_fuzz.py (tests/torch_fuzz_scenes.json), every
+    lane of a FUZZ_W x FUZZ_H frame, depth FUZZ_DEPTH, one pass: the gpu
+    contract on B1's regeneration instance, the cpu contract on the classic
+    instance; phase 3's bands.  Returns (all within the bands, largest
+    |a-b|)."""
+    import torch
+    from path_trace_golang_tpu_torch.scene import io as scene_io
+
+    t0 = time.perf_counter()
+    with open(FUZZ_SCENES) as f:
+        scenes = json.load(f)["scenes"]
+    px, py = lanes(FUZZ_W, FUZZ_H)
+    good, worst = True, 0.0
+    for seed, obj in scenes.items():
+        sc = scene_io.loads(json.dumps(obj))
+        for contract, instance in (("gpu", "B1"), ("cpu", "classic instance")):
+            _sc, pack, kw = scene_setup(pt, f"fuzz {seed}", FUZZ_W, FUZZ_H, FUZZ_DEPTH, contract, scene=sc)
+            col_k, segs_k = cuda_trace.render_pass_cuda(pack, 3, px, py, **kw)
+            torch.cuda.synchronize()
+            tp = time.perf_counter()
+            col_p, segs_p = cuda_trace.render_pass_plain(pack, 3, px, py, **kw)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - tp
+            a, b = col_k.to_rows(), col_p.to_rows()
+            share, seg_gap, mean_gap, err = lane_stats(a, b, segs_k, segs_p)
+            bits = (a.view(torch.int32) == b.view(torch.int32)).all(dim=-1).double().mean().item()
+            worst = max(worst, err)
+            print(
+                f"[28] fuzz scene {seed} ({len(sc.objects)} objects, fog {sc.fog is not None}), {instance}, "
+                f"{contract} contract {FUZZ_W}x{FUZZ_H} d{FUZZ_DEPTH}: lanes matching {share:.4%}, bit-identical "
+                f"{bits:.4%}, segments {int(segs_k)} vs {int(segs_p)} (gap {seg_gap:.4%}), channel-mean gap "
+                f"{mean_gap:.4%}, max |a-b| {err:.4g}; plain version {plain_s:.1f} s",
+                flush=True,
+            )
+            good = good and share >= 0.95 and seg_gap <= 0.02 and mean_gap <= 0.01
+    print(f"[28] the fuzzed scenes in {time.perf_counter() - t0:.1f} s | card {card}", flush=True)
+    return good, worst
 
 
 def hold_frame_lanes(cuda_trace, tag, label, pack, kw, frame_cols, w, n_check, n_passes, frame_seed=1):
@@ -333,6 +394,31 @@ def drive_renderer(pt, cuda_trace, tag, name, w, h, passes, depth, renders, card
     return out
 
 
+def frame_kernel_times(pt, cuda_trace, name, w, h, passes, depth, contract, faithful):
+    """``--render-only ... --kernels``: the frame's kernels alone, median
+    milliseconds of CUDA events (see the module docstring)."""
+    import torch
+    from path_trace_golang_tpu_torch import integrator
+
+    _sc, pack, kw = scene_setup(pt, name, w, h, depth, contract, faithful)
+    n = w * h
+    chunk = min(pt.render.env_config.get_chunk_size(), n)
+    window = dict(n_passes=passes) if contract == "gpu" and not faithful else {}
+    frame = [lanes(w, h, st, min(chunk, n - st)) for st in range(0, n, chunk)]
+    out = {"pass_ms": cuda_time_ms(
+        lambda: [cuda_trace.render_pass_cuda(pack, 1, px, py, **window, **kw) for px, py in frame], 3),
+        "pass_is": f"{'a window of ' + str(passes) + ' passes' if window else 'one pass'}, {len(frame)} chunks"}
+    ro, rd, rst = primary_rays(pack, kw, 1, 0, chunk)
+    out["trace_ms"] = cuda_time_ms(lambda: integrator.trace(ro, rd, rst, pack, kw["tcfg"]), 5)
+    out["trace_rays"] = chunk
+    if pack.paged is not None:
+        wo, wd = walk_rays(pack, w, h, n, 0, seed=0)
+        far = torch.full((n,), 1e20, device=DEVICE)
+        out["walk_closest_ms"] = cuda_time_ms(lambda: cuda_trace.paged_traverse(wo, wd, pack, 0.001, far), 5)
+        out["walk_any_ms"] = cuda_time_ms(lambda: cuda_trace.paged_occluded(wo, wd, pack, 0.001, far, far < 0), 5)
+    return out
+
+
 def walk_rays(pack, w, h, n_cam, n_rand, seed):
     """Rays for the walk alone: ``n_cam`` camera rays through pixel centres
     of a w x h frame (strided over it) and ``n_rand`` rays with origins in a
@@ -381,53 +467,72 @@ def walk_diff(k, p):
 
 def hold_walk(cuda_trace, tag, name, pack, o, d, seed):
     """The paged walk alone, kernel against plain version, bit for bit.
-    Returns (identical on every ray, largest |a-b| over t and the normal)."""
+    Besides the whole batch, the first PARTIAL_RAYS rays alone (the launch's
+    last warp then holds 17 rays: a partial working set of the cooperative
+    walk) and the batch with every other ray skipped (closest hit: those
+    lanes walk nothing but help their warp) or come in blocked (any hit:
+    they do not enter the walk).  Returns (identical on every ray, largest
+    |a-b| over t and the normal)."""
     import numpy as np
     import torch
     from path_trace_golang_tpu_torch.ops import bvh
+    from path_trace_golang_tpu_torch.ops.vec import V3
 
     n = o.x.numel()
+    part = min(n, PARTIAL_RAYS)
+    part -= 15 if part % 32 == 0 else 0  # a smaller batch: still a partial last warp
+    head = lambda v: V3(v.x[:part], v.y[:part], v.z[:part])  # noqa: E731
     rng = np.random.default_rng(seed)
     cu = lambda a: torch.from_numpy(a).to(DEVICE)  # noqa: E731
     start = cu(np.where(rng.random(n) < 0.5, rng.uniform(0.5, 6.0, n), 1e20).astype(np.float32))
     first_tri = pack.n_objects
+    every_other = torch.arange(n, device=DEVICE) % 2 == 1
     cases = {
-        "open": dict(best_t=torch.full((n,), 1e20, device=DEVICE)),
-        "bounded": dict(
+        "open": (o, d, dict(best_t=torch.full((n,), 1e20, device=DEVICE))),
+        "bounded": (o, d, dict(
             best_t=start, t_max=cu(rng.uniform(2.0, 50.0, n).astype(np.float32)),
             exclude_obj=cu(rng.integers(first_tri, first_tri + pack.n_triangles, n).astype(np.int32)),
             skip=cu(rng.random(n) < 0.2),
-        ),
+        )),
+        f"partial warp ({part} rays)": (head(o), head(d), dict(best_t=start[:part])),
+        "every other ray skipped": (o, d, dict(best_t=start, skip=every_other)),
     }
     same, worst = True, 0.0
-    for case, kw in cases.items():
-        k = cuda_trace.paged_traverse(o, d, pack, 0.001, **kw)
+    for case, (co, cd, kw) in cases.items():
+        k = cuda_trace.paged_traverse(co, cd, pack, 0.001, **kw)
         torch.cuda.synchronize()
-        p = bvh.traverse_triangles_paged(o, d, pack, 0.001, **kw)
+        p = bvh.traverse_triangles_paged(co, cd, pack, 0.001, **kw)
         torch.cuda.synchronize()
         bad, err = walk_diff(k, p)
         hit = p.hit
         worst = max(worst, err)
         print(
-            f"[{tag}] walk alone, {name} ({pack.paged.n_pages} pages), closest hit, {case}: {n} rays, "
+            f"[{tag}] walk alone, {name} ({pack.paged.n_pages} pages), closest hit, {case}: {co.x.numel()} rays, "
             f"{int(hit.sum())} hits, {p.visits} pages swept by the plain version, fields that differ: "
             f"{bad or 'none'}, max |a-b| over t and normal {err:.4g}",
             flush=True,
         )
         same = same and not bad
     t_max = cu(rng.uniform(0.5, 8.0, n).astype(np.float32))
-    blocked0 = cu(rng.random(n) < 0.2)
-    kb = cuda_trace.paged_occluded(o, d, pack, 0.001, t_max, blocked0)
-    torch.cuda.synchronize()
-    pb = bvh.occluded_triangles_paged(o, d, pack, 0.001, t_max, blocked0)
-    torch.cuda.synchronize()
-    differ = int((kb != pb).sum())
-    print(
-        f"[{tag}] walk alone, {name}, any hit: {n} rays, {int(blocked0.sum())} come in blocked, "
-        f"{int(pb.sum())} blocked, rays that differ: {differ}",
-        flush=True,
-    )
-    return same and differ == 0, worst
+    any_cases = {
+        "20% come in blocked": (o, d, t_max, cu(rng.random(n) < 0.2)),
+        f"partial warp ({part} rays)": (head(o), head(d), t_max[:part], torch.zeros(part, dtype=torch.bool,
+                                                                                  device=DEVICE)),
+        "every other ray comes in blocked": (o, d, t_max, every_other),
+    }
+    for case, (co, cd, tm, blocked0) in any_cases.items():
+        kb = cuda_trace.paged_occluded(co, cd, pack, 0.001, tm, blocked0)
+        torch.cuda.synchronize()
+        pb = bvh.occluded_triangles_paged(co, cd, pack, 0.001, tm, blocked0)
+        torch.cuda.synchronize()
+        differ = int((kb != pb).sum())
+        print(
+            f"[{tag}] walk alone, {name}, any hit, {case}: {co.x.numel()} rays, {int(blocked0.sum())} come in "
+            f"blocked, {int(pb.sum())} blocked, rays that differ: {differ}",
+            flush=True,
+        )
+        same = same and differ == 0
+    return same, worst
 
 
 def hold_trace(pt, cuda_trace, tag, name, contract, faithful, depth, n_cam, n_rand, seed, inactive=0.0):
@@ -705,6 +810,7 @@ def probe_phases(card):
         fail("23", "T4's path did not run on its kernel alone")
         return None
     t4_bound = fetch_bound(table.numel() * 4, fetch_probe2.N_BLOCKS)
+    t4_bound_full = fetch_bound(table.numel() * 4, grids["full-card"])
     # the one PyTorch call that computes dyn_vec's column sums: a yardstick only, the port never calls it
     t4_lib_ms = timing.ms_per_launch(lambda: table.view(-1, 128).sum(0), 10, dev)
     print(f"[23] library call table.view(-1, 128).sum(0): {t4_lib_ms:.4f} ms; dyn_vec on 16 blocks "
@@ -800,6 +906,8 @@ def probe_phases(card):
         "library_ms": t4_lib_ms,
         "library_call": "table.view(-1, 128).sum(0), the column sums of dyn_vec",
         "shape": f"dyn_vec, table f32[{fetch_probe2.P * 32},128], {fetch_probe2.N_BLOCKS} blocks of 32x128",
+        "full_card_bound_ms": t4_bound_full,
+        "full_card_shape": f"{grids['full-card']} blocks of 32x128",
         "ms_by_grid_and_variant": per(t4, lambda k: f"{k[0]}:{k[1]}"),
     }]
 
@@ -1114,6 +1222,10 @@ def main(argv) -> int:
         name = args[0] if args else "demo_showcase"
         w, h, passes, depth, renders = (int(a) for a in (args[1:6] + ["1920", "1080", "8", "12", "5"][len(args[1:6]):]))
         run = drive_renderer(pt, cuda_trace, "render", name, w, h, passes, depth, renders, card, contract, faithful)
+        times = {}
+        if "--kernels" in rest:
+            times = frame_kernel_times(pt, cuda_trace, name, w, h, passes, depth, contract, faithful)
+            run["plain_calls"] = sum(getattr(cuda_trace, c) for c in PLAIN_COUNTERS)  # the render's too
         print(json.dumps({
             "scene": name, "width": w, "height": h, "passes": passes, "depth": depth, "renders": renders,
             "contract": contract, "faithful_fog": faithful, "card": card, "tree": HERE,
@@ -1123,7 +1235,7 @@ def main(argv) -> int:
                              "max": max(run["walls"])},
             "segments": run["stats"].ray_segments, "nonfinite": run["stats"].nonfinite,
             "launches_per_render": run["counts"]["LAUNCHES"] / (renders + 1),
-            "ptxas": ptxas_lines(cuda_trace),
+            "kernel_ms": times, "ptxas": ptxas_lines(cuda_trace),
         }))
         if run["stats"].nonfinite != 0 or run["counts"]["LAUNCHES"] <= 0 or run["plain_calls"] != 0:
             print("[render] FAIL: non-finite entries, or the render did not run on the kernel alone", file=sys.stderr)
@@ -1379,6 +1491,30 @@ def main(argv) -> int:
         print("[12] FAIL: the paged walk disagrees with its plain version on the frame's primary rays",
               file=sys.stderr)
         return 1
+    # perf probe T2's incoherent packet on T2's sphere (80 pages): the walk where its warps diverge most
+    import numpy as np
+    from path_trace_golang_tpu_torch.tools.perf import paged_probe
+
+    ppack = pt.pack_scene(paged_probe.probe_scene(), 512, 512, device=DEVICE)
+    irays = paged_probe.packets("incoherent", device=DEVICE)
+    n_inc = irays.shape[1]
+    io3, id3 = V3(irays[0], irays[1], irays[2]), V3(irays[3], irays[4], irays[5])
+    ifar = torch.full((n_inc,), 1e20, device=DEVICE)
+    ik = cuda_trace.paged_traverse(io3, id3, ppack, 0.001, ifar)
+    ibad, ierr = walk_diff(ik, bvh_ops.traverse_triangles_paged(io3, id3, ppack, 0.001, ifar))
+    walk_err = max(walk_err, ierr)
+    it_max = torch.from_numpy(np.random.default_rng(12).uniform(0.5, 6.0, n_inc).astype(np.float32)).to(DEVICE)
+    ib = cuda_trace.paged_occluded(io3, id3, ppack, 0.001, it_max, ifar < 0)
+    iocc_differ = int((ib != bvh_ops.occluded_triangles_paged(io3, id3, ppack, 0.001, it_max, ifar < 0)).sum())
+    print(
+        f"[12] walk alone on perf probe T2's {n_inc} incoherent rays ({ppack.paged.n_pages} pages, "
+        f"{int(ik.hit.sum())} hits, {int(ib.sum())} blocked): closest-hit fields that differ: {ibad or 'none'}, "
+        f"max |a-b| over t and normal {ierr:.4g}, any-hit rays that differ: {iocc_differ}",
+        flush=True,
+    )
+    if ibad or iocc_differ:
+        print("[12] FAIL: the paged walk disagrees with its plain version on T2's incoherent rays", file=sys.stderr)
+        return 1
 
     # ---- 13. kernel vs plain version at the mesh path's own arguments
     # (512x512 camera mapping, frame seed 1, the 8-pass reseed schedule, 80 pages)
@@ -1563,6 +1699,13 @@ def main(argv) -> int:
     if repro_rows is None:
         return 1
 
+    # ---- 28. the fuzzed scenes, B1 and the classic instance against their plain versions
+    good, fuzz_err = fuzz_phase(pt, cuda_trace, card)
+    max_abs_err = max(max_abs_err, fuzz_err)
+    if not good:
+        print("[28] FAIL: the whole-pass kernel disagrees with its plain version on a fuzzed scene", file=sys.stderr)
+        return 1
+
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": "render_pass",
@@ -1584,7 +1727,9 @@ def main(argv) -> int:
                             f"n_passes 8, {MESH_CHECK_LANES} strided lanes (bench_mesh); the classic instance: "
                             f"64x36 and 256x144 d12 (cpu contract on showcase and cornell, faithful fog on "
                             f"showcase), 1920x1080 d80 cpu contract frame seeds 1 and 2, {CLASSIC_CHECK_LANES} "
-                            f"strided lanes, and the first 1920x1080 d12 faithful-fog chunk, {chunk} lanes",
+                            f"strided lanes, and the first 1920x1080 d12 faithful-fog chunk, {chunk} lanes; the four "
+                            f"fuzzed scenes of tests/test_fuzz.py at {FUZZ_W}x{FUZZ_H} d{FUZZ_DEPTH}, both "
+                            f"contracts",
         "kernel_ms_at_plain_shape": small_k,
         "launches_mesh_path": mesh_launches,
         "mesh_ms": mesh_ms,

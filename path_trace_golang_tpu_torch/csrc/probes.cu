@@ -107,10 +107,11 @@ int launch_op_chain(const float* x, float* out, int n, int iters, int ilp, cudaS
 // kernel runs REPS traversals of one block of 32x128 rays over the paged
 // table of a 10,240-triangle sphere and returns per-ray winner keys.
 //
-// One thread per ray, on the tiles, boxes and device functions of kernel
-// B2 (paged_walk.cuh: page_wanted, page_row_key, paged_traverse).  What
-// bounds it: f32 work of 32 operations per (row, ray) pair and 22 per box
-// test, fed from the 1.3 MB table in L2; the variants take the walk apart:
+// On the tiles, boxes and device functions of kernel B2 (paged_walk.cuh:
+// page_wanted, page_key_lane, paged_keys_lane, paged_traverse).
+// What bounds it: f32 work of 32 operations per (row, ray) pair and 22 per
+// box test, fed from the 1.3 MB table in L2; the variants take the walk
+// apart, one thread per ray except in `real`:
 //   fetch   one tile element a page (the load floor; the element's index
 //           depends on the chained key, so nvcc cannot hoist the loop),
 //   all     every page swept by every ray, no entry test,
@@ -118,13 +119,15 @@ int launch_op_chain(const float* x, float* out, int n, int iters, int ilp, cudaS
 //           the union of its 32 rays' wanted pages in ascending order
 //           (__reduce_min_sync over each ray's next wanted page) and every
 //           thread sweeps each visited page,
-//   gather  B2's per-thread walk, keys only: a ray sweeps the pages it
-//           enters,
-//   real    B2's closest-hit walk (paged_traverse: the winner's exact t and
-//           normal) and the merge of its t into the ray's best distance,
-//           as intersect() in common.cuh merges it; the result is the bits
-//           of that distance (the merged normal, material and object are
-//           unused here, as in the JAX probe, and compiled away).
+//   gather  B2's per-thread walk, keys only (paged_keys_lane: a ray sweeps
+//           the pages it enters),
+//   real    B2 as the kernels run it (paged_traverse: the warp-cooperative
+//           walk, then the winner's exact t and normal) and the merge of
+//           its t into the ray's best distance, as intersect() in
+//           common.cuh merges it; the result is the bits of that distance
+//           (the merged normal, material and object are unused here, as in
+//           the JAX probe, and compiled away).  Against `gather` it is the
+//           A/B of the cooperative walk against the per-thread one.
 // The traversals of one launch are chained through the key: a traversal
 // starts 1e-6 further in x when the previous one returned PROBE_MAGIC.
 // ---------------------------------------------------------------------------
@@ -132,27 +135,27 @@ int launch_op_chain(const float* x, float* out, int n, int iters, int ilp, cudaS
 enum PagedVariant { V_FETCH, V_ALL, V_DENSE, V_GATHER, V_REAL };
 constexpr int PROBE_MAGIC = 0x12345678;
 
-__device__ __forceinline__ int sweep_page(const Pages& G, int p, V o, V d, float t_min, int best_key OPS_PARAM) {
-  const float t_upper = __int_as_float(best_key | KEY_SLOT_MASK);
-  int page_key = paged_big_key();
-  for (int k = 0; k < PAGE_TRIS; ++k) {
-    int key = page_row_key(G.tiles, p, k, o, d, t_min, t_upper, __int_as_float(0x7f800000), -1.0f OPS_ARG);
-    page_key = key < page_key ? key : page_key;
-  }
-  return page_key < best_key ? page_key : best_key;
+constexpr int PAGE_DONE = 0x7fffffff;  // a cursor past every page
+
+// the first page at or after `from` that the ray enters, else PAGE_DONE
+// (the `dense` variant's cursor)
+__device__ __forceinline__ int next_page(const Pages& G, int from, V o, V inv, float t_min, float best_t,
+                                         float t_max OPS_PARAM) {
+  for (int p = from; p < G.n_pages; ++p)
+    if (page_wanted(G, p, o, inv, t_min, best_t, t_max OPS_ARG)) return p;
+  return PAGE_DONE;
 }
 
-// the first page at or after `from` that the ray enters, else n_pages
-__device__ __forceinline__ int next_wanted(const Pages& G, int from, V o, V inv, float t_min, float best_t
-                                           OPS_PARAM) {
-  for (int p = from; p < G.n_pages; ++p)
-    if (page_wanted(G, p, o, inv, t_min, best_t, __int_as_float(0x7f800000) OPS_ARG)) return p;
-  return G.n_pages;
+__device__ __forceinline__ int sweep_page(const Pages& G, int p, V o, V d, float t_min, int best_key OPS_PARAM) {
+  const int page_key = page_key_lane(G.tiles, p, o, d, t_min, __int_as_float(best_key | KEY_SLOT_MASK),
+                                     __int_as_float(0x7f800000), -1.0f OPS_ARG);
+  return page_key < best_key ? page_key : best_key;
 }
 
 template <int VARIANT>
 __device__ __forceinline__ int probe_traversal(const Pages& G, V o, V d, V inv, float t_min, float best_t, int key,
                                                bool live OPS_PARAM) {
+  const float inf = __int_as_float(0x7f800000);
   const int key0 = __float_as_int(best_t + o.x * 0.0f) | KEY_SLOT_MASK;
   if constexpr (VARIANT == V_FETCH) {
     const int sel = key == PROBE_MAGIC;
@@ -164,26 +167,23 @@ __device__ __forceinline__ int probe_traversal(const Pages& G, V o, V d, V inv, 
     for (int p = 0; p < G.n_pages; ++p) best_key = sweep_page(G, p, o, d, t_min, best_key OPS_ARG);
     return best_key;
   } else if constexpr (VARIANT == V_GATHER) {
-    int best_key = key0;
-    for (int p = 0; p < G.n_pages; ++p) {
-      if (!live || !page_wanted(G, p, o, inv, t_min, best_t, __int_as_float(0x7f800000) OPS_ARG)) continue;
-      best_key = sweep_page(G, p, o, d, t_min, best_key OPS_ARG);
-    }
+    int best_key = key0, best_page = -1;
+    if (live) paged_keys_lane(G, o, d, inv, t_min, best_t, inf, -1.0f, best_key, best_page OPS_ARG);
     return best_key;
   } else if constexpr (VARIANT == V_DENSE) {
     // every thread of the warp runs this loop to the end: the vote needs all 32
     int best_key = key0;
-    int cursor = live ? next_wanted(G, 0, o, inv, t_min, best_t OPS_ARG) : G.n_pages;
+    int cursor = live ? next_page(G, 0, o, inv, t_min, best_t, inf OPS_ARG) : PAGE_DONE;
     for (;;) {
       const int p = __reduce_min_sync(0xffffffffu, cursor);
-      if (p >= G.n_pages) break;
+      if (p == PAGE_DONE) break;
       best_key = sweep_page(G, p, o, d, t_min, best_key OPS_ARG);
-      if (cursor == p) cursor = next_wanted(G, p + 1, o, inv, t_min, best_t OPS_ARG);
+      if (cursor == p) cursor = next_page(G, p + 1, o, inv, t_min, best_t, inf OPS_ARG);
     }
     return best_key;
   } else {
     if (!live) return key0;
-    PagedWinner w = paged_traverse(G, o, d, inv, t_min, best_t, __int_as_float(0x7f800000), -1.0f OPS_ARG);
+    PagedWinner w = paged_traverse(G, o, d, inv, t_min, best_t, inf, -1.0f OPS_ARG);
     float t = best_t;
     if (w.hit && w.t < t) t = w.t;
     return __float_as_int(t);
@@ -272,18 +272,47 @@ __global__ void __launch_bounds__(PROBE_BLOCK) tile_fetch_kernel(const float* __
 //   loop_only   x + sum of q: the loop alone, nothing read,
 //   dyn_row     x + sum of each tile's first row: one 512-byte row a page,
 //               a float per thread of the first 128,
-//   dyn_vec     x + column sums of the elementwise sum of the tiles: every
-//               tile streamed with coalesced 16-byte loads, 4 float4 a
-//               thread, summed in page order, then over rows 0..31 in order,
-//   static_vec  the same with the page loop unrolled over 80 tiles,
+//   dyn_vec     x + column sums of the elementwise sum of the tiles, summed
+//               in page order, then over rows 0..31 in order,
+//   static_vec  the same with the page count fixed at 80 and the page loop
+//               unrolled,
 //   dyn_scalar  x + sum of each tile's first element (one broadcast load).
-// What bounds it: with 16 blocks, the latency of the dependent page loop;
-// on a full card, L2 bandwidth (the table is 1.3 MB).
+// loop_only, dyn_row and dyn_scalar run one block per 32x128 output tile
+// (fetch_attrib_kernel); with 16 blocks what bounds them is the latency of
+// the dependent page loop.
+//
+// dyn_vec and static_vec (fetch_colsum_kernel) spread the 4,096 chains of
+// the table's elements over the card.  Column c's output needs only column
+// c of every tile, so a block owns a slice of 8 columns (one 32-byte sector
+// a row) and all 32 rows of it: 16 blocks cover the table, each reading
+// its 80 KB slab of the 1.3 MB once, where a block of the first design
+// read the whole table (16 times over at 16 blocks).  The block stages the
+// slab in shared memory with 16-byte cp.async, every thread issuing its
+// share at once so that the whole slab is in flight; neighbouring threads
+// copy neighbouring 16-byte pieces, 32-byte runs a row, so each sector the
+// copy moves is used whole.  Then 64 threads sum their element's chain in
+// page order from shared memory (a float4 of one row each), 8 threads sum
+// the rows in order, and the block writes out[:, slice] = x[:, slice] + col
+// itself: one launch, where a pass for col and a pass for out would pay the
+// launch floor (~2.2 us, perf probe T7) twice.  The output rows are split
+// over gridDim.y groups of at most 4,096 rows, and each group re-reads its
+// 80 KB slab from L2: at the 16-block grid there is one group (each table
+// byte read once); a full-card grid (1,056 blocks, 34 MB of x and out)
+// takes 9 groups, 144 blocks, 11.8 MB of L2 reads beside the 34 MB that
+// have to cross HBM.  What bounds it at 16 blocks: the launch, then one
+// round trip of the staged slab over one SM's L2 port; on a full card,
+// HBM bandwidth for x and out.
 // ---------------------------------------------------------------------------
 
 enum FetchVariant { F_LOOP_ONLY, F_DYN_ROW, F_DYN_VEC, F_STATIC_VEC, F_DYN_SCALAR };
 constexpr int STATIC_PAGES = 80;
-constexpr int TILE4 = PROBE_ROWS * PROBE_LANE / 4;  // float4 in one 32x128 tile
+constexpr int TILE4 = PROBE_ROWS * PROBE_LANE / 4;    // float4 in one 32x128 tile
+constexpr int ROW4 = PROBE_LANE / 4;                  // float4 in one row
+constexpr int SLICE4 = 2;                             // float4 columns a block owns: 8 floats, 32 bytes a row
+constexpr int SLICES = ROW4 / SLICE4;                 // 16 blocks cover the 128 columns
+constexpr int SLAB4 = PROBE_ROWS * SLICE4;            // float4 of one tile's slice: 64, one chain each
+constexpr int STAGE_PAGES = STATIC_PAGES;             // pages staged at a time: 80 KB of shared memory
+constexpr int GROUP_ROWS = 128 * PROBE_ROWS;          // output rows a block writes at most
 
 __device__ __forceinline__ void add4(float4& a, const float4 b) {
   a.x = a.x + b.x;
@@ -296,7 +325,6 @@ template <int VARIANT>
 __global__ void __launch_bounds__(PROBE_BLOCK) fetch_attrib_kernel(const float* __restrict__ table,
                                                                    const float* __restrict__ x,
                                                                    float* __restrict__ out, int p) {
-  __shared__ float4 s_acc[TILE4];
   __shared__ float s_col[PROBE_LANE];
   const int tid = threadIdx.x;
   float scalar = 0.0f;
@@ -304,46 +332,82 @@ __global__ void __launch_bounds__(PROBE_BLOCK) fetch_attrib_kernel(const float* 
     for (int q = 0; q < p; ++q) scalar = scalar + (float)q;
   } else if constexpr (VARIANT == F_DYN_SCALAR) {
     for (int q = 0; q < p; ++q) scalar = scalar + table[(size_t)q * PROBE_ROWS * PROBE_LANE];
-  } else if constexpr (VARIANT == F_DYN_ROW) {
+  } else {
     if (tid < PROBE_LANE) {
       float a = 0.0f;
       for (int q = 0; q < p; ++q) a = a + table[(size_t)q * PROBE_ROWS * PROBE_LANE + tid];
       s_col[tid] = a;
     }
     __syncthreads();
-  } else {
-    // thread tid owns float4 slots tid, tid + 256, tid + 512, tid + 768 of a
-    // tile: rows tid / 32 + 8k, float4 column tid % 32
-    const float4* t4 = reinterpret_cast<const float4*>(table);
-    float4 a[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) a[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if constexpr (VARIANT == F_STATIC_VEC) {
-#pragma unroll
-      for (int q = 0; q < STATIC_PAGES; ++q)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) add4(a[k], t4[q * TILE4 + tid + k * PROBE_BLOCK]);
-    } else {
-      for (int q = 0; q < p; ++q)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) add4(a[k], t4[(size_t)q * TILE4 + tid + k * PROBE_BLOCK]);
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) s_acc[tid + k * PROBE_BLOCK] = a[k];
-    __syncthreads();
-    if (tid < PROBE_LANE) {
-      const float* acc = reinterpret_cast<const float*>(s_acc);
-      float c = 0.0f;
-      for (int r = 0; r < PROBE_ROWS; ++r) c = c + acc[r * PROBE_LANE + tid];
-      s_col[tid] = c;
-    }
-    __syncthreads();
   }
   const size_t base = (size_t)blockIdx.x * PROBE_ROWS * PROBE_LANE;
   for (int k = tid; k < PROBE_ROWS * PROBE_LANE; k += PROBE_BLOCK) {
-    const float add = (VARIANT == F_LOOP_ONLY || VARIANT == F_DYN_SCALAR) ? scalar : s_col[k % PROBE_LANE];
+    const float add = VARIANT == F_DYN_ROW ? s_col[k % PROBE_LANE] : scalar;
     out[base + k] = x[base + k] + add;
   }
+}
+
+// grid (SLICES, groups); dynamic shared memory: min(p, STAGE_PAGES) * SLAB4 float4
+template <bool STATIC>
+__global__ void __launch_bounds__(PROBE_BLOCK) fetch_colsum_kernel(const float* __restrict__ table,
+                                                                   const float* __restrict__ x,
+                                                                   float* __restrict__ out, int p, int out_rows) {
+  extern __shared__ float4 s_slab[];  // [page][row][float4 column of the slice]
+  __shared__ float4 s_acc[SLAB4];
+  __shared__ float4 s_col[SLICE4];
+  const int tid = threadIdx.x, slice = blockIdx.x;
+  const float4* t4 = reinterpret_cast<const float4*>(table) + slice * SLICE4;
+  const int pages = STATIC ? STATIC_PAGES : p;
+  // thread tid < SLAB4 carries the chain of row tid / SLICE4, float4 column tid % SLICE4
+  float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int q0 = 0; q0 < pages; q0 += STAGE_PAGES) {
+    const int n = min(STAGE_PAGES, pages - q0);
+    for (int i = tid; i < n * SLAB4; i += PROBE_BLOCK)
+      cp_async16(&s_slab[i], t4 + (size_t)(q0 + i / SLAB4) * TILE4 + (i % SLAB4) / SLICE4 * ROW4 + i % SLICE4);
+    cp_async_wait_all();
+    __syncthreads();
+    if (tid < SLAB4) {
+      if constexpr (STATIC) {
+#pragma unroll
+        for (int q = 0; q < STAGE_PAGES; ++q) add4(a, s_slab[q * SLAB4 + tid]);
+      } else {
+#pragma unroll 16
+        for (int q = 0; q < n; ++q) add4(a, s_slab[q * SLAB4 + tid]);
+      }
+    }
+    __syncthreads();
+  }
+  if (tid < SLAB4) s_acc[tid] = a;
+  __syncthreads();
+  if (tid < 4 * SLICE4) {  // column tid of the slice: rows 0..31 in order
+    const float* acc = reinterpret_cast<const float*>(s_acc);
+    float c = 0.0f;
+#pragma unroll
+    for (int r = 0; r < PROBE_ROWS; ++r) c = c + acc[r * 4 * SLICE4 + tid];
+    reinterpret_cast<float*>(s_col)[tid] = c;
+  }
+  __syncthreads();
+  const int row0 = blockIdx.y * GROUP_ROWS, rows = min(GROUP_ROWS, out_rows - row0);
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* o4 = reinterpret_cast<float4*>(out);
+  for (int i = tid; i < rows * SLICE4; i += PROBE_BLOCK) {
+    const size_t at = (size_t)(row0 + i / SLICE4) * ROW4 + slice * SLICE4 + i % SLICE4;
+    float4 v = x4[at];
+    add4(v, s_col[i % SLICE4]);
+    o4[at] = v;
+  }
+}
+
+template <bool STATIC>
+int launch_colsum(const float* table, const float* x, float* out, int p, int blocks, cudaStream_t s) {
+  const int smem = (STATIC ? STAGE_PAGES : max(1, min(p, STAGE_PAGES))) * SLAB4 * (int)sizeof(float4);
+  const cudaError_t e = cudaFuncSetAttribute(fetch_colsum_kernel<STATIC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             STAGE_PAGES * SLAB4 * (int)sizeof(float4));
+  if (e != cudaSuccess) return (int)e;
+  const int out_rows = blocks * PROBE_ROWS;
+  const dim3 grid(SLICES, (out_rows + GROUP_ROWS - 1) / GROUP_ROWS);
+  fetch_colsum_kernel<STATIC><<<grid, PROBE_BLOCK, smem, s>>>(table, x, out, p, out_rows);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -413,8 +477,8 @@ extern "C" int pt_fetch_attrib(int variant, const float* table, const float* x, 
   switch (variant) {
     case F_LOOP_ONLY: fetch_attrib_kernel<F_LOOP_ONLY><<<blocks, PROBE_BLOCK, 0, s>>>(table, x, out, p); break;
     case F_DYN_ROW: fetch_attrib_kernel<F_DYN_ROW><<<blocks, PROBE_BLOCK, 0, s>>>(table, x, out, p); break;
-    case F_DYN_VEC: fetch_attrib_kernel<F_DYN_VEC><<<blocks, PROBE_BLOCK, 0, s>>>(table, x, out, p); break;
-    case F_STATIC_VEC: fetch_attrib_kernel<F_STATIC_VEC><<<blocks, PROBE_BLOCK, 0, s>>>(table, x, out, p); break;
+    case F_DYN_VEC: return launch_colsum<false>(table, x, out, p, blocks, s);
+    case F_STATIC_VEC: return launch_colsum<true>(table, x, out, p, blocks, s);
     default: fetch_attrib_kernel<F_DYN_SCALAR><<<blocks, PROBE_BLOCK, 0, s>>>(table, x, out, p); break;
   }
   return (int)cudaGetLastError();

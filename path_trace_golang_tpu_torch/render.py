@@ -14,7 +14,7 @@ The renderer runs on the card (``device="cuda"``) unless the caller asks
 for the CPU; with no card it raises instead of falling back.  A failure
 of the gpu contract raises too: the JAX package's fallback to the cpu
 contract is not ported (it would hide a kernel's failure), nor are its
-checkpointing and metrics sink (ROADMAP.md Queue A item 9).
+checkpointing and metrics sink (ROADMAP.md Queue A item 2).
 """
 
 from __future__ import annotations

@@ -10,8 +10,9 @@ variants, and the split of the walk's time that their differences give:
 * ``dense``  - the TPU kernel's block cursor, here a warp's: the union of
                its 32 rays' wanted pages, each swept by all 32;
 * ``gather`` - the per-ray walk of kernel B2, keys only;
-* ``real``   - kernel B2's closest-hit walk with the winner's exact t and
-               the merge (the bits of the merged distance).
+* ``real``   - kernel B2 as the kernels run it (the warp-cooperative walk),
+               with the winner's exact t and the merge (the bits of the
+               merged distance); beside ``gather``, the A/B of the two walks.
 
 ``all``, ``dense`` and ``gather`` give the same keys, bit for bit.  Times
 are per launch of ``REPS`` chained traversals of all rays, and per ray and
@@ -43,19 +44,25 @@ REPS = 16
 KINDS = ("incoherent", "coherent")
 
 
+def probe_scene(n_lat: int = 80, n_lon: int = 64) -> M.Scene:
+    """The probe's sphere mesh as a lambert object of a scene: the pack that
+    the ``real`` variant walks (``pack_scene(probe_scene(), 512, 512)``)."""
+    verts, faces = uv_sphere(n_lat, n_lon)
+    return M.Scene(
+        camera=M.Camera(position=M.Vec3(0, 1.5, 4.5), target=M.Vec3(0, 1, 0)),
+        materials=[M.Material(id="g", type="lambert", albedo=M.Color(0.6, 0.6, 0.65))],
+        objects=[M.Object(id="b", type="mesh", material_id="g",
+                          mesh={"vertices": [list(v) for v in verts], "faces": [list(f) for f in faces]})],
+    )
+
+
 def build_table(n_lat: int = 80, n_lon: int = 64, device="cuda"):
     """The probe's paged table, as the JAX probe builds it: returns (paged,
     tiles f32[P,128,32], boxes f32[P,k,6], real_boxes).  ``real_boxes`` are
     the boxes of the scene pack that the ``real`` variant walks (the mesh
     as a lambert object of a scene at 512x512), over the same tiles."""
     verts, faces = uv_sphere(n_lat, n_lon)
-    sc = M.Scene(
-        camera=M.Camera(position=M.Vec3(0, 1.5, 4.5), target=M.Vec3(0, 1, 0)),
-        materials=[M.Material(id="g", type="lambert", albedo=M.Color(0.6, 0.6, 0.65))],
-        objects=[M.Object(id="b", type="mesh", material_id="g",
-                          mesh={"vertices": [list(v) for v in verts], "faces": [list(f) for f in faces]})],
-    )
-    pack = pack_scene(sc, 512, 512, device=device)
+    pack = pack_scene(probe_scene(n_lat, n_lon), 512, 512, device=device)
     v = np.asarray(verts, np.float64)
     f = np.asarray(faces, np.int64)
     v0 = v[f[:, 0]]

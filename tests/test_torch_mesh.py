@@ -638,6 +638,42 @@ def test_walk_kernel_matches_plain_on_card(name):
                        tbvh.occluded_triangles_paged(to, td, pack, 1e-3, t_max, far < 0))
 
 
+PARTIAL_N = 2048 + 17  # the last warp of the walk's launch holds 17 rays: a partial working set
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["partial_warp", "every_other_skipped"])
+def test_cooperative_walk_partial_sets_on_card(case):
+    """The warp-cooperative walk (csrc/paged_walk.cuh) against the plain
+    version bit for bit where its working set is not a whole warp: a ray
+    count that is not a multiple of 32, and (closest hit) every other ray
+    skipped, which still helps its warp, or (any hit) every other ray come
+    in blocked, which does not enter the walk at all."""
+    _need_card()
+    pack = tsoa.pack_scene(TB.bench_mesh(), 64, 64, device="cuda")
+    rng = np.random.default_rng(2065)
+    o = (rng.uniform(-2.5, 2.5, (PARTIAL_N, 3)) + [0.0, 1.0, 0.0]).astype(np.float32)
+    d = rng.normal(size=(PARTIAL_N, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    cu = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    to, td = TV3(*(cu(o[:, k]) for k in range(3))), TV3(*(cu(d[:, k]) for k in range(3)))
+    start = cu(np.where(rng.random(PARTIAL_N) < 0.5, rng.uniform(0.5, 6.0, PARTIAL_N), 1e20).astype(np.float32))
+    every_other = cu(np.arange(PARTIAL_N) % 2 == 1)
+    skip = every_other if case == "every_other_skipped" else None
+    k = cuda_trace.paged_traverse(to, td, pack, 1e-3, start, skip=skip)
+    p = tbvh.traverse_triangles_paged(to, td, pack, 1e-3, start, skip=skip)
+    assert p.hit.sum() > 10
+    for f in ("hit", "key", "page", "t", "nx", "ny", "nz", "mat", "obj"):
+        a, b = getattr(k, f), getattr(p, f)
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b), f
+    t_max = cu(rng.uniform(0.5, 8.0, PARTIAL_N).astype(np.float32))
+    blocked0 = every_other if case == "every_other_skipped" else torch.zeros_like(every_other)
+    kb = cuda_trace.paged_occluded(to, td, pack, 1e-3, t_max, blocked0)
+    assert kb.sum() > blocked0.sum()
+    assert torch.equal(kb, tbvh.occluded_triangles_paged(to, td, pack, 1e-3, t_max, blocked0))
+
+
 def _glowing_mesh_scene(n_lat=12, n_lon=16):
     """A rough-metal sphere mesh beside an emissive icosahedron: with
     emissive triangles the specular-NEE ray takes the full closest-hit walk."""

@@ -55,6 +55,7 @@ from path_trace_golang_tpu_torch.tools.perf import fetch_probe as tfetch
 from path_trace_golang_tpu_torch.tools.perf import fetch_probe2 as tfetch2
 from path_trace_golang_tpu_torch.tools.perf import microbench as tmicro
 from path_trace_golang_tpu_torch.tools.perf import paged_probe as tpaged
+from path_trace_golang_tpu_torch.tools.perf import timing as ttiming
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PERF = os.path.join(REPO, "tools", "perf")
@@ -446,6 +447,25 @@ def test_fetch_kernels_match_plain_on_card():
         assert torch.equal(probes.fetch_attrib(variant, table, x, 80),
                            probes.fetch_attrib_plain(variant, table, x, 80)), variant
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["dyn_vec", "static_vec"])
+def test_fetch_colsum_kernel_matches_plain_on_card(variant):
+    """T4's column-slice kernel bit for bit at the TPU probe's 16 blocks, at
+    a full-card grid (several output row groups, each re-reading its slab)
+    and, for dyn_vec, at page counts below and above one staged slab."""
+    _need_card()
+    table = tfetch2.make_table(device="cuda")
+    big = torch.cat([table, table.flip(0)])  # 160 tiles
+    cases = [(table, 80, 16), (table, 80, ttiming.full_card_blocks(torch.device("cuda")))]
+    if variant == "dyn_vec":
+        cases += [(table, 0, 3), (table, 7, 16), (big, 160, 5), (big, 123, 200)]
+    for tab, pages, blocks in cases:
+        x = torch.from_numpy(np.random.RandomState(blocks).uniform(-1, 1, (32 * blocks, 128)).astype(np.float32)).cuda()
+        k = probes.fetch_attrib(variant, tab, x, pages)
+        p = probes.fetch_attrib_plain(variant, tab, x, pages)
+        assert torch.equal(k.view(torch.int32), p.view(torch.int32)), (pages, blocks)
 
 if __name__ == "__main__":
     _jax_no_fma_outputs(sys.argv[1])
