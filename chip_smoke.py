@@ -14,22 +14,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 3. hold the whole-pass kernel against its plain PyTorch version on the
    card for demo_showcase and demo_cornell at 256x144, depth 12, one pass
    and one 2-pass window: at least 95% of lanes within |a-b| <= 1e-3|b| +
-   1e-3, segment counts within 2%, per-channel means within 1%; then a
+   1e-3, segment counts within 2%, per-channel means within 1%, and B1
+   (the gpu contract) bit for bit on every lane with segments equal; then a
    first, small run of the paged walk alone against its plain version
    (2,048 rays, bench_mesh and demo_mesh, with phase 8's cases), bit for
    bit;
 4. drive the main path: Renderer(contract="gpu") on demo_showcase at
-   1920x1080, depth 12, one 8-pass window, one warm-up and 3 timed renders;
-5. check that the main path launched the kernel and never called the plain
+   1920x1080, depth 12, one 8-pass window, one warm-up and 3 timed renders
+   (on the card a window is one launch of the fog kernel and one of B1's
+   regeneration instance over all its lanes);
+5. check that the main path launched both kernels and never called a plain
    version;
-6. time the kernel with CUDA events at the main path's shape and at
-   256x144, where phase 3 timed the plain version on the same inputs; count
-   the f32 operations the main path's inputs need with the counting variant
-   and derive the kernel's bound;
-7. hold the kernel against its plain version at the main path's own
-   arguments (1920x1080, depth 12, frame seed 1, one 8-pass window): the
-   lanes that phase 6's full-size chunks produced, on 8,192 lanes strided
-   over the frame, to the same bands as phase 3.
+6. time them with CUDA events at the main path's shape (the window as the
+   Renderer launches it, the fog kernel alone, B1 alone on the window's fog
+   terms) and B1 at 256x144, where phase 3 timed the plain version on the
+   same inputs; count the f32 operations and hash rounds the main path's
+   inputs need with the counting variant, derive each kernel's bound (f32
+   operations at 67 TFLOP/s, and as FFMA slots at the unfused rate), and
+   print B1's split: lane cycles by stage, NEE's active-lane share, the warp
+   tail, the launch's block ends and the hash rounds;
+7. hold B1 against its plain version at the main path's own arguments
+   (1920x1080, depth 12, frame seed 1, one 8-pass window): the lanes that
+   phase 6's full-size launch produced, and the kernel run on the same
+   8,209 lanes strided over the frame alone (a part-full last block), bit
+   for bit with segments equal.
 
 8. the paged walk alone (pt_paged_walk, the device functions that the
    whole-pass kernel calls for meshes above 128 triangles) against its
@@ -42,7 +50,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    t, normal, mat, obj and blocked bit-identical on every ray;
 9. the whole-pass kernel on mesh scenes against its plain version
    (demo_mesh, bench_mesh; 192x192, depth 8, one pass and a 2-pass
-   window), phase 3's bands;
+   window), bit for bit as in phase 3;
 10. the whole-pass kernel on a scene of 12 lights (the 8-slot window of
     next-event estimation, one non-sphere light, fog; 192x108, depth 6)
     likewise;
@@ -57,8 +65,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     operations and the bytes it must move, and derive its bound;
 13. hold the whole-pass kernel against its plain version at the mesh path's
     own arguments (bench_mesh 512x512, depth 8, frame seed 1, one 8-pass
-    window): the lanes that phase 12's full-size launch produced, on 2,048
-    lanes strided over the frame, to the same bands as phase 3.
+    window): the lanes that phase 12's full-size launch produced (262,144
+    lanes over the paged instance's persistent grid, whose threads take
+    lanes as they go, so most threads run several), and the kernel run on
+    the same 2,065 lanes strided over the frame alone (not a multiple of the
+    block), bit for bit with segments equal.
 
 14. kernel B3 (pt_trace_grid, the classic loop for given rays) against its
     plain version, bit for bit on radiance, state and segments: 16,384
@@ -123,7 +134,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     23, 37, 59, from tests/torch_fuzz_scenes.json), every lane of a 64x48
     frame, depth 4, one pass: the gpu contract on B1's regeneration
     instance and the cpu contract on the classic instance against their
-    plain versions, phase 3's bands, with the share of bit-identical lanes.
+    plain versions, phase 3's bands, with the share of bit-identical lanes
+    (B1: every lane);
+29. the fog kernel at the main path's shape (the 1080p window's 2,097,152
+    lanes x 8 passes in one launch) against its plain version
+    (render.fog_pass_terms) on 65,536 lanes strided over the frame, bit for
+    bit.
 
 The line before the last three says how long the phases took in all.  The
 third-to-last line is a JSON object describing every kernel
@@ -142,11 +158,13 @@ then ``renders`` timed ones, and one JSON line with Mrays/s and wall seconds
 ``--contract cpu`` renders the cpu contract, ``--faithful-fog`` faithful
 fog.  ``--kernels`` also times the frame's kernels alone with CUDA events,
 as phases 12 and 18 do, at the render's scene and contract: the whole-pass
-kernel over the frame's chunks (a window of ``passes`` under the gpu
-contract, else one pass of the classic instance), kernel B3 through
-trace() on the first chunk's primary rays and, where the scene carries
-pages, the paged walk alone on the frame's primary rays (closest hit and
-any hit).  It imports the package that lies beside the script, so a copy of this
+calls of a render as the Renderer makes them (events around each call,
+summed a render: under the gpu contract the fog kernel and B1 of a window,
+else the classic instance's launches), kernel B3 through trace() on the
+first chunk's primary rays and, where the scene carries pages, the paged
+walk alone on the frame's primary rays (closest hit and any hit).
+``--split`` (gpu contract) adds B1's split from the counting build on the
+render's own launches.  It imports the package that lies beside the script, so a copy of this
 file in the root of another commit's tree times that commit: to compare two
 commits, run them in turns in one shell on one card.
 """
@@ -165,11 +183,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores, 700 W
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 DEVICE = "cuda"  # every tensor of this script lives on the card
-MAIN_CHECK_LANES = 8192  # lanes of the 1080p frame held to the plain version in phase 7
-MESH_CHECK_LANES = 2048  # lanes of the 512x512 mesh frame held to the plain version in phase 13
-COUNTERS = ("LAUNCHES", "PAGED_LAUNCHES", "CLASSIC_LAUNCHES", "TRACE_LAUNCHES", "WALK_LAUNCHES", "PLAIN_CALLS",
-            "TRACE_PLAIN_CALLS", "WALK_PLAIN_CALLS")
-PLAIN_COUNTERS = ("PLAIN_CALLS", "TRACE_PLAIN_CALLS", "WALK_PLAIN_CALLS")
+MAIN_CHECK_LANES = 8192 + 17  # lanes of the 1080p frame held to the plain version in phase 7: the last block
+# holds a part-full warp
+FOG_CHECK_LANES = 65536  # lanes of the 1080p window whose fog terms are held to the plain version in phase 29
+MESH_CHECK_LANES = 2048 + 17  # lanes of the 512x512 mesh frame held to the plain version in phase 13: not a
+# multiple of the block; the lanes taken from the frame's own launch (262,144 lanes over the paged instance's
+# persistent grid) are the ones that ran the refill
+COUNTERS = ("LAUNCHES", "FOG_LAUNCHES", "PAGED_LAUNCHES", "CLASSIC_LAUNCHES", "TRACE_LAUNCHES", "WALK_LAUNCHES",
+            "PLAIN_CALLS", "FOG_PLAIN_CALLS", "TRACE_PLAIN_CALLS", "WALK_PLAIN_CALLS")
+PLAIN_COUNTERS = ("PLAIN_CALLS", "FOG_PLAIN_CALLS", "TRACE_PLAIN_CALLS", "WALK_PLAIN_CALLS")
 CLASSIC_CHECK_LANES = 8192  # lanes of the cpu-contract frame held to the plain version in phase 19
 B3_CHECK_RAYS = 8192  # camera rays (and as many random ones) of each B3 batch in phase 14
 PARTIAL_RAYS = 2048 + 17  # rays of the walk's partial-warp case: its launch's last warp holds 17
@@ -185,6 +207,13 @@ def smi_line() -> str:
     if res.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {res.stderr}")
     return res.stdout.strip().splitlines()[0]
+
+
+def bit_share(a, b):
+    """Share of lanes whose three channels are bit-identical."""
+    import torch
+
+    return (a.contiguous().view(torch.int32) == b.contiguous().view(torch.int32)).all(dim=-1).double().mean().item()
 
 
 def lane_stats(col_k, col_p, segs_k, segs_p):
@@ -261,7 +290,8 @@ def lanes(w, h, start=0, count=None):
 def hold_pass(pt, cuda_trace, tag, name, w, h, depth, passes=(1, 2), contract="gpu", faithful=False):
     """Whole-pass kernel against its plain version for one scene: prints a
     line per window size, returns (all within the bands, largest |a-b|,
-    the plain version's seconds per window size)."""
+    the plain version's seconds per window size).  B1 (the gpu contract's
+    regeneration loop) must be bit-identical on every lane, segments equal."""
     import torch
 
     _sc, pack, kw = scene_setup(pt, name, w, h, depth, contract, faithful)
@@ -276,14 +306,17 @@ def hold_pass(pt, cuda_trace, tag, name, w, h, depth, passes=(1, 2), contract="g
         torch.cuda.synchronize()
         plain_s = plain_secs[n_passes] = time.perf_counter() - t0
         share, seg_gap, mean_gap, err = lane_stats(col_k.to_rows(), col_p.to_rows(), segs_k, segs_p)
+        bits = bit_share(col_k.to_rows(), col_p.to_rows())
         worst = max(worst, err)
         print(
-            f"[{tag}] {name} {w}x{h} d{depth} n_passes={n_passes}: lanes matching {share:.4%}, "
-            f"segments {int(segs_k)} vs {int(segs_p)} (gap {seg_gap:.4%}), "
+            f"[{tag}] {name} {w}x{h} d{depth} n_passes={n_passes}: lanes matching {share:.4%}, bit-identical "
+            f"{bits:.4%}, segments {int(segs_k)} vs {int(segs_p)} (gap {seg_gap:.4%}), "
             f"channel-mean gap {mean_gap:.4%}, max |a-b| {err:.4g}; plain version {plain_s:.1f} s",
             flush=True,
         )
         good = good and share >= 0.95 and seg_gap <= 0.02 and mean_gap <= 0.01
+        if contract == "gpu" and not faithful:
+            good = good and bits == 1.0 and int(segs_k) == int(segs_p)
     return good, worst, plain_secs
 
 
@@ -314,7 +347,7 @@ def fuzz_phase(pt, cuda_trace, card):
             plain_s = time.perf_counter() - tp
             a, b = col_k.to_rows(), col_p.to_rows()
             share, seg_gap, mean_gap, err = lane_stats(a, b, segs_k, segs_p)
-            bits = (a.view(torch.int32) == b.view(torch.int32)).all(dim=-1).double().mean().item()
+            bits = bit_share(a, b)
             worst = max(worst, err)
             print(
                 f"[28] fuzz scene {seed} ({len(sc.objects)} objects, fog {sc.fog is not None}), {instance}, "
@@ -324,17 +357,21 @@ def fuzz_phase(pt, cuda_trace, card):
                 flush=True,
             )
             good = good and share >= 0.95 and seg_gap <= 0.02 and mean_gap <= 0.01
+            if contract == "gpu":
+                good = good and bits == 1.0 and int(segs_k) == int(segs_p)
     print(f"[28] the fuzzed scenes in {time.perf_counter() - t0:.1f} s | card {card}", flush=True)
     return good, worst
 
 
-def hold_frame_lanes(cuda_trace, tag, label, pack, kw, frame_cols, w, n_check, n_passes, frame_seed=1):
+def hold_frame_lanes(cuda_trace, tag, label, pack, kw, frame_cols, w, n_check, n_passes, frame_seed=1, exact=False):
     """Whole-pass kernel against its plain version at a driven path's own
     arguments (frame seed 1, the window's reseed schedule): the plain version
     runs on ``n_check`` lanes strided over the frame and is held against
-    ``frame_cols``, the lanes that the full-size launches produced.  Returns
-    (within the bands, largest |a-b|, seconds of the plain version), or None
-    if a lane's result depends on the launch it ran in."""
+    ``frame_cols``, the lanes that the full-size launches produced, and
+    against the kernel run on those lanes alone.  Returns (within the bands,
+    bit for bit with segments equal where ``exact``; largest |a-b|; seconds
+    of the plain version), or None if a lane's result depends on the launch
+    it ran in."""
     import torch
 
     stride = frame_cols.shape[0] // n_check
@@ -350,14 +387,18 @@ def hold_frame_lanes(cuda_trace, tag, label, pack, kw, frame_cols, w, n_check, n
     if not torch.equal(col_k.to_rows(), from_frame):
         return None
     share, seg_gap, mean_gap, err = lane_stats(from_frame, col_p.to_rows(), segs_k, segs_p)
+    bits = bit_share(from_frame, col_p.to_rows())
     print(
         f"[{tag}] {label} frame seed {frame_seed} n_passes={n_passes}, {n_check} lanes at stride {stride} "
-        f"(kernel lanes from the full-size launches): lanes matching {share:.4%}, segments "
-        f"{int(segs_k)} vs {int(segs_p)} (gap {seg_gap:.4%}), channel-mean gap {mean_gap:.4%}, "
-        f"max |a-b| {err:.4g}; plain version {plain_s:.1f} s",
+        f"(kernel lanes from the full-size launches, and the same from a launch of these lanes alone): lanes "
+        f"matching {share:.4%}, bit-identical {bits:.4%}, segments {int(segs_k)} vs {int(segs_p)} (gap "
+        f"{seg_gap:.4%}), channel-mean gap {mean_gap:.4%}, max |a-b| {err:.4g}; plain version {plain_s:.1f} s",
         flush=True,
     )
-    return share >= 0.95 and seg_gap <= 0.02 and mean_gap <= 0.01, err, plain_s
+    good = share >= 0.95 and seg_gap <= 0.02 and mean_gap <= 0.01
+    if exact:
+        good = good and bits == 1.0 and int(segs_k) == int(segs_p)
+    return good, err, plain_s
 
 
 def drive_renderer(pt, cuda_trace, tag, name, w, h, passes, depth, renders, card, contract="gpu", faithful=False):
@@ -368,7 +409,8 @@ def drive_renderer(pt, cuda_trace, tag, name, w, h, passes, depth, renders, card
 
     sc, cfg = getattr(builtin, name)(), pt.RenderConfig(w, h, passes, depth)
     for c in COUNTERS:
-        setattr(cuda_trace, c, 0)
+        if hasattr(cuda_trace, c):
+            setattr(cuda_trace, c, 0)
     r = pt.Renderer(contract=contract, seed=1, faithful_fog=faithful)
     img = r.render(sc, cfg)  # warm-up
     print(f"[{tag}] warm-up: {r.stats.wall_seconds:.3f} s, {r.stats.mrays_per_sec:.2f} Mrays/s", flush=True)
@@ -378,7 +420,7 @@ def drive_renderer(pt, cuda_trace, tag, name, w, h, passes, depth, renders, card
         rates.append(r.stats.mrays_per_sec)
         walls.append(r.stats.wall_seconds)
         print(f"[{tag}] render {i}: {r.stats}  ({card})", flush=True)
-    counts = {c: getattr(cuda_trace, c) for c in COUNTERS}
+    counts = {c: getattr(cuda_trace, c, 0) for c in COUNTERS}
     out = dict(rates=rates, walls=walls, img=img, stats=r.stats, counts=counts,
                plain_calls=sum(counts[c] for c in PLAIN_COUNTERS))
     print(
@@ -387,11 +429,67 @@ def drive_renderer(pt, cuda_trace, tag, name, w, h, passes, depth, renders, card
         f"(min {min(rates):.3f}, max {max(rates):.3f}), wall {statistics.median(walls):.4f} s median, "
         f"segments {r.stats.ray_segments}, nonfinite {r.stats.nonfinite}, image mean {img.mean():.4f} "
         f"std {img.std():.4f}; kernel launches {counts['LAUNCHES']} ({renders + 1} renders), of them with "
-        f"pages {counts['PAGED_LAUNCHES']}, of the classic instance {counts['CLASSIC_LAUNCHES']}, "
+        f"pages {counts['PAGED_LAUNCHES']}, of the classic instance {counts['CLASSIC_LAUNCHES']}, fog kernel "
+        f"launches {counts['FOG_LAUNCHES']}, "
         f"plain calls {out['plain_calls']} | card {card}",
         flush=True,
     )
     return out
+
+
+def in_render(pt, cuda_trace, name, w, h, passes, depth, contract, faithful, hook):
+    """Render a built-in scene once with ``hook(orig, args, kwargs)`` in place
+    of cuda_trace.render_pass_cuda, so that whatever the hook does sees every
+    whole-pass call exactly as the Renderer makes it (its lanes, seeds and
+    window).  The hook returns the call's result."""
+    from path_trace_golang_tpu_torch.scene import builtin
+
+    orig = cuda_trace.render_pass_cuda
+    cuda_trace.render_pass_cuda = lambda *a, **k: hook(orig, a, k)
+    try:
+        pt.Renderer(contract=contract, seed=1, faithful_fog=faithful).render(
+            getattr(builtin, name)(), pt.RenderConfig(w, h, passes, depth))
+    finally:
+        cuda_trace.render_pass_cuda = orig
+
+
+def render_kernel_ms(pt, cuda_trace, name, w, h, passes, depth, contract, faithful, renders=3):
+    """The whole-pass calls of a render as the Renderer makes them, timed by
+    CUDA events around each call and summed a render: median ms and calls a
+    render.  The events' span holds all the call launches (the fog kernel
+    and the regeneration instance, or the classic instance's launches)."""
+    import torch
+
+    spans, per_render = [], []
+
+    def hook(orig, a, k):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = orig(*a, **k)
+        e1.record()
+        spans.append((e0, e1))
+        return res
+
+    for _ in range(renders):
+        spans.clear()
+        in_render(pt, cuda_trace, name, w, h, passes, depth, contract, faithful, hook)
+        torch.cuda.synchronize()
+        per_render.append((sum(e0.elapsed_time(e1) for e0, e1 in spans), len(spans)))
+    return statistics.median(ms for ms, _ in per_render), per_render[0][1]
+
+
+def render_split(pt, cuda_trace, name, w, h, passes, depth):
+    """B1's split (``cuda_trace.b1_split``) on the launches of one
+    gpu-contract render, each counted with the counting build on the call's
+    own inputs."""
+    counted = []
+
+    def hook(orig, a, k):
+        counted.append(cuda_trace.count_ops_split(*a, **k))
+        return orig(*a, **k)
+
+    in_render(pt, cuda_trace, name, w, h, passes, depth, "gpu", False, hook)
+    return cuda_trace.b1_split(counted)
 
 
 def frame_kernel_times(pt, cuda_trace, name, w, h, passes, depth, contract, faithful):
@@ -403,11 +501,10 @@ def frame_kernel_times(pt, cuda_trace, name, w, h, passes, depth, contract, fait
     _sc, pack, kw = scene_setup(pt, name, w, h, depth, contract, faithful)
     n = w * h
     chunk = min(pt.render.env_config.get_chunk_size(), n)
-    window = dict(n_passes=passes) if contract == "gpu" and not faithful else {}
-    frame = [lanes(w, h, st, min(chunk, n - st)) for st in range(0, n, chunk)]
-    out = {"pass_ms": cuda_time_ms(
-        lambda: [cuda_trace.render_pass_cuda(pack, 1, px, py, **window, **kw) for px, py in frame], 3),
-        "pass_is": f"{'a window of ' + str(passes) + ' passes' if window else 'one pass'}, {len(frame)} chunks"}
+    window = contract == "gpu" and not faithful
+    pass_ms, calls = render_kernel_ms(pt, cuda_trace, name, w, h, passes, depth, contract, faithful)
+    shape = f"a window of {passes} passes" if window else f"{passes} passes"
+    out = {"pass_ms": pass_ms, "pass_is": f"the whole-pass calls of one render ({shape}, {calls} calls)"}
     ro, rd, rst = primary_rays(pack, kw, 1, 0, chunk)
     out["trace_ms"] = cuda_time_ms(lambda: integrator.trace(ro, rd, rst, pack, kw["tcfg"]), 5)
     out["trace_rays"] = chunk
@@ -1225,7 +1322,11 @@ def main(argv) -> int:
         times = {}
         if "--kernels" in rest:
             times = frame_kernel_times(pt, cuda_trace, name, w, h, passes, depth, contract, faithful)
-            run["plain_calls"] = sum(getattr(cuda_trace, c) for c in PLAIN_COUNTERS)  # the render's too
+            run["plain_calls"] = sum(getattr(cuda_trace, c, 0) for c in PLAIN_COUNTERS)  # the render's too
+        if "--split" in rest and contract == "gpu" and not faithful:
+            times["split"] = render_split(pt, cuda_trace, name, w, h, passes, depth)
+            print(f"[render] B1's split on {name} {w}x{h} d{depth} x{passes}: "
+                  f"{cuda_trace.split_line(times['split'])} | card {card}", flush=True)
         print(json.dumps({
             "scene": name, "width": w, "height": h, "passes": passes, "depth": depth, "renders": renders,
             "contract": contract, "faithful_fog": faithful, "card": card, "tree": HERE,
@@ -1333,55 +1434,68 @@ def main(argv) -> int:
         print("[4] FAIL: non-finite accumulator entries or a blank image", file=sys.stderr)
         return 1
 
-    # ---- 5. the main path went through the kernel
-    print(f"[5] kernel launches on the main path: {launches} (4 renders), plain calls: {plain_calls}", flush=True)
-    if launches <= 0 or plain_calls != 0:
-        print("[5] FAIL: the main path did not run on the kernel alone", file=sys.stderr)
+    # ---- 5. the main path went through the kernels
+    fog_launches = main_run["counts"]["FOG_LAUNCHES"]
+    print(f"[5] kernel launches on the main path: {launches}, fog kernel launches {fog_launches} (4 renders), "
+          f"plain calls: {plain_calls}", flush=True)
+    if launches <= 0 or fog_launches <= 0 or plain_calls != 0:
+        print("[5] FAIL: the main path did not run on the kernels alone", file=sys.stderr)
         return 1
 
-    # ---- 6. time the kernel (main-path shape, and 256x144 where phase 3 timed the plain version)
+    # ---- 6. time the kernels (main-path shape, and 256x144 where phase 3 timed the plain version)
+    # the Renderer's launch shape on the card: the window's n_pad lanes (whole chunks) in one call, the fog
+    # kernel then the regeneration instance
     _, pack, kw = scene_setup(pt, "demo_showcase", 1920, 1080, 12)
     chunk = pt.render.env_config.get_chunk_size()
     n = 1920 * 1080
-    chunks = [lanes(1920, 1080, s, min(chunk, n - s)) for s in range(0, n, chunk)]
-    seg_box, col_box = [], []
-
-    def frame():
-        seg_box.clear()
-        col_box.clear()
-        for px, py in chunks:
-            col, segs = cuda_trace.render_pass_cuda(pack, 1, px, py, n_passes=8, **kw)
-            seg_box.append(segs)
-            col_box.append(col)
-
-    ms = cuda_time_ms(frame, 3)
-    segments = int(sum(int(s) for s in seg_box))
-    frame_cols = torch.cat([c.to_rows() for c in col_box])
-    # the f32 operations these inputs need, tallied by the counting build of
-    # the same kernel source (-DPT_COUNT_OPS); bytes: 8 read + 12 written per lane
-    counted = [cuda_trace.count_ops(pack, 1, px, py, n_passes=8, **kw) for px, py in chunks]
-    ops = sum(o for _s, o in counted)
-    if sum(sg for sg, _o in counted) != segments:
+    n_pad = -(-n // chunk) * chunk
+    chunks = [lanes(1920, 1080, s, min(chunk, n - s)) for s in range(0, n, chunk)]  # the classic instance's
+    wpx, wpy = lanes(1920, 1080, 0, n_pad)
+    box = []
+    ms = cuda_time_ms(lambda: box.append(cuda_trace.render_pass_cuda(pack, 1, wpx, wpy, n_passes=8, **kw)), 3)
+    frame_cols, segments = box[-1][0].to_rows(), int(box[-1][1])
+    terms = cuda_trace.fog_pass(pack, 1, wpx, wpy, n_passes=8, **kw)
+    fog_ms = cuda_time_ms(lambda: cuda_trace.fog_pass(pack, 1, wpx, wpy, n_passes=8, **kw), 3)
+    b1_box = []
+    b1_ms = cuda_time_ms(lambda: b1_box.append(
+        cuda_trace.render_pass_cuda(pack, 1, wpx, wpy, n_passes=8, fog_terms=terms, **kw)), 3)
+    if not torch.equal(b1_box[-1][0].to_rows(), frame_cols):
+        print("[6] FAIL: B1 on given fog terms differs from B1 after its own fog launch", file=sys.stderr)
+        return 1
+    # the f32 operations and hash rounds these inputs need, tallied by the counting build of the same
+    # sources (-DPT_COUNT_OPS), with B1's split; bytes: 8 read + 12 written a lane (B1), 8 read + 12 written a
+    # lane and pass (the fog kernel), the terms once written and once read
+    split = cuda_trace.b1_split([cuda_trace.count_ops_split(pack, 1, wpx, wpy, n_passes=8, **kw)])
+    fog_counted = cuda_trace.fog_count_ops(pack, 1, wpx, wpy, n_passes=8, **kw)
+    if split["segments"] != segments:
         print("[6] FAIL: the counting build traced other paths than the kernel", file=sys.stderr)
         return 1
-    bound_ms = max(ops / PEAK_F32_FLOPS, n * (8 + 12) / PEAK_BYTES) * 1e3
+    ops, fog_ops = split["ops"] - fog_counted["ops"], fog_counted["ops"]
+    bound_ms = max(ops / PEAK_F32_FLOPS, n_pad * (8 + 12 + 8 * 12) / PEAK_BYTES) * 1e3
+    fog_bound_ms = max(fog_ops / PEAK_F32_FLOPS, n_pad * (8 + 8 * 12) / PEAK_BYTES) * 1e3
+    slots = lambda o, r: (o + cuda_trace.HASH_ROUND_SLOTS * r) / cuda_trace.UNFUSED_SLOTS * 1e3  # noqa: E731
+    bound_slots_ms = slots(ops, split["rng_rounds"] - fog_counted["rng_rounds"])
+    fog_bound_slots_ms = slots(fog_ops, fog_counted["rng_rounds"])
 
     _, spack, skw = scene_setup(pt, "demo_showcase", 256, 144, 12)
     spx, spy = lanes(256, 144)
     small_k = cuda_time_ms(lambda: cuda_trace.render_pass_cuda(spack, 7, spx, spy, n_passes=1, **skw), 3)
     print(
-        f"[6] kernel: {ms:.3f} ms per 1920x1080 8-pass window ({len(chunks)} launches, "
-        f"{segments} segments, {segments / ms / 1e3:.2f} Mrays/s); bound {bound_ms:.4f} ms "
-        f"({ops:.6g} f32 operations, {ops / segments:.1f} per segment, "
-        f"{ops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved); at 256x144 1 pass: kernel {small_k:.3f} ms, "
-        f"plain {plain_ms:.1f} ms (phase 3's run of it on the same inputs) | card {card}",
+        f"[6] the window as the Renderer launches it (fog kernel and B1, {n_pad} lanes): {ms:.3f} ms, "
+        f"{segments} segments, {segments / ms / 1e3:.2f} Mrays/s; B1 alone on the window's fog terms "
+        f"{b1_ms:.3f} ms, bound {bound_ms:.4f} ms ({ops:.6g} f32 operations, {ops / segments:.1f} a segment, "
+        f"{ops / (b1_ms * 1e-3) / 1e12:.2f} TFLOP/s achieved; {bound_slots_ms:.4f} ms with its hash rounds as "
+        f"FFMA slots at 32.79 Tslots/s); the fog kernel alone {fog_ms:.3f} ms, bound {fog_bound_ms:.4f} ms "
+        f"({fog_ops:.6g} f32 operations; {fog_bound_slots_ms:.4f} ms as FFMA slots); at 256x144 1 pass: "
+        f"{small_k:.3f} ms, plain {plain_ms:.1f} ms (phase 3's run of it on the same inputs) | card {card}",
         flush=True,
     )
+    print(f"[6] B1's split on the window: {cuda_trace.split_line(split)} | card {card}", flush=True)
 
     # ---- 7. kernel vs plain version at the main path's own arguments
     # (1920x1080 camera mapping, frame seed 1, the 8-pass reseed schedule)
-    held = hold_frame_lanes(cuda_trace, "7", "demo_showcase 1920x1080 d12", pack, kw, frame_cols, 1920,
-                            MAIN_CHECK_LANES, 8)
+    held = hold_frame_lanes(cuda_trace, "7", "demo_showcase 1920x1080 d12", pack, kw, frame_cols[:n], 1920,
+                            MAIN_CHECK_LANES, 8, exact=True)
     if held is None:
         print("[7] FAIL: a lane's result depends on the launch it ran in", file=sys.stderr)
         return 1
@@ -1519,7 +1633,7 @@ def main(argv) -> int:
     # ---- 13. kernel vs plain version at the mesh path's own arguments
     # (512x512 camera mapping, frame seed 1, the 8-pass reseed schedule, 80 pages)
     held = hold_frame_lanes(cuda_trace, "13", "bench_mesh 512x512 d8", mpack, mkw, mesh_cols, 512,
-                            MESH_CHECK_LANES, 8)
+                            MESH_CHECK_LANES, 8, exact=True)
     if held is None:
         print("[13] FAIL: a lane's result depends on the launch it ran in", file=sys.stderr)
         return 1
@@ -1706,6 +1820,29 @@ def main(argv) -> int:
         print("[28] FAIL: the whole-pass kernel disagrees with its plain version on a fuzzed scene", file=sys.stderr)
         return 1
 
+    # ---- 29. the fog kernel at the main path's shape against its plain version, bit for bit
+    terms = cuda_trace.fog_pass(pack, 1, wpx, wpy, n_passes=8, **kw)
+    stride = n // FOG_CHECK_LANES
+    sub = torch.arange(FOG_CHECK_LANES, device=DEVICE, dtype=torch.int64) * stride + stride // 2
+    fpx, fpy = wpx[sub], wpy[sub]
+    fog_box = []
+    fog_plain_ms = cuda_time_ms(lambda: fog_box.append(pt.render.fog_pass_terms(
+        pack, 1, fpx, fpy, width=1920, height=1080, samples=16, has_aperture=kw["has_aperture"], n_passes=8)), 1)
+    want = torch.stack([torch.stack([t.x, t.y, t.z]) for t in fog_box[0]])
+    got = terms[:, :, sub]
+    fog_err = torch.nan_to_num((got - want).abs(), nan=float("inf")).max().item()
+    fog_same = torch.equal(got.contiguous().view(torch.int32), want.view(torch.int32))
+    print(
+        f"[29] fog kernel, demo_showcase 1920x1080 one 8-pass window ({n_pad} lanes in one launch, as the Renderer "
+        f"launches it) against its plain version (render.fog_pass_terms) on {FOG_CHECK_LANES} lanes at stride "
+        f"{stride}: bit-identical {fog_same}, max |a-b| {fog_err:.4g}, terms' mean {float(want.double().mean()):.6g}; "
+        f"plain version {fog_plain_ms:.1f} ms | card {card}",
+        flush=True,
+    )
+    if not fog_same:
+        print("[29] FAIL: the fog kernel disagrees with its plain version", file=sys.stderr)
+        return 1
+
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": "render_pass",
@@ -1714,13 +1851,20 @@ def main(argv) -> int:
         "replaces": "path_trace_golang_tpu/ops/pallas_trace.py:404",
         "launches": launches,
         "max_abs_err": max_abs_err,
-        "ms": ms,
+        "ms": b1_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "operations",
+        "bound_slots_ms": bound_slots_ms,
+        "bound_slots_are": "B1's f32 operations and hash rounds (16 FFMA slots a round) as FFMA slots at the "
+                           "32.79 Tslots/s that T1 measured for code built with --fmad=false",
         "library_ms": None,
-        "shape": "demo_showcase 1920x1080 d12, one 8-pass window (all launches of one frame)",
-        "plain_shape": "demo_showcase 256x144 d12, 1 pass",
+        "shape": f"demo_showcase 1920x1080 d12, one 8-pass window, {n_pad} lanes in one launch, on the "
+                 f"window's fog terms",
+        "window_ms": ms,
+        "window_is": "the fog kernel and B1 as the Renderer launches them for the window",
+        "split": split,
+        "plain_shape": "demo_showcase 256x144 d12, 1 pass (the whole pass body, fog included)",
         "max_abs_err_over": f"256x144 d12 n_passes 1 and 2 (showcase, cornell); 1920x1080 d12 n_passes 8, "
                             f"{MAIN_CHECK_LANES} strided lanes (showcase); 192x192 d8 n_passes 1 and 2 "
                             f"(demo_mesh, bench_mesh); 192x108 d6 n_passes 1 and 2 (12 lights); 512x512 d8 "
@@ -1752,6 +1896,25 @@ def main(argv) -> int:
         "classic_fog_bound_ms": classic_bound["gpu"],
         "classic_fog_shape": "demo_showcase 1920x1080 d12, faithful fog, one pass (16 launches a chunk)",
         "classic_fog_launches": classic_runs["gpu"]["counts"]["LAUNCHES"],
+    }, {
+        "name": "fog_pass",
+        "route": "cuda",
+        "source": "path_trace_golang_tpu_torch/csrc/render_pass.cu",
+        "replaces": "path_trace_golang_tpu/ops/pallas_trace.py:404",
+        "replaces_part": "the fog-once march of render.pass_body_grid (render.py:232-266) inside render_pass_pallas",
+        "launches": fog_launches,
+        "max_abs_err": fog_err,
+        "max_abs_err_over": f"the 1080p window's terms on {FOG_CHECK_LANES} strided lanes x 8 passes (phase 29), "
+                            f"bit for bit",
+        "ms": fog_ms,
+        "plain_ms": fog_plain_ms,
+        "plain_shape": f"{FOG_CHECK_LANES} strided lanes of the 1080p window, 8 passes",
+        "bound_ms": fog_bound_ms,
+        "bound_by": "operations" if fog_ops / PEAK_F32_FLOPS >= n_pad * (8 + 8 * 12) / PEAK_BYTES else "bytes",
+        "bound_slots_ms": fog_bound_slots_ms,
+        "ops": fog_ops,
+        "library_ms": None,
+        "shape": f"demo_showcase 1920x1080, one 8-pass window: {n_pad} lanes x 8 passes, one thread each",
     }, {
         "name": "trace_grid",
         "route": "cuda",

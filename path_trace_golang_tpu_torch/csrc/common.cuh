@@ -12,17 +12,30 @@
 // torch.minimum/maximum; rintf rounds half to even like torch.round.
 //
 // Operation counting build (-DPT_COUNT_OPS, used only to compute the
-// kernels' bounds): every f32 add, sub, mul, div, min, max, sqrt, int->float
-// conversion and transcendental call that a lane executes adds 1, tallied
-// per code block by hand; OPS_WALK does so for the paged walk and keeps the
-// walk's own sum beside it, and WALK_CLOCK(call) adds the cycles of one call
-// of the walk.  In the normal build these macros expand to nothing (or to
-// the bare call) and the kernels' code is unchanged.
+// kernels' bounds and their split): every f32 add, sub, mul, div, min, max,
+// sqrt, int->float conversion and transcendental call that a lane executes
+// adds 1, tallied per code block by hand; OPS_WALK does so for the paged walk
+// and keeps the walk's own sum beside it, and WALK_CLOCK(call) adds the
+// cycles of one call of the walk.  RNG(n) counts n rounds of the hash (one a
+// draw, one a skipped draw, one a seed).  STAGE_BEGIN/STAGE_END add the
+// cycles of a stage of the regeneration loop into its slot (STAGE_*),
+// NEE_ENTRY counts the lanes of a warp that enter next-event estimation
+// together, LANE_DONE stamps the end of a lane's last segment.  In the normal
+// build these macros expand to nothing (or to the bare call) and the
+// kernels' code is unchanged.
 //
-// Every kernel writes its traced segments into segs[0] of five uint64
-// counters; the counting build also fills [1] the f32 operation count, [2]
-// the part of it done inside the paged walk, [3] the clock cycles that lanes
-// spent inside the paged walk and [4] the cycles they spent in all.
+// Every kernel writes its traced segments into counters[0] of N_COUNTERS
+// uint64; the counting build also fills [1] the f32 operation count, [2] the
+// part of it done inside the paged walk, [3] the clock cycles that lanes
+// spent inside the paged walk, [4] the cycles they spent in all, [5] the
+// fog kernel's lane cycles (STAGE_FOG), [6..9] the cycles of the loop's
+// stages, [10] the lanes that entered NEE summed over warp
+// entries and [11] those entries, [12] the warp tail (cycles from the end of
+// a lane's last segment to the end of its warp's), [13] the hash rounds, and
+// [14..17] the launch's first block start, first block end (both stored
+// bit-inverted, so that atomicMax keeps the least), last block end and last
+// block start, in ns of %globaltimer.  counters[CURSOR] is the next lane of
+// a launch whose blocks take lanes as they go.
 
 #pragma once
 
@@ -31,12 +44,32 @@
 
 #define F(x) ((float)(x))
 
+// the stages whose cycles the counting build keeps (the fog march in its own
+// kernel, the rest in the regeneration loop)
+constexpr int STAGE_FOG = 0, STAGE_ISECT = 1, STAGE_NEE = 2, STAGE_LITE = 3, STAGE_LOOP = 4, N_STAGES = 5;
+constexpr int N_COUNTERS = 19, CURSOR = 18;
+
 #ifdef PT_COUNT_OPS
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 struct OpsCount {
   unsigned long long all, walk, walk_cycles;
-  long long t0;  // the lane's start, in clock cycles
+  long long t0;      // the lane's start, in clock cycles
+  long long t_last;  // the end of its last segment (0: it traced none)
+  unsigned long long ns0;  // the thread's start, in ns of %globaltimer
+  unsigned long long stage[N_STAGES];
+  unsigned long long nee_active, nee_entries, rng;
 };
-#define OPS_DECL OpsCount ops = {0ull, 0ull, 0ull, clock64()}
+__device__ __forceinline__ OpsCount ops_start() {
+  OpsCount o = {};
+  o.t0 = clock64();
+  o.ns0 = global_ns();
+  return o;
+}
+#define OPS_DECL OpsCount ops = ops_start()
 #define OPS(n) (ops.all += (unsigned long long)(n))
 #define OPS_WALK(n) (ops.all += (unsigned long long)(n), ops.walk += (unsigned long long)(n))
 #define OPS_PARAM , OpsCount& ops
@@ -47,6 +80,18 @@ struct OpsCount {
     call;                                         \
     ops.walk_cycles += clock64() - walk_t0;       \
   } while (0)
+#define RNG(n) (ops.rng += (unsigned long long)(n))
+#define STAGE_BEGIN(v) const long long v = clock64()
+#define STAGE_END(v, k) (ops.stage[k] += clock64() - (v))
+#define NEE_ENTRY()                                              \
+  do {                                                           \
+    const unsigned nee_m = __activemask();                       \
+    if ((threadIdx.x & 31) == __ffs(nee_m) - 1) {                \
+      ops.nee_active += __popc(nee_m);                           \
+      ops.nee_entries += 1;                                      \
+    }                                                            \
+  } while (0)
+#define LANE_DONE() (ops.t_last = clock64())
 #else
 #define OPS_DECL
 #define OPS(n) ((void)0)
@@ -54,6 +99,11 @@ struct OpsCount {
 #define OPS_PARAM
 #define OPS_ARG
 #define WALK_CLOCK(call) call
+#define RNG(n) ((void)0)
+#define STAGE_BEGIN(v)
+#define STAGE_END(v, k) ((void)0)
+#define NEE_ENTRY() ((void)0)
+#define LANE_DONE() ((void)0)
 #endif
 
 namespace {
@@ -554,6 +604,7 @@ __device__ V direct_light(const Scene& S, V p, V n, V albedo, uint32_t& st OPS_P
   if (window) {
     float us = next_u(st);
     OPS(C_DRAW + 2);
+    RNG(1);
     start = (int)(us * (float)count) % count;
   }
   const int n_slots = window ? MAX_LIGHTS : count;
@@ -561,6 +612,7 @@ __device__ V direct_light(const Scene& S, V p, V n, V albedo, uint32_t& st OPS_P
     const int i = window ? (start + j) % count : j;
     float u1 = next_u(st), u2 = next_u(st);
     OPS(2 * C_DRAW);
+    RNG(2);
     const float* ob = S.obj + S.lights[i] * OBJ_STRIDE;
     if ((int)ob[0] != OBJ_SPHERE) continue;
     const float* mt = S.mat + (int)ob[1] * MAT_STRIDE;
@@ -660,6 +712,7 @@ __device__ V volume_light(const Scene& S, V pos, V view, float g, uint32_t& st O
   for (int i = 0; i < S.n_lights; ++i) {
     float u1 = next_u(st), u2 = next_u(st);
     OPS(2 * C_DRAW);
+    RNG(2);
     const float* ob = S.obj + S.lights[i] * OBJ_STRIDE;
     if ((int)ob[0] != OBJ_SPHERE) continue;
     const float* mt = S.mat + (int)ob[1] * MAT_STRIDE;
@@ -699,6 +752,7 @@ __device__ __forceinline__ void camera_ray(const Scene& S, float u, float v, boo
   float dz = b[5] + u * b[8] + v * b[11] - b[2];
   if (aperture) {
     float u1 = next_u(st), u2 = next_u(st), u3 = next_u(st);
+    RNG(3);
     V rd = muls(disk ? unit_disk(u1, u2) : unit_ball(u1, u2, u3), b[18]);
     float offx = rd.x * b[12] + rd.y * b[15];
     float offy = rd.x * b[13] + rd.y * b[16];
@@ -838,7 +892,9 @@ template <bool PAGED>
 __device__ __forceinline__ bool gpu_bounce(const Scene& S, const Params& P, const Shading& D, int dep, V& orig,
                                            V& dir, V& thr, V& col, uint32_t& st, int& glass_obj,
                                            float& glass_dist OPS_PARAM) {
+  STAGE_BEGIN(isect_t0);
   Hit h = intersect<PAGED>(S, orig, dir, D.dielectric ? glass_obj : -1, false OPS_ARG);
+  STAGE_END(isect_t0, STAGE_ISECT);
   if (!h.hit) {
     OPS(C_NORMALIZE + C_BACKGROUND + 6 + (D.sky_fog ? 11 : 0));
     V bg = background(S, normalize(dir));
@@ -849,6 +905,7 @@ __device__ __forceinline__ bool gpu_bounce(const Scene& S, const Params& P, cons
     }
     col = add(col, mul(thr, bg));
     skip_u(st, D.shade_draws + 1);
+    RNG(D.shade_draws + 1);
     return false;
   }
 
@@ -865,6 +922,7 @@ __device__ __forceinline__ bool gpu_bounce(const Scene& S, const Params& P, cons
   if (is_emissive) col = add(col, mul(thr, mk(mt[8], mt[9], mt[10])));
 
   float lu1 = next_u(st), lu2 = next_u(st);
+  RNG(2);
   OPS(C_NORMALIZE + (is_emissive ? 6 : 0) + 2 * C_DRAW + (is_lambert ? C_COSINE_DIR + 6 : 0) + 1 +
       C_REFLECT + 7 + 6 + 5 + 3 + 3 + 3 + 9);
   V lambert_dir = is_lambert ? cosine_direction(n, lu1, lu2) : n;
@@ -876,8 +934,15 @@ __device__ __forceinline__ bool gpu_bounce(const Scene& S, const Params& P, cons
 
   V direct = mk(0.0f, 0.0f, 0.0f);
   if (D.nee) {
-    if (is_lambert || is_rough_metal) direct = direct_light<PAGED>(S, p, n, albedo, st OPS_ARG);
-    else skip_u(st, D.nee_draws);
+    if (is_lambert || is_rough_metal) {
+      NEE_ENTRY();
+      STAGE_BEGIN(nee_t0);
+      direct = direct_light<PAGED>(S, p, n, albedo, st OPS_ARG);
+      STAGE_END(nee_t0, STAGE_NEE);
+    } else {
+      skip_u(st, D.nee_draws);
+      RNG(D.nee_draws);
+    }
   }
   if (is_lambert) col = add(col, mul(thr, direct));
 
@@ -885,6 +950,7 @@ __device__ __forceinline__ bool gpu_bounce(const Scene& S, const Params& P, cons
   V metal_dir = mirror_dir;
   if (D.rough_metal) {
     float gu1 = next_u(st), gu2 = next_u(st);
+    RNG(2);
     OPS(2 * C_DRAW + (is_rough_metal ? C_GGX + 11 : 0));
     if (is_rough_metal) metal_dir = sample_ggx(view, n, metal_rough, gu1, gu2);
   }
@@ -897,7 +963,9 @@ __device__ __forceinline__ bool gpu_bounce(const Scene& S, const Params& P, cons
 
   if (D.rough_metal && D.nee && is_rough_metal && !metal_dead) {
     OPS(6);
+    STAGE_BEGIN(lite_t0);
     Hit r = intersect<PAGED>(S, add(p, muls(n, F(0.001))), mirror_dir, -1, true OPS_ARG);
+    STAGE_END(lite_t0, STAGE_LITE);
     if (r.hit && r.mtyp == MAT_EMISSIVE) {
       OPS(24);
       const float* rm = S.mat + r.mat_idx * MAT_STRIDE;
@@ -916,6 +984,7 @@ __device__ __forceinline__ bool gpu_bounce(const Scene& S, const Params& P, cons
   const V eff_abs = muls(mk(mt[12], mt[13], mt[14]), mt[15]);
   if (D.dielectric) {
     float u_fresnel = next_u(st);
+    RNG(1);
     OPS(C_DRAW);
     if (is_diel) {
       OPS(6 + 4 + 2 + 1 + C_SCHLICK + 1 + C_REFRACT + C_NORMALIZE);
@@ -989,6 +1058,7 @@ __device__ __forceinline__ bool gpu_bounce(const Scene& S, const Params& P, cons
   // russian roulette on per-lane remaining depth (gpu.go:1648-1660)
   const int remaining = P.max_depth - dep;
   float u_rr = next_u(st);
+  RNG(1);
   float mc = max_comp(att);
   bool rr_active = remaining <= P.rr_threshold;
   float rr_prob = nmin(mc, F(0.95));
@@ -1006,22 +1076,37 @@ __device__ __forceinline__ bool gpu_bounce(const Scene& S, const Params& P, cons
 }
 
 // add each lane's segments (and, in the counting build, its tallies) into
-// segs_out: warp sums, one shared atomic per warp, one global atomic per
+// counters: warp sums, one shared atomic per warp, one global atomic per
 // block.  Every thread of the block calls it, after s_segs was zeroed.
 __device__ __forceinline__ void add_counters(unsigned long long segs, unsigned long long* s_segs,
                                              unsigned long long* segs_out OPS_PARAM) {
   for (int off = 16; off > 0; off >>= 1) segs += __shfl_down_sync(0xffffffffu, segs, off);
   if ((threadIdx.x & 31) == 0 && segs) atomicAdd(s_segs, segs);
 #ifdef PT_COUNT_OPS
-  // the counting build adds the lane's counts into segs_out[1..4]
-  unsigned long long tally[4] = {ops.all, ops.walk, ops.walk_cycles, (unsigned long long)(clock64() - ops.t0)};
-  for (int c = 0; c < 4; ++c) {
+  // the warp tail: the warp's last segment end less the lane's own
+  long long warp_end = ops.t_last;
+  for (int off = 16; off > 0; off >>= 1) warp_end = max(warp_end, __shfl_xor_sync(0xffffffffu, warp_end, off));
+  const unsigned long long tail = ops.t_last ? (unsigned long long)(warp_end - ops.t_last) : 0ull;
+  // the counting build adds the lane's counts into counters[1..13]
+  unsigned long long tally[13] = {ops.all, ops.walk, ops.walk_cycles, (unsigned long long)(clock64() - ops.t0),
+                                  ops.stage[0], ops.stage[1], ops.stage[2], ops.stage[3], ops.stage[4],
+                                  ops.nee_active, ops.nee_entries, tail, ops.rng};
+  for (int c = 0; c < 13; ++c) {
     for (int off = 16; off > 0; off >>= 1) tally[c] += __shfl_down_sync(0xffffffffu, tally[c], off);
     if ((threadIdx.x & 31) == 0 && tally[c]) atomicAdd(segs_out + 1 + c, tally[c]);
   }
 #endif
   __syncthreads();
   if (threadIdx.x == 0 && *s_segs) atomicAdd(segs_out, *s_segs);
+#ifdef PT_COUNT_OPS
+  if (threadIdx.x == 0) {
+    const unsigned long long end = global_ns();
+    atomicMax(segs_out + 14, ~ops.ns0);
+    atomicMax(segs_out + 15, ~end);
+    atomicMax(segs_out + 16, end);
+    atomicMax(segs_out + 17, ops.ns0);
+  }
+#endif
 }
 
 // the shared memory of a launch: refused above one SM's 227 KB, opted into

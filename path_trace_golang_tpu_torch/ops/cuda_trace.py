@@ -9,13 +9,17 @@ paged walk that runs inside them (``ops/bvh.py::_traverse_gather`` /
 :func:`render_pass` runs one progressive pass, or a window of ``n_passes``
 passes, for flat pixel lanes:
 
-* on CUDA tensors it launches the whole-pass kernel (one thread per lane,
-  the loop in registers, the scene tables in shared memory; for a mesh
-  above 128 triangles the paged walk of ``csrc/paged_walk.cuh`` over page
-  tiles in device memory): the regeneration instance of
-  ``csrc/render_pass.cu`` for the gpu contract, or the classic instance of
-  ``csrc/classic.cu``, one launch a sample, for the cpu contract and
-  faithful fog; or it raises;
+* on CUDA tensors it launches the whole-pass kernel (a lane's loop in
+  registers, the scene tables in shared memory; for a mesh above 128
+  triangles the paged walk of ``csrc/paged_walk.cuh`` over page tiles in
+  device memory): for the gpu contract the fog kernel of
+  ``csrc/render_pass.cu`` (where the fog is marched once a pass; see
+  :func:`fog_pass`) and then its regeneration instance, one launch for all
+  the given lanes (with pages, persistent blocks whose threads take lanes
+  as they go);
+  for the cpu contract and faithful fog the classic instance of
+  ``csrc/classic.cu``, one thread a lane and one launch a sample; or it
+  raises;
 * on CPU tensors it runs :func:`render_pass_plain`, the torch
   ``render.pass_body_grid``, which the kernel is held to.
 
@@ -34,8 +38,9 @@ the Mosaic repros, whose entry points ``ops/probes.py`` and ``ops/repro.py``
 bind), and bound with ``ctypes``.  ``LAUNCHES``
 counts launches of the whole-pass kernel, ``PAGED_LAUNCHES`` those of them
 that carried pages (the walk ran inside them), ``CLASSIC_LAUNCHES`` those of
-them of the classic instance, ``TRACE_LAUNCHES`` calls that launched kernel
-B3, ``WALK_LAUNCHES`` launches of the walk alone; ``PLAIN_CALLS``,
+them of the classic instance, ``FOG_LAUNCHES`` launches of the fog kernel,
+``TRACE_LAUNCHES`` calls that launched kernel B3, ``WALK_LAUNCHES``
+launches of the walk alone; ``PLAIN_CALLS``, ``FOG_PLAIN_CALLS``,
 ``TRACE_PLAIN_CALLS`` and ``WALK_PLAIN_CALLS`` count calls of the plain
 versions.
 """
@@ -61,18 +66,21 @@ from .vec import V3
 
 __all__ = [
     "render_pass", "render_pass_plain", "render_pass_cuda", "count_ops", "count_ops_split", "build",
+    "fog_pass", "fog_count_ops", "b1_split", "split_line", "N_COUNTERS",
     "trace_grid", "trace_grid_plain", "trace_grid_cuda", "trace_count_ops",
     "paged_traverse", "paged_occluded", "paged_count_ops",
-    "LAUNCHES", "PAGED_LAUNCHES", "CLASSIC_LAUNCHES", "TRACE_LAUNCHES", "WALK_LAUNCHES",
-    "PLAIN_CALLS", "TRACE_PLAIN_CALLS", "WALK_PLAIN_CALLS",
+    "LAUNCHES", "FOG_LAUNCHES", "PAGED_LAUNCHES", "CLASSIC_LAUNCHES", "TRACE_LAUNCHES", "WALK_LAUNCHES",
+    "PLAIN_CALLS", "FOG_PLAIN_CALLS", "TRACE_PLAIN_CALLS", "WALK_PLAIN_CALLS",
 ]
 
 LAUNCHES = 0
+FOG_LAUNCHES = 0
 PAGED_LAUNCHES = 0
 CLASSIC_LAUNCHES = 0
 TRACE_LAUNCHES = 0
 WALK_LAUNCHES = 0
 PLAIN_CALLS = 0
+FOG_PLAIN_CALLS = 0
 TRACE_PLAIN_CALLS = 0
 WALK_PLAIN_CALLS = 0
 BUILD_LOG: dict = {}  # source name -> nvcc's -Xptxas -v report of its last normal build
@@ -108,8 +116,9 @@ def _nvcc() -> str:
 def build(count_ops: bool = False, source: str = "render_pass") -> Path:
     """Compile one source (once per source and flag set) and return the .so
     path.  ``count_ops`` builds the operation-counting variant
-    (-DPT_COUNT_OPS), used only to compute the kernels' bounds.  Builds of
-    other sources or variants may run at the same time from other threads."""
+    (-DPT_COUNT_OPS), used only to compute the kernels' bounds and B1's
+    split.  Builds of other sources or variants may run at the same time
+    from other threads."""
     flags = NVCC_FLAGS + (("-DPT_COUNT_OPS",) if count_ops else ())
     src = SOURCES[source].read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
     tag = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()[:12]
@@ -142,8 +151,10 @@ def _lib(count_ops: bool = False, source: str = "render_pass"):
         lib = ctypes.CDLL(str(build(count_ops, source)))
         p, i, u = _P, _I, ctypes.c_uint
         if source == "render_pass":
-            lib.pt_render_pass.argtypes = _SCENE_ARGTYPES + [p, p, i, u, i, i, i, i, i, i, i, i, p, p, p]
+            lib.pt_render_pass.argtypes = _SCENE_ARGTYPES + [p, p, i, u, i, i, i, i, i, i, i, i, p, p, p, p]
             lib.pt_render_pass.restype = i
+            lib.pt_fog_pass.argtypes = _SCENE_ARGTYPES + [p, p, i, u, i, i, i, i, i, p, p, p]
+            lib.pt_fog_pass.restype = i
             lib.pt_paged_walk.argtypes = [p, p, i, i, p, p, p, i, ctypes.c_float, i, p, p, p, p, p]
             lib.pt_paged_walk.restype = i
         elif source == "classic":
@@ -213,15 +224,21 @@ def render_pass_cuda(
     has_aperture: bool,
     normalize_pass: bool,
     n_passes: int = 1,
+    fog_terms=None,
 ):
-    """Launch the whole-pass kernel on the current stream: the regeneration
-    instance, or the classic instance once for each sample."""
-    global LAUNCHES, PAGED_LAUNCHES, CLASSIC_LAUNCHES
-    col, counters, launches = _launch(
+    """Launch the whole-pass kernel on the current stream: the fog kernel
+    (where the fog is marched once a pass) and the regeneration instance, or
+    the classic instance once for each sample.  ``fog_terms``: the window's
+    terms from :func:`fog_pass` on the same lanes, which the call then does
+    not march again."""
+    global LAUNCHES, PAGED_LAUNCHES, CLASSIC_LAUNCHES, FOG_LAUNCHES
+    col, counters, launches, fog_launches = _launch(
         False, pack, frame_seed, px, py, tcfg=tcfg, width=width, height=height, n_strata=n_strata,
         samples=samples, has_aperture=has_aperture, normalize_pass=normalize_pass, n_passes=n_passes,
+        fog_terms=fog_terms,
     )
     LAUNCHES += launches
+    FOG_LAUNCHES += fog_launches
     if pack.paged is not None:
         PAGED_LAUNCHES += launches
     if not _regen(tcfg):
@@ -239,17 +256,104 @@ def count_ops(pack: ScenePack, frame_seed: int, px, py, **kw):
     return counts["segments"], counts["ops"]
 
 
-_COUNT_NAMES = ("segments", "ops", "walk_ops", "walk_cycles", "cycles")
+# the counters of a launch (csrc/common.cuh): [0] segments, the counting
+# build's tallies after it, the lane cursor last
+N_COUNTERS = 19
+_COUNT_NAMES = (
+    "segments", "ops", "walk_ops", "walk_cycles", "cycles",
+    "fog_cycles", "isect_cycles", "nee_cycles", "lite_cycles", "loop_cycles",
+    "nee_active", "nee_entries", "warp_tail_cycles", "rng_rounds",
+)
+_U64 = (1 << 64) - 1
+
+
+def _count_dict(counters) -> dict:
+    vals = [int(c) & _U64 for c in counters.cpu()]
+    out = dict(zip(_COUNT_NAMES, vals))
+    # the launch's first block start and first block end are kept bit-inverted (atomicMax keeps the least)
+    out["first_start_ns"], out["first_end_ns"], out["last_end_ns"] = _U64 ^ vals[14], _U64 ^ vals[15], vals[16]
+    out["last_start_ns"] = vals[17]
+    return out
 
 
 def count_ops_split(pack: ScenePack, frame_seed: int, px, py, **kw) -> dict:
-    """As :func:`count_ops`, with the paged walk's part: ``segments``,
-    ``ops``, ``walk_ops`` (the f32 operations done inside the paged walk),
-    ``walk_cycles`` and ``cycles`` (clock cycles, summed over lanes, spent
-    inside the walk and in all; a lane that waits for its warp inside the
-    walk counts as inside)."""
-    _col, counters, _n = _launch(True, pack, frame_seed, px, py, **kw)
-    return dict(zip(_COUNT_NAMES, (int(c) for c in counters)))
+    """As :func:`count_ops`, with the split that the counting build tallies
+    (csrc/common.cuh): ``segments``, ``ops``, ``walk_ops`` (the f32
+    operations done inside the paged walk), ``walk_cycles`` and ``cycles``
+    (clock cycles, summed over lanes, spent inside the walk and in all; a
+    lane that waits for its warp inside the walk counts as inside); under
+    the regeneration instance also the lane cycles of its stages
+    (``fog_cycles``, ``isect_cycles`` for the closest hit of a bounce,
+    ``nee_cycles`` for next-event estimation, ``lite_cycles`` for the
+    specular-NEE ray, ``loop_cycles`` for the whole merged loop),
+    ``nee_active`` and ``nee_entries`` (the lanes of a warp that enter NEE
+    together, summed, and the number of such entries), ``warp_tail_cycles``,
+    ``rng_rounds`` (rounds of the hash) and the launch's block times in ns
+    (``first_start_ns``, ``first_end_ns``, ``last_end_ns``, ``last_start_ns``)."""
+    _col, counters, _n, _fog = _launch(True, pack, frame_seed, px, py, **kw)
+    return _count_dict(counters)
+
+
+PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores, 700 W
+HASH_ROUND_SLOTS = 16.0  # FFMA slots a round of the RNG's hash costs (probe T1, PERF.md)
+UNFUSED_SLOTS = 32.79e12  # FFMA slots a second of code built with --fmad=false (probe T1 ffma, full card)
+
+
+def b1_split(counted) -> dict:
+    """B1's split from :func:`count_ops_split`'s dicts of one frame's
+    regeneration launches (one a launch): the lane cycles of each stage as
+    shares of B1's (the fog kernel's own lanes' cycles against B1's), the
+    NEE active-lane share, the warp tail, the launch tail (last block end
+    less first block end, against the launch's span, summed over launches),
+    the hash rounds and both bounds (f32 operations at 67 TFLOP/s;
+    operations and hash rounds as FFMA slots at the unfused rate)."""
+    tot = {k: sum(c[k] for c in counted) for k in counted[0] if not k.endswith("_ns")}
+    cyc = max(tot["cycles"], 1)
+    inner = tot["isect_cycles"] + tot["nee_cycles"] + tot["lite_cycles"]
+    spread = sum(c["last_end_ns"] - c["first_end_ns"] for c in counted)
+    span = sum(c["last_end_ns"] - c["first_start_ns"] for c in counted)
+    slots = tot["ops"] + HASH_ROUND_SLOTS * tot["rng_rounds"]
+    return {
+        "launches": len(counted),
+        "share_fog": tot["fog_cycles"] / cyc,
+        "share_isect": tot["isect_cycles"] / cyc,
+        "share_nee": tot["nee_cycles"] / cyc,
+        "share_lite": tot["lite_cycles"] / cyc,
+        "share_rest": (tot["loop_cycles"] - inner - tot["warp_tail_cycles"]) / cyc,
+        "share_warp_tail": tot["warp_tail_cycles"] / cyc,
+        "share_outside": (cyc - tot["loop_cycles"]) / cyc,
+        "nee_active_share": tot["nee_active"] / max(32 * tot["nee_entries"], 1),
+        "nee_entries": tot["nee_entries"],
+        "launch_tail_ns": spread,
+        "launch_drain_ns": sum(c["last_end_ns"] - c["last_start_ns"] for c in counted),
+        "launch_span_ns": span,
+        "launch_tail_share": spread / max(span, 1),
+        "rng_rounds": tot["rng_rounds"],
+        "rng_rounds_per_segment": tot["rng_rounds"] / max(tot["segments"], 1),
+        "ops": tot["ops"],
+        "ops_per_segment": tot["ops"] / max(tot["segments"], 1),
+        "segments": tot["segments"],
+        "bound_ops_ms": tot["ops"] / PEAK_F32_FLOPS * 1e3,
+        "bound_slots_ms": slots / UNFUSED_SLOTS * 1e3,
+        "ffma_slots": slots,
+    }
+
+
+def split_line(sp: dict) -> str:
+    """One line of :func:`b1_split`'s numbers."""
+    return (
+        f"lane cycles: fog prepass {sp['share_fog']:.2%} (its own launch, against B1's cycles), closest hit "
+        f"{sp['share_isect']:.2%}, NEE {sp['share_nee']:.2%}, specular-NEE ray {sp['share_lite']:.2%}, rest of "
+        f"shading and roulette {sp['share_rest']:.2%}, warp tail {sp['share_warp_tail']:.2%}, outside the loop "
+        f"{sp['share_outside']:.2%}; NEE active-lane share {sp['nee_active_share']:.2%} over "
+        f"{sp['nee_entries']} warp entries; block ends spread over {sp['launch_tail_ns'] / 1e6:.3f} ms of the "
+        f"launches' {sp['launch_span_ns'] / 1e6:.3f} ms ({sp['launch_tail_share']:.2%}, {sp['launches']} launches), "
+        f"{sp['launch_drain_ns'] / 1e6:.3f} ms from the last block start to the last end; "
+        f"{sp['rng_rounds']:.6g} hash rounds ({sp['rng_rounds_per_segment']:.1f} a segment, "
+        f"{HASH_ROUND_SLOTS * sp['rng_rounds_per_segment']:.0f} FFMA slots beside {sp['ops_per_segment']:.1f} "
+        f"counted operations); bound {sp['bound_ops_ms']:.4f} ms (f32 operations at 67 TFLOP/s), "
+        f"{sp['bound_slots_ms']:.4f} ms (operations and hash rounds as FFMA slots at 32.79 Tslots/s)"
+    )
 
 
 def _regen(tcfg) -> bool:
@@ -297,18 +401,80 @@ def _flags(pack: ScenePack, tcfg, has_aperture=False, normalize_pass=False) -> i
     )
 
 
+def fog_pass(pack: ScenePack, frame_seed: int, px, py, *, tcfg, width: int, height: int, samples: int,
+             has_aperture: bool, n_passes: int = 1, **_kw):
+    """The fog-once terms of a pass window for flat lanes ``px``/``py``:
+    f32[n_passes, 3, N], each pass's fog estimate on its own counter stream
+    times the gate and the pass's samples, which the regeneration loop adds
+    to a lane's color in pass order.  CUDA tensors go to the fog kernel
+    (``fog_pass_kernel`` of ``csrc/render_pass.cu``), CPU tensors to the
+    plain version, the torch ``render.fog_pass_terms``; nothing falls back.
+    Other keyword arguments of :func:`render_pass` are taken and ignored."""
+    global FOG_LAUNCHES, FOG_PLAIN_CALLS
+    if px.is_cuda:
+        terms = _launch_fog(False, pack, frame_seed, px, py, tcfg=tcfg, width=width, height=height,
+                            samples=samples, has_aperture=has_aperture, n_passes=n_passes)
+        FOG_LAUNCHES += 1
+        return terms
+    if px.device.type == "cpu":
+        from ..render import fog_pass_terms
+
+        FOG_PLAIN_CALLS += 1
+        terms = fog_pass_terms(pack, frame_seed, px, py, width=width, height=height, samples=samples,
+                               has_aperture=has_aperture, n_passes=n_passes)
+        return torch.stack([torch.stack([t.x, t.y, t.z]) for t in terms])
+    raise NotImplementedError(f"fog_pass: no kernel for device {px.device}")
+
+
+def fog_count_ops(pack: ScenePack, frame_seed: int, px, py, **kw) -> dict:
+    """The counting build of the fog kernel alone on the same lanes:
+    ``ops`` (f32 operations), ``rng_rounds`` and ``cycles`` (its lanes'
+    clock cycles).  Not a launch of the render path: ``FOG_LAUNCHES`` does
+    not change."""
+    counters = torch.zeros(N_COUNTERS, dtype=torch.int64, device=px.device)
+    args = {k: kw[k] for k in ("tcfg", "width", "height", "samples", "has_aperture")}
+    _launch_fog(True, pack, frame_seed, px, py, n_passes=kw.get("n_passes", 1), counters=counters, **args)
+    c = counters.cpu()
+    return {"ops": int(c[1]), "rng_rounds": int(c[13]), "cycles": int(c[5])}
+
+
+def _launch_fog(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, samples, has_aperture,
+                n_passes, counters=None):
+    dev = _check_device("fog_pass", pack, px, py)
+    flags = _flags(pack, tcfg, has_aperture)
+    if not flags & FLAG_FOG_ONCE:
+        raise ValueError("fog_pass: the scene's config marches no fog once a pass")
+    px = px.to(torch.int32).contiguous()
+    py = py.to(torch.int32).contiguous()
+    n = px.numel()
+    terms = torch.empty((n_passes, 3, n), dtype=torch.float32, device=dev)
+    if counters is None:
+        counters = torch.zeros(N_COUNTERS, dtype=torch.int64, device=dev)
+    basis = camera_basis(pack.cam, width, height).contiguous()
+    lib = _lib(counting, "render_pass")
+    err = lib.pt_fog_pass(
+        *_scene_args(pack, basis), px.data_ptr(), py.data_ptr(), n, int(frame_seed) & MASK32, width, height,
+        samples, n_passes, flags, terms.data_ptr(), counters.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    raise_on(err, lib, "fog_pass")
+    return terms
+
+
 def _launch(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, n_strata, samples,
-            has_aperture, normalize_pass, n_passes=1):
-    """Returns (col V3, the five counters, kernel launches made)."""
+            has_aperture, normalize_pass, n_passes=1, fog_terms=None):
+    """Returns (col V3, the counters, launches of the whole-pass kernel,
+    launches of the fog kernel)."""
     regen = _regen(tcfg)
     if not regen and n_passes != 1:
         raise ValueError("n_passes > 1 requires the regeneration loop (gpu contract)")
+    if not regen and fog_terms is not None:
+        raise ValueError("fog_terms belong to the regeneration loop (gpu contract)")
     dev = _check_device("render_pass_cuda", pack, px, py)
     px = px.to(torch.int32).contiguous()
     py = py.to(torch.int32).contiguous()
     n = px.numel()
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
-    counters = torch.zeros(5, dtype=torch.int64, device=dev)  # segments; the counting build's tallies
+    counters = torch.zeros(N_COUNTERS, dtype=torch.int64, device=dev)  # segments; the counting build's tallies
     basis = camera_basis(pack.cam, width, height).contiguous()
     scene = _scene_args(pack, basis)
     flags = _flags(pack, tcfg, has_aperture, normalize_pass)
@@ -316,12 +482,19 @@ def _launch(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, n_
     seed = int(frame_seed) & MASK32
     if regen:
         lib = _lib(counting, "render_pass")
+        terms = fog_terms
+        if terms is not None and tuple(terms.shape) != (n_passes, 3, n):
+            raise ValueError(f"render_pass_cuda: fog_terms must be f32[{n_passes}, 3, {n}]")
+        if terms is None and flags & FLAG_FOG_ONCE:
+            terms = _launch_fog(counting, pack, frame_seed, px, py, tcfg=tcfg, width=width, height=height,
+                                samples=samples, has_aperture=has_aperture, n_passes=n_passes, counters=counters)
         err = lib.pt_render_pass(
             *scene, px.data_ptr(), py.data_ptr(), n, seed, width, height, n_strata, samples, n_passes,
-            tcfg.max_depth, tcfg.rr_threshold, flags, out.data_ptr(), counters.data_ptr(), stream,
+            tcfg.max_depth, tcfg.rr_threshold, flags, None if terms is None else terms.data_ptr(),
+            out.data_ptr(), counters.data_ptr(), stream,
         )
         raise_on(err, lib, "render_pass")
-        return V3(out[0], out[1], out[2]), counters, 1
+        return V3(out[0], out[1], out[2]), counters, 1, int(terms is not None and fog_terms is None)
     # the classic instance: one launch a sample; state, path lengths and the
     # trips of each sample stay on the card from one launch to the next
     lib = _lib(counting, "classic")
@@ -335,7 +508,7 @@ def _launch(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, n_
             trips.data_ptr(), counters.data_ptr(), stream,
         )
         raise_on(err, lib, "classic render_pass")
-    return V3(out[0], out[1], out[2]), counters, samples
+    return V3(out[0], out[1], out[2]), counters, samples, 0
 
 
 # ---------------------------------------------------------------------------
@@ -380,7 +553,7 @@ def trace_count_ops(orig: V3, dirv: V3, state, pack: ScenePack, cfg, active=None
     :func:`count_ops_split`.  Not a launch of the trace path:
     ``TRACE_LAUNCHES`` does not change."""
     _rad, _st, counters = _launch_trace(True, orig, dirv, state, pack, cfg, active)
-    return dict(zip(_COUNT_NAMES, (int(c) for c in counters)))
+    return _count_dict(counters)
 
 
 def _launch_trace(counting: bool, orig: V3, dirv: V3, state, pack, cfg, active):
@@ -395,7 +568,7 @@ def _launch_trace(counting: bool, orig: V3, dirv: V3, state, pack, cfg, active):
     st_out = torch.empty(n, dtype=torch.int32, device=dev)
     lengths = torch.empty(n, dtype=torch.int32, device=dev)
     trips = torch.zeros(1, dtype=torch.int32, device=dev)
-    counters = torch.zeros(5, dtype=torch.int64, device=dev)
+    counters = torch.zeros(N_COUNTERS, dtype=torch.int64, device=dev)
     basis = torch.zeros(19, dtype=torch.float32, device=dev)  # the trace makes no camera rays
     lib = _lib(counting, "classic")
     err = lib.pt_trace_grid(

@@ -51,6 +51,7 @@ __all__ = [
     "Renderer",
     "render_settings_for_mode",
     "pass_body_grid",
+    "fog_pass_terms",
     "trace_pass_lanes",
     "set_backend",
     "get_backend",
@@ -152,17 +153,9 @@ def pass_body_grid(
 
     col = V3.zeros_like(pxf)
     if tcfg.enable_fog_march and not tcfg.fog_in_trace:
-        for p in range(n_passes):
-            fs = (int(frame_seed) + p) & MASK32
-            rng0 = LaneRng(seed_lanes(px, py, fs ^ FOG_STREAM_XOR))
-            jx = rng0.next()
-            jy = rng0.next()
-            fog_o, fog_d = camera_rays(
-                (pxf + jx) * inv_w, (fy + jy) * inv_h, pack.cam, width, height, rng0,
-                has_aperture, pack.lens_disk, basis=basis,
-            )
-            fog_rad, _ = fog_prepass_grid(fog_o, fog_d, rng0.state, pack)
-            col = col + fog_rad * _f(samples)
+        for term in fog_pass_terms(pack, frame_seed, px, py, width=width, height=height, samples=samples,
+                                   has_aperture=has_aperture, n_passes=n_passes):
+            col = col + term
 
     if regen_enabled(tcfg):
         col, _state, segs = pass_regen_gpu(
@@ -195,6 +188,33 @@ def pass_body_grid(
     if normalize_pass:
         col = col * _f(1.0 / samples)
     return col, segs
+
+
+def fog_pass_terms(pack: ScenePack, frame_seed: int, px, py, *, width: int, height: int, samples: int,
+                   has_aperture: bool, n_passes: int = 1):
+    """The fog estimate once per pass of a window (render.py:232-266), each
+    on its own counter stream (``(frame_seed + p) ^ FOG_STREAM_XOR``,
+    PHYSICS.md D6): jitter, camera ray and the gated march, times the pass's
+    samples.  Returns one V3 a pass, which :func:`pass_body_grid` adds to a
+    lane's color in pass order (the fog kernel's plain version)."""
+    inv_w = _f(1.0) / _f(width - 1 if width > 1 else 1)
+    inv_h = _f(1.0) / _f(height - 1 if height > 1 else 1)
+    fy = _f(height - 1) - py.to(torch.float32)
+    pxf = px.to(torch.float32)
+    basis = camera_basis(pack.cam, width, height)
+    terms = []
+    for p in range(n_passes):
+        fs = (int(frame_seed) + p) & MASK32
+        rng0 = LaneRng(seed_lanes(px, py, fs ^ FOG_STREAM_XOR))
+        jx = rng0.next()
+        jy = rng0.next()
+        fog_o, fog_d = camera_rays(
+            (pxf + jx) * inv_w, (fy + jy) * inv_h, pack.cam, width, height, rng0,
+            has_aperture, pack.lens_disk, basis=basis,
+        )
+        fog_rad, _ = fog_prepass_grid(fog_o, fog_d, rng0.state, pack)
+        terms.append(fog_rad * _f(samples))
+    return terms
 
 
 def trace_pass_lanes(
@@ -320,18 +340,22 @@ class Renderer:
                 u8 = box_smooth(u8, sm.radius, sm.strength)
             return u8
 
+        # on the card the regeneration instance takes a whole window's lanes in
+        # one launch (its blocks take lanes as they go); the lanes, and so the
+        # image and the segments, are the same as chunk by chunk
+        launch = n_pad if dev.type == "cuda" and regen_enabled(tcfg) else chunk
         p = 0
         while p < passes:
             nw = min(window, passes - p)
             frame_seed = (self.seed + p) & MASK32
-            for start in range(0, n_pad, chunk):
-                idx = torch.arange(start, start + chunk, dtype=torch.int32, device=dev)
+            for start in range(0, n_pad, launch):
+                idx = torch.arange(start, start + launch, dtype=torch.int32, device=dev)
                 col, segs = trace_pass_lanes(
                     pack, frame_seed, idx, tcfg=tcfg, width=w, height=h, n_strata=n_strata,
                     samples=samples, has_aperture=has_aperture,
                     normalize_pass=self.normalize_pass, n_passes=nw,
                 )
-                accum[start:start + chunk] += col
+                accum[start:start + launch] += col
                 total_segs = total_segs + segs
             p += nw
             if progress is not None and ((p % update_every) < nw or p == passes):

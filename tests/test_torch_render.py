@@ -224,3 +224,128 @@ def test_kernel_matches_plain_on_card(name, n_passes):
     assert torch.all((a.double().mean(0) - b.double().mean(0)).abs() <= 0.01 * b.double().mean(0).abs())
     img = TR.Renderer(contract="gpu", seed=2).render(sc, TR.RenderConfig(w, h, n_passes, 6))
     assert img.shape == (h, w, 3)
+
+
+def _accum_of(monkeypatch, renderer, sc, cfg):
+    """Render and return (the accumulator as the gpu contract's finish
+    receives it, the statistics)."""
+    box = []
+    real = TR.finalize_gpu_contract
+    monkeypatch.setattr(TR, "finalize_gpu_contract",
+                        lambda flat, *a, **k: box.append(flat.clone()) or real(flat, *a, **k))
+    renderer.render(sc, cfg)
+    return box[-1], renderer.stats
+
+
+@pytest.fixture(scope="module")
+def lanes_in_one_call():
+    """A 16x16 showcase window (depth 4, 2 passes, frame seed 5) traced as
+    one call over all its lanes: (colors f32[256, 3], segments)."""
+    sc = TB.demo_showcase()
+    pack = tpt.pack_scene(sc, 16, 16, device="cpu")
+    tcfg = TI.trace_config_for_scene(pack, sc, 4, "gpu")
+    col, segs = TR.trace_pass_lanes(pack, 5, torch.arange(16 * 16), tcfg=tcfg, width=16, height=16, n_strata=4,
+                                    samples=16, has_aperture=sc.camera.aperture > 0, normalize_pass=False,
+                                    n_passes=2)
+    return col, int(segs)
+
+
+@pytest.mark.parametrize("chunk", [64, 128, 16 * 16])
+def test_gpu_contract_is_independent_of_the_chunk(chunk, monkeypatch, lanes_in_one_call):
+    """The premise of one launch a window: the gpu contract's accumulator is
+    the lanes' own pass-window colors whatever the chunk (64, 128, the whole
+    16x16 frame), bit for bit, and the segments are the same."""
+    renderer = tpt.Renderer(contract="gpu", seed=5, chunk=chunk, device="cpu")
+    accum, stats = _accum_of(monkeypatch, renderer, TB.demo_showcase(), tpt.RenderConfig(16, 16, 2, 4))
+    want, segs = lanes_in_one_call
+    assert torch.equal(accum.reshape(-1, 3).view(torch.int32), want.view(torch.int32))
+    assert stats.ray_segments == segs and stats.passes == 2
+
+
+def _card_case(name, w, h, depth=6):
+    sc = getattr(TB, name)()
+    pack = tpt.pack_scene(sc, w, h, device="cuda")
+    tcfg = TI.trace_config_for_scene(pack, sc, depth, "gpu")
+    idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
+    kw = dict(tcfg=tcfg, width=w, height=h, n_strata=4, samples=16, has_aperture=sc.camera.aperture > 0,
+              normalize_pass=False)
+    return pack, idx % w, torch.div(idx, w, rounding_mode="floor"), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_passes", [1, 8])
+def test_fog_kernel_matches_plain_on_card(n_passes):
+    """The fog kernel's terms against the plain fog prepass of
+    pass_body_grid (render.fog_pass_terms), bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
+    pack, px, py, kw = _card_case("demo_showcase", 256, 144)
+    launches = cuda_trace.FOG_LAUNCHES
+    got = cuda_trace.fog_pass(pack, 3, px, py, n_passes=n_passes, **kw)
+    assert cuda_trace.FOG_LAUNCHES == launches + 1
+    want = TR.fog_pass_terms(pack, 3, px, py, width=256, height=144, samples=16, has_aperture=kw["has_aperture"],
+                             n_passes=n_passes)
+    want = torch.stack([torch.stack([t.x, t.y, t.z]) for t in want])
+    torch.cuda.synchronize()
+    assert got.shape == (n_passes, 3, 256 * 144)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,refill", [pytest.param("demo_showcase", False, id="demo_showcase"),
+                                         pytest.param("bench_mesh", False, id="bench_mesh"),
+                                         pytest.param("bench_mesh", True, id="bench_mesh_refill")])
+def test_window_kernel_matches_plain_on_card(name, refill):
+    """B1 in one launch against the plain version bit for bit, segments
+    equal: on 2,065 lanes (not a multiple of the block; depth 6, 2 passes)
+    one thread a lane on demo_showcase, and on bench_mesh (paged) persistent
+    blocks whose grid holds a thread for every lane; with ``refill``, on
+    twice the lanes that the paged grid holds (4 blocks an SM) plus a
+    part-full warp (depth 2, one pass), so that most threads take a second
+    lane from the launch's counter."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
+    if refill:
+        pack, px, py, kw = _card_case(name, 512, 512, depth=2)
+        n = 2 * 4 * torch.cuda.get_device_properties(0).multi_processor_count * 128 + 17
+        assert n <= px.numel()
+        px, py, n_passes = px[:n], py[:n], 1
+    else:
+        pack, px, py, kw = _card_case(name, 64, 36)
+        px, py, n_passes = px.repeat(2)[:2065], py.repeat(2)[:2065], 2
+    ck, sk = cuda_trace.render_pass(pack, 4, px, py, n_passes=n_passes, **kw)
+    cp, sp = cuda_trace.render_pass_plain(pack, 4, px, py, n_passes=n_passes, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ck.to_rows().view(torch.int32), cp.to_rows().view(torch.int32))
+    assert int(sk) == int(sp)
+
+
+def test_fog_pass_runs_the_plain_version_on_cpu():
+    """On CPU tensors the fog kernel's wrapper returns the plain fog-once
+    terms, f32[passes, 3, N], and counts a plain call."""
+    sc = TB.demo_showcase()
+    pack = tpt.pack_scene(sc, 8, 4, device="cpu")
+    tcfg = TI.trace_config_for_scene(pack, sc, 3, "gpu")
+    idx = torch.arange(32, dtype=torch.int32)
+    before = cuda_trace.FOG_PLAIN_CALLS
+    got = cuda_trace.fog_pass(pack, 2, idx % 8, idx // 8, tcfg=tcfg, width=8, height=4, samples=16,
+                              has_aperture=sc.camera.aperture > 0, n_passes=2)
+    want = TR.fog_pass_terms(pack, 2, idx % 8, idx // 8, width=8, height=4, samples=16,
+                             has_aperture=sc.camera.aperture > 0, n_passes=2)
+    assert cuda_trace.FOG_PLAIN_CALLS == before + 1 and got.shape == (2, 3, 32)
+    assert torch.equal(got[1, 2], want[1].z) and bool((got >= 0).all()) and float(got.sum()) > 0
+
+
+def test_b1_split_arithmetic():
+    """B1's split follows from the counting build's tallies of a frame's
+    launches: stage shares of B1's cycles, NEE active lanes, launch tail,
+    hash rounds a segment and the bound in FFMA slots."""
+    launch = dict(segments=10, ops=2000, cycles=1000, fog_cycles=100, isect_cycles=200, nee_cycles=150,
+                  lite_cycles=50, loop_cycles=900, nee_active=48, nee_entries=3, warp_tail_cycles=40,
+                  rng_rounds=200, first_start_ns=0, first_end_ns=80, last_end_ns=100, last_start_ns=10)
+    sp = cuda_trace.b1_split([launch, launch])
+    assert sp["share_rest"] == pytest.approx((900 - 400 - 40) / 1000) and sp["share_fog"] == pytest.approx(0.1)
+    assert sp["nee_active_share"] == 0.5 and sp["launch_tail_share"] == pytest.approx(0.2)
+    assert sp["rng_rounds_per_segment"] == 20 and sp["bound_slots_ms"] == pytest.approx(
+        (4000 + 16 * 400) / cuda_trace.UNFUSED_SLOTS * 1e3)
+    assert "NEE active-lane share 50.00%" in cuda_trace.split_line(sp)
