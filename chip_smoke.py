@@ -14,8 +14,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 3. hold the whole-pass kernel against its plain PyTorch version on the
    card for demo_showcase and demo_cornell at 256x144, depth 12, one pass
    and one 2-pass window: at least 95% of lanes within |a-b| <= 1e-3|b| +
-   1e-3, segment counts within 2%, per-channel means within 1%, and B1
-   (the gpu contract) bit for bit on every lane with segments equal; then a
+   1e-3, segment counts within 2%, per-channel means within 1%, and bit
+   for bit on every lane with segments equal; then a
    first, small run of the paged walk alone against its plain version
    (2,048 rays, bench_mesh and demo_mesh, with phase 8's cases), bit for
    bit;
@@ -77,23 +77,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     cpu contract (depth 80), gpu contract and gpu contract with the in-trace
     fog march (depth 12), and a batch with an active mask;
 15. the classic instance of the whole-pass kernel against its plain version
-    at 256x144, depth 12: the cpu contract on demo_showcase and demo_cornell,
-    faithful fog on demo_showcase; phase 3's bands;
+    at 256x144, depth 12, bit for bit with segments equal: the cpu contract
+    on demo_showcase and demo_cornell, faithful fog on demo_showcase, the
+    frame as one chunk; then as the Renderer launches it, on the frame in 4
+    chunks of 10,000 lanes (the last padded): the cpu contract's window of 3
+    passes in one launch, faithful fog two launches a sample over all
+    chunks;
 16. drive the cpu-contract path: Renderer(contract="cpu") on demo_showcase
     at 1920x1080, depth 80, 16 passes, one warm-up and 3 timed renders; it
-    must run on the classic instance alone;
+    must run on the classic instance alone, one launch a window of 8
+    passes (2 a render);
 17. drive the faithful-fog path: Renderer(contract="gpu", faithful_fog=True)
-    on demo_showcase at 1920x1080, depth 12, 1 pass, likewise;
-18. time the classic instance on those frames (CUDA events, and the
-    kernels' own device time from torch.profiler, which shows how long the
-    card waits for the host), count their operations and derive their
-    bound; drive trace() (B3) on the 262,144 primary
-    rays of the cpu frame's first chunk, each contract, time it and its
-    plain version, count its operations and derive its bound;
+    on demo_showcase at 1920x1080, depth 12, 1 pass, likewise, two launches
+    a sample over all chunks (the march kernel, then the sample kernel: 16
+    of each a pass);
+18. time the classic instance on those frames as the Renderer launches it
+    (a window of 8 passes; one pass of 16 samples) by CUDA events, and each
+    kernel's own device time from torch.profiler (which shows how long the
+    card waits for the host), count their operations and hash rounds,
+    derive their bounds and print their split; drive trace() (B3) on the
+    262,144 primary rays of the cpu frame's first chunk, each contract,
+    time it and its plain version, count its operations and derive its
+    bound;
 19. hold the classic instance against its plain version at those paths' own
-    arguments: 8,192 lanes strided over the cpu frame in 2 of its passes
-    (frame seeds 1 and 2), and the whole first chunk (262,144 lanes) of the
-    faithful-fog frame, phase 3's bands.
+    arguments, bit for bit with segments equal: 8,192 lanes strided over
+    the cpu frame's window of 8 passes that phase 18 timed (frame seeds 1-8,
+    one launch) and over a window of 2 passes, and the faithful-fog frame's
+    first chunk and its padded last chunk
+    (262,144 lanes each, 23,552 of the last one off-frame), the lanes taken
+    from the frame's launches over all chunks.
 
 20. perf probe T1 (op chains, csrc/probes.cu): every op class against its
     plain version at 4 iterations (256 ops), on the TPU probe's 256x128
@@ -134,12 +146,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     23, 37, 59, from tests/torch_fuzz_scenes.json), every lane of a 64x48
     frame, depth 4, one pass: the gpu contract on B1's regeneration
     instance and the cpu contract on the classic instance against their
-    plain versions, phase 3's bands, with the share of bit-identical lanes
-    (B1: every lane);
+    plain versions, bit for bit with segments equal;
 29. the fog kernel at the main path's shape (the 1080p window's 2,097,152
     lanes x 8 passes in one launch) against its plain version
     (render.fog_pass_terms) on 65,536 lanes strided over the frame, bit for
     bit.
+
+Phase 15's faithful-fog frame in 4 chunks and phase 19's padded last
+1080p chunk run in a second process (``--classic-holds``) that the main one
+starts after phase 6 and reads before phase 11, beside phases 7-10, which
+hold and time nothing: the plain versions take most of the script's time
+and follow the host's speed, and run one after the other they would leave
+too little of the time limit on a slow host (PERF.md §7).
 
 The line before the last three says how long the phases took in all.  The
 third-to-last line is a JSON object describing every kernel
@@ -163,14 +181,17 @@ summed a render: under the gpu contract the fog kernel and B1 of a window,
 else the classic instance's launches), kernel B3 through trace() on the
 first chunk's primary rays and, where the scene carries pages, the paged
 walk alone on the frame's primary rays (closest hit and any hit).
-``--split`` (gpu contract) adds B1's split from the counting build on the
-render's own launches.  It imports the package that lies beside the script, so a copy of this
+``--split`` adds the split from the counting build on the render's own
+calls: B1's under the gpu contract, the classic instance's with
+``--contract cpu`` or ``--faithful-fog`` (lane cycles by stage, the segments
+the warps ran for, block ends, hash rounds, both bounds).  It imports the package that lies beside the script, so a copy of this
 file in the root of another commit's tree times that commit: to compare two
 commits, run them in turns in one shell on one card.
 """
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
 import statistics
@@ -189,10 +210,11 @@ FOG_CHECK_LANES = 65536  # lanes of the 1080p window whose fog terms are held to
 MESH_CHECK_LANES = 2048 + 17  # lanes of the 512x512 mesh frame held to the plain version in phase 13: not a
 # multiple of the block; the lanes taken from the frame's own launch (262,144 lanes over the paged instance's
 # persistent grid) are the ones that ran the refill
-COUNTERS = ("LAUNCHES", "FOG_LAUNCHES", "PAGED_LAUNCHES", "CLASSIC_LAUNCHES", "TRACE_LAUNCHES", "WALK_LAUNCHES",
-            "PLAIN_CALLS", "FOG_PLAIN_CALLS", "TRACE_PLAIN_CALLS", "WALK_PLAIN_CALLS")
+COUNTERS = ("LAUNCHES", "FOG_LAUNCHES", "MARCH_LAUNCHES", "PAGED_LAUNCHES", "CLASSIC_LAUNCHES", "TRACE_LAUNCHES",
+            "WALK_LAUNCHES", "PLAIN_CALLS", "FOG_PLAIN_CALLS", "TRACE_PLAIN_CALLS", "WALK_PLAIN_CALLS")
 PLAIN_COUNTERS = ("PLAIN_CALLS", "FOG_PLAIN_CALLS", "TRACE_PLAIN_CALLS", "WALK_PLAIN_CALLS")
 CLASSIC_CHECK_LANES = 8192  # lanes of the cpu-contract frame held to the plain version in phase 19
+SMALL_CHUNK = 10000  # phase 15's chunk on a 256x144 frame: 4 chunks, the last padded by 3,136 lanes
 B3_CHECK_RAYS = 8192  # camera rays (and as many random ones) of each B3 batch in phase 14
 PARTIAL_RAYS = 2048 + 17  # rays of the walk's partial-warp case: its launch's last warp holds 17
 FUZZ_SCENES = os.path.join(HERE, "tests", "torch_fuzz_scenes.json")  # tests/test_fuzz.py's scenes as JSON
@@ -290,8 +312,8 @@ def lanes(w, h, start=0, count=None):
 def hold_pass(pt, cuda_trace, tag, name, w, h, depth, passes=(1, 2), contract="gpu", faithful=False):
     """Whole-pass kernel against its plain version for one scene: prints a
     line per window size, returns (all within the bands, largest |a-b|,
-    the plain version's seconds per window size).  B1 (the gpu contract's
-    regeneration loop) must be bit-identical on every lane, segments equal."""
+    the plain version's seconds per window size).  Both instances must be
+    bit-identical on every lane, segments equal."""
     import torch
 
     _sc, pack, kw = scene_setup(pt, name, w, h, depth, contract, faithful)
@@ -315,8 +337,7 @@ def hold_pass(pt, cuda_trace, tag, name, w, h, depth, passes=(1, 2), contract="g
             flush=True,
         )
         good = good and share >= 0.95 and seg_gap <= 0.02 and mean_gap <= 0.01
-        if contract == "gpu" and not faithful:
-            good = good and bits == 1.0 and int(segs_k) == int(segs_p)
+        good = good and bits == 1.0 and int(segs_k) == int(segs_p)
     return good, worst, plain_secs
 
 
@@ -325,8 +346,8 @@ def fuzz_phase(pt, cuda_trace, card):
     fuzzed scenes of tests/test_fuzz.py (tests/torch_fuzz_scenes.json), every
     lane of a FUZZ_W x FUZZ_H frame, depth FUZZ_DEPTH, one pass: the gpu
     contract on B1's regeneration instance, the cpu contract on the classic
-    instance; phase 3's bands.  Returns (all within the bands, largest
-    |a-b|)."""
+    instance; phase 3's bands and bit for bit with segments equal.  Returns
+    (all held, largest |a-b|)."""
     import torch
     from path_trace_golang_tpu_torch.scene import io as scene_io
 
@@ -357,37 +378,49 @@ def fuzz_phase(pt, cuda_trace, card):
                 flush=True,
             )
             good = good and share >= 0.95 and seg_gap <= 0.02 and mean_gap <= 0.01
-            if contract == "gpu":
-                good = good and bits == 1.0 and int(segs_k) == int(segs_p)
+            good = good and bits == 1.0 and int(segs_k) == int(segs_p)
     print(f"[28] the fuzzed scenes in {time.perf_counter() - t0:.1f} s | card {card}", flush=True)
     return good, worst
 
 
-def hold_frame_lanes(cuda_trace, tag, label, pack, kw, frame_cols, w, n_check, n_passes, frame_seed=1, exact=False):
+def hold_frame_lanes(cuda_trace, tag, label, pack, kw, frame_cols, w, n_check, n_passes, frame_seed=1, exact=False,
+                     classic=False):
     """Whole-pass kernel against its plain version at a driven path's own
     arguments (frame seed 1, the window's reseed schedule): the plain version
     runs on ``n_check`` lanes strided over the frame and is held against
     ``frame_cols``, the lanes that the full-size launches produced, and
-    against the kernel run on those lanes alone.  Returns (within the bands,
-    bit for bit with segments equal where ``exact``; largest |a-b|; seconds
-    of the plain version), or None if a lane's result depends on the launch
-    it ran in."""
+    against the kernel run on those lanes alone (``classic``: the classic
+    instance's window into a zeroed accumulator, the lanes as one chunk, as
+    ``cuda_trace.classic_render`` runs it; one sample a pass, so no lane
+    depends on another).  Returns (within the bands, bit for bit with
+    segments equal where ``exact``; largest |a-b|; seconds of the plain
+    version), or None if a lane's result depends on the launch it ran in."""
     import torch
 
     stride = frame_cols.shape[0] // n_check
     sub = torch.arange(n_check, device=DEVICE, dtype=torch.int64) * stride + stride // 2
     spx, spy = (sub % w).to(torch.int32), torch.div(sub, w, rounding_mode="floor").to(torch.int32)
+
+    def run(plain):
+        if classic:
+            acc = torch.zeros((n_check, 3), dtype=torch.float32, device=DEVICE)
+            fn = cuda_trace.classic_render_plain if plain else cuda_trace.classic_render_cuda
+            return acc, fn(acc, pack, frame_seed, spx, spy, chunk=n_check, n_passes=n_passes, **kw)
+        fn = cuda_trace.render_pass_plain if plain else cuda_trace.render_pass_cuda
+        col, segs = fn(pack, frame_seed, spx, spy, n_passes=n_passes, **kw)
+        return col.to_rows(), segs
+
     t0 = time.perf_counter()
-    col_p, segs_p = cuda_trace.render_pass_plain(pack, frame_seed, spx, spy, n_passes=n_passes, **kw)
+    col_p, segs_p = run(True)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    col_k, segs_k = cuda_trace.render_pass_cuda(pack, frame_seed, spx, spy, n_passes=n_passes, **kw)
+    col_k, segs_k = run(False)
     torch.cuda.synchronize()
     from_frame = frame_cols[sub]
-    if not torch.equal(col_k.to_rows(), from_frame):
+    if not torch.equal(col_k, from_frame):
         return None
-    share, seg_gap, mean_gap, err = lane_stats(from_frame, col_p.to_rows(), segs_k, segs_p)
-    bits = bit_share(from_frame, col_p.to_rows())
+    share, seg_gap, mean_gap, err = lane_stats(from_frame, col_p, segs_k, segs_p)
+    bits = bit_share(from_frame, col_p)
     print(
         f"[{tag}] {label} frame seed {frame_seed} n_passes={n_passes}, {n_check} lanes at stride {stride} "
         f"(kernel lanes from the full-size launches, and the same from a launch of these lanes alone): lanes "
@@ -399,6 +432,92 @@ def hold_frame_lanes(cuda_trace, tag, label, pack, kw, frame_cols, w, n_check, n
     if exact:
         good = good and bits == 1.0 and int(segs_k) == int(segs_p)
     return good, err, plain_s
+
+
+def hold_classic_frame(pt, cuda_trace, tag, name, w, h, depth, chunk, n_passes, contract, faithful, frame_seed=7):
+    """The classic instance as the Renderer launches it on the card
+    (``cuda_trace.classic_render_cuda``: all of a frame's lanes in chunks of
+    ``chunk``, the last padded by off-frame rows, a window of ``n_passes``
+    passes) against its plain version (``pass_body_grid`` pass by pass and
+    chunk by chunk), both into zeroed accumulators: bit for bit with
+    segments equal, in the launches of its shape (one of the window kernel a
+    window under the cpu contract; one of the march kernel and one of the
+    sample kernel a sample).  Returns (all held, largest |a-b|)."""
+    import torch
+
+    _sc, pack, kw = scene_setup(pt, name, w, h, depth, contract, faithful)
+    n_pad = -(-(w * h) // chunk) * chunk
+    px, py = lanes(w, h, 0, n_pad)
+    got = torch.zeros((n_pad, 3), dtype=torch.float32, device=DEVICE)
+    want = torch.zeros_like(got)
+    before = (cuda_trace.CLASSIC_LAUNCHES, cuda_trace.MARCH_LAUNCHES)
+    segs_k = cuda_trace.classic_render_cuda(got, pack, frame_seed, px, py, chunk=chunk, n_passes=n_passes, **kw)
+    launches = (cuda_trace.CLASSIC_LAUNCHES - before[0], cuda_trace.MARCH_LAUNCHES - before[1])
+    t0 = time.perf_counter()
+    segs_p = cuda_trace.classic_render_plain(want, pack, frame_seed, px, py, chunk=chunk, n_passes=n_passes, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    share, seg_gap, mean_gap, err = lane_stats(got, want, segs_k, segs_p)
+    bits = bit_share(got, want)
+    shape = (1, 0) if contract == "cpu" else (n_passes * kw["samples"],) * 2
+    print(
+        f"[{tag}] {name} {w}x{h} d{depth} {contract} contract{', faithful fog' if faithful else ''}, "
+        f"{n_pad // chunk} chunks of {chunk} lanes ({n_pad - w * h} padding), {n_passes} passes in {launches[0]} "
+        f"launches of the classic instance and {launches[1]} of its march kernel (want {shape[0]} and {shape[1]}): "
+        f"lanes matching {share:.4%}, bit-identical {bits:.4%}, segments {int(segs_k)} vs "
+        f"{int(segs_p)}, channel-mean gap {mean_gap:.4%}, max |a-b| {err:.4g}; plain version {plain_s:.1f} s",
+        flush=True,
+    )
+    return bits == 1.0 and int(segs_k) == int(segs_p) and launches == shape, err
+
+
+def hold_fog_chunk(cuda_trace, pack, kw, frame_acc, px, py, c0, chunk, n):
+    """Phase 19: the chunk at lane ``c0`` of the 1080p faithful-fog frame,
+    whose one pass ``frame_acc`` holds from the frame's launches over all
+    chunks, against the plain version on that chunk and against the chunk
+    launched alone, bit for bit with segments equal.  Returns (held,
+    largest |a-b|, seconds of the plain version)."""
+    import torch
+
+    cpx, cpy = px[c0:c0 + chunk], py[c0:c0 + chunk]
+    want = torch.zeros((chunk, 3), dtype=torch.float32, device=DEVICE)
+    t0 = time.perf_counter()
+    segs_p = cuda_trace.classic_render_plain(want, pack, 1, cpx, cpy, chunk=chunk, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    alone = torch.zeros((chunk, 3), dtype=torch.float32, device=DEVICE)
+    segs_k = cuda_trace.classic_render_cuda(alone, pack, 1, cpx, cpy, chunk=chunk, **kw)
+    got = frame_acc[c0:c0 + chunk]
+    share, seg_gap, mean_gap, err = lane_stats(got, want, segs_k, segs_p)
+    bits = bit_share(got, want)
+    print(
+        f"[19] demo_showcase 1920x1080 d12 faithful fog, the chunk at lane {c0} ({chunk} lanes, "
+        f"{max(0, c0 + chunk - n)} of them padding, frame seed 1; the kernel's lanes from the frame's launches "
+        f"over all chunks): lanes matching {share:.4%}, bit-identical {bits:.4%}, segments {int(segs_k)} vs "
+        f"{int(segs_p)} (the chunk launched alone; gap {seg_gap:.4%}), channel-mean gap {mean_gap:.4%}, "
+        f"max |a-b| {err:.4g}; plain version {plain_s:.1f} s",
+        flush=True,
+    )
+    return torch.equal(alone, got) and bits == 1.0 and int(segs_k) == int(segs_p), err, plain_s
+
+
+def classic_holds(pt, cuda_trace) -> bool:
+    """``--classic-holds``: the classic instance's two longest holds, which
+    the main run starts in a process of its own beside phases 7-10: phase
+    15's faithful-fog frame in 4 chunks and phase 19's padded last chunk of
+    the 1080p faithful-fog frame (rendered here as the Renderer launches
+    it).  Returns whether both held bit for bit."""
+    import torch
+
+    good, _err = hold_classic_frame(pt, cuda_trace, "15", "demo_showcase", 256, 144, 12, SMALL_CHUNK, 1, "gpu", True)
+    chunk, n = pt.render.env_config.get_chunk_size(), 1920 * 1080
+    n_pad = -(-n // chunk) * chunk
+    _sc, pack, kw = scene_setup(pt, "demo_showcase", 1920, 1080, 12, "gpu", True)
+    px, py = lanes(1920, 1080, 0, n_pad)
+    acc = torch.zeros((n_pad, 3), dtype=torch.float32, device=DEVICE)
+    cuda_trace.classic_render_cuda(acc, pack, 1, px, py, chunk=chunk, **kw)
+    last, _err, _s = hold_fog_chunk(cuda_trace, pack, kw, acc, px, py, n_pad - chunk, chunk, n)
+    return good and last
 
 
 def drive_renderer(pt, cuda_trace, tag, name, w, h, passes, depth, renders, card, contract="gpu", faithful=False):
@@ -439,18 +558,23 @@ def drive_renderer(pt, cuda_trace, tag, name, w, h, passes, depth, renders, card
 
 def in_render(pt, cuda_trace, name, w, h, passes, depth, contract, faithful, hook):
     """Render a built-in scene once with ``hook(orig, args, kwargs)`` in place
-    of cuda_trace.render_pass_cuda, so that whatever the hook does sees every
-    whole-pass call exactly as the Renderer makes it (its lanes, seeds and
-    window).  The hook returns the call's result."""
+    of cuda_trace.render_pass_cuda and, where the tree has it,
+    cuda_trace.classic_render_cuda (the classic instance's frame calls), so
+    that whatever the hook does sees every whole-pass call exactly as the
+    Renderer makes it (its lanes, seeds and window).  The hook returns the
+    call's result."""
     from path_trace_golang_tpu_torch.scene import builtin
 
-    orig = cuda_trace.render_pass_cuda
-    cuda_trace.render_pass_cuda = lambda *a, **k: hook(orig, a, k)
+    names = [k for k in ("render_pass_cuda", "classic_render_cuda") if hasattr(cuda_trace, k)]
+    origs = {k: getattr(cuda_trace, k) for k in names}
+    for k in names:
+        setattr(cuda_trace, k, lambda *a, _o=origs[k], **kw: hook(_o, a, kw))
     try:
         pt.Renderer(contract=contract, seed=1, faithful_fog=faithful).render(
             getattr(builtin, name)(), pt.RenderConfig(w, h, passes, depth))
     finally:
-        cuda_trace.render_pass_cuda = orig
+        for k in names:
+            setattr(cuda_trace, k, origs[k])
 
 
 def render_kernel_ms(pt, cuda_trace, name, w, h, passes, depth, contract, faithful, renders=3):
@@ -478,18 +602,22 @@ def render_kernel_ms(pt, cuda_trace, name, w, h, passes, depth, contract, faithf
     return statistics.median(ms for ms, _ in per_render), per_render[0][1]
 
 
-def render_split(pt, cuda_trace, name, w, h, passes, depth):
-    """B1's split (``cuda_trace.b1_split``) on the launches of one
-    gpu-contract render, each counted with the counting build on the call's
-    own inputs."""
+def render_split(pt, cuda_trace, name, w, h, passes, depth, contract="gpu", faithful=False):
+    """The split of one render's whole-pass calls, each counted with the
+    counting build on the call's own inputs: B1's (``cuda_trace.b1_split``)
+    under the gpu contract, else the classic instance's
+    (``cuda_trace.classic_split``)."""
     counted = []
 
     def hook(orig, a, k):
-        counted.append(cuda_trace.count_ops_split(*a, **k))
+        classic = getattr(orig, "__name__", "") == "classic_render_cuda"
+        counted.append((cuda_trace.classic_count_split if classic else cuda_trace.count_ops_split)(*a, **k))
         return orig(*a, **k)
 
-    in_render(pt, cuda_trace, name, w, h, passes, depth, "gpu", False, hook)
-    return cuda_trace.b1_split(counted)
+    in_render(pt, cuda_trace, name, w, h, passes, depth, contract, faithful, hook)
+    if contract == "gpu" and not faithful:
+        return cuda_trace.b1_split(counted)
+    return cuda_trace.classic_split(counted)
 
 
 def frame_kernel_times(pt, cuda_trace, name, w, h, passes, depth, contract, faithful):
@@ -691,10 +819,11 @@ def ptxas_lines(cuda_trace):
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
 
 
-def device_ms(fn, kernel):
-    """The device time of the kernels named ``kernel`` that one call of
-    ``fn`` launches, in ms, summed from torch.profiler's trace; None where
-    the trace holds none."""
+def device_ms(fn, kernels):
+    """The device time of the kernels whose names hold each of ``kernels``
+    that one call of ``fn`` launches, in ms, summed from torch.profiler's
+    trace: a dict, None for a name that the trace holds none of (or all
+    None where the profiler fails)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -704,10 +833,13 @@ def device_ms(fn, kernel):
             torch.cuda.synchronize()
     except RuntimeError as e:  # a measurement only: the events' times stand without it
         print(f"    torch.profiler failed: {e}", flush=True)
-        return None
-    us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) for e in prof.key_averages()
-             if kernel in e.key)
-    return us / 1e3 if us > 0 else None
+        return dict.fromkeys(kernels)
+    out = {}
+    for kernel in kernels:
+        us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) for e in prof.key_averages()
+                 if kernel in e.key)
+        out[kernel] = us / 1e3 if us > 0 else None
+    return out
 
 
 def cuda_time_ms(fn, reps):
@@ -1323,10 +1455,13 @@ def main(argv) -> int:
         if "--kernels" in rest:
             times = frame_kernel_times(pt, cuda_trace, name, w, h, passes, depth, contract, faithful)
             run["plain_calls"] = sum(getattr(cuda_trace, c, 0) for c in PLAIN_COUNTERS)  # the render's too
-        if "--split" in rest and contract == "gpu" and not faithful:
-            times["split"] = render_split(pt, cuda_trace, name, w, h, passes, depth)
-            print(f"[render] B1's split on {name} {w}x{h} d{depth} x{passes}: "
-                  f"{cuda_trace.split_line(times['split'])} | card {card}", flush=True)
+        if "--split" in rest:
+            times["split"] = render_split(pt, cuda_trace, name, w, h, passes, depth, contract, faithful)
+            b1 = contract == "gpu" and not faithful
+            line = (cuda_trace.split_line if b1 else cuda_trace.classic_split_line)(times["split"])
+            print(f"[render] {'B1' if b1 else 'the classic instance'}'s split on {name} {w}x{h} d{depth} "
+                  f"x{passes}, {contract} contract{', faithful fog' if faithful else ''}: {line} | card {card}",
+                  flush=True)
         print(json.dumps({
             "scene": name, "width": w, "height": h, "passes": passes, "depth": depth, "renders": renders,
             "contract": contract, "faithful_fog": faithful, "card": card, "tree": HERE,
@@ -1344,6 +1479,9 @@ def main(argv) -> int:
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
+
+    if "--classic-holds" in argv:
+        return 0 if classic_holds(pt, cuda_trace) else 1
 
     # ---- 2. build: one nvcc for each source and variant, all started together (--probes, --repro: that
     # library only; the repros have no counting variant: their bounds come from their shapes)
@@ -1449,7 +1587,6 @@ def main(argv) -> int:
     chunk = pt.render.env_config.get_chunk_size()
     n = 1920 * 1080
     n_pad = -(-n // chunk) * chunk
-    chunks = [lanes(1920, 1080, s, min(chunk, n - s)) for s in range(0, n, chunk)]  # the classic instance's
     wpx, wpy = lanes(1920, 1080, 0, n_pad)
     box = []
     ms = cuda_time_ms(lambda: box.append(cuda_trace.render_pass_cuda(pack, 1, wpx, wpy, n_passes=8, **kw)), 3)
@@ -1492,6 +1629,12 @@ def main(argv) -> int:
     )
     print(f"[6] B1's split on the window: {cuda_trace.split_line(split)} | card {card}", flush=True)
 
+    # the classic instance's two longest holds (phases 15 and 19, faithful fog) in a second process beside
+    # phases 7-10, which hold and time nothing; read before phase 11 times the mesh path; stopped at exit
+    holds = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--classic-holds"], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: holds.poll() is None and (holds.kill(), holds.wait()))
+
     # ---- 7. kernel vs plain version at the main path's own arguments
     # (1920x1080 camera mapping, frame seed 1, the 8-pass reseed schedule)
     held = hold_frame_lanes(cuda_trace, "7", "demo_showcase 1920x1080 d12", pack, kw, frame_cols[:n], 1920,
@@ -1521,6 +1664,12 @@ def main(argv) -> int:
         if not good:
             print(f"[{tag}] FAIL: kernel disagrees with its plain version on {name}", file=sys.stderr)
             return 1
+
+    print(holds.communicate()[0], end="", flush=True)
+    if holds.returncode != 0:
+        print("[15/19] FAIL: the classic instance disagrees with its plain version on the chunked faithful-fog "
+              "frame or the padded last 1080p chunk (second process)", file=sys.stderr)
+        return 1
 
     # ---- 11. the mesh path at full width: bench_mesh 512x512, depth 8, one 8-pass window
     mesh_run = drive_renderer(pt, cuda_trace, "11", "bench_mesh", 512, 512, 8, 8, 3, card)
@@ -1662,7 +1811,7 @@ def main(argv) -> int:
         print("[14] FAIL: kernel B3 disagrees with its plain version under an active mask", file=sys.stderr)
         return 1
 
-    # ---- 15. the classic instance against its plain version at 256x144, depth 12
+    # ---- 15. the classic instance against its plain version at 256x144, depth 12, bit for bit
     for name, contract, faithful in (("demo_showcase", "cpu", False), ("demo_cornell", "cpu", False),
                                      ("demo_showcase", "gpu", True)):
         good, err, _secs = hold_pass(pt, cuda_trace, "15", name, 256, 144, 12, passes=(1,), contract=contract,
@@ -1671,9 +1820,18 @@ def main(argv) -> int:
         if not good:
             print(f"[15] FAIL: the classic instance disagrees with its plain version on {name}", file=sys.stderr)
             return 1
+    # the Renderer's launch shape on a frame of 4 chunks, the last padded: the cpu contract's window of 3
+    # passes in one launch (faithful fog, two launches a sample over all chunks: the second process)
+    good, err = hold_classic_frame(pt, cuda_trace, "15", "demo_showcase", 256, 144, 12, SMALL_CHUNK, 3, "cpu", False)
+    classic_err = max(classic_err, err)
+    if not good:
+        print("[15] FAIL: the classic instance disagrees with its plain version on the chunked frame",
+              file=sys.stderr)
+        return 1
 
     # ---- 16. the cpu-contract path; 17. the faithful-fog path
     classic_runs = {}
+    window = max(1, int(os.environ.get("PATHTRACER_PASS_WINDOW", "8")))
     for tag, contract, faithful, passes, depth in (("16", "cpu", False, 16, 80), ("17", "gpu", True, 1, 12)):
         run = drive_renderer(pt, cuda_trace, tag, "demo_showcase", 1920, 1080, passes, depth, 3, card, contract,
                              faithful)
@@ -1684,51 +1842,86 @@ def main(argv) -> int:
         if counts["LAUNCHES"] <= 0 or counts["CLASSIC_LAUNCHES"] != counts["LAUNCHES"] or run["plain_calls"] != 0:
             print(f"[{tag}] FAIL: the path did not run on the classic instance alone", file=sys.stderr)
             return 1
+        # the launch shape: one launch a window of passes (cpu contract); one of the march kernel and one of
+        # the sample kernel a sample over all chunks (faithful fog)
+        want = -(-passes // window) if contract == "cpu" else passes * 16
+        want_march = 0 if contract == "cpu" else passes * 16
+        print(f"[{tag}] launches a render: the classic instance {counts['CLASSIC_LAUNCHES'] / 4:g} (want {want}), "
+              f"its march kernel {counts['MARCH_LAUNCHES'] / 4:g} (want {want_march})", flush=True)
+        if counts["CLASSIC_LAUNCHES"] != 4 * want or counts["MARCH_LAUNCHES"] != 4 * want_march:
+            print(f"[{tag}] FAIL: the path did not take the classic instance's launch shape", file=sys.stderr)
+            return 1
         classic_runs[contract] = run
 
-    # ---- 18. times: the classic instance on those frames; B3 through trace() on primary rays
+    # ---- 18. times: the classic instance on those frames as the Renderer launches it (all chunks of the
+    # frame: the cpu contract a window of 8 passes in one launch, faithful fog one pass of 16 launches);
+    # B3 through trace() on primary rays
     n = 1920 * 1080
+    fpx, fpy = lanes(1920, 1080, 0, n_pad)
     cpu_setup = scene_setup(pt, "demo_showcase", 1920, 1080, 80, "cpu")[1:]
     fog_setup = scene_setup(pt, "demo_showcase", 1920, 1080, 12, "gpu", True)[1:]
     setups = {"cpu": cpu_setup, "gpu": fog_setup}
-    classic_cols = {}
+    frame_passes = {"cpu": 8, "gpu": 1}
+    classic_accum = {}
 
-    def classic_frame(label, frame_seed):
+    def classic_frame(label, frame_seed, n_passes):
         cpack, ckw = setups[label]
-        cols, segs = [], 0
-        for px, py in chunks:
-            col, sg = cuda_trace.render_pass_cuda(cpack, frame_seed, px, py, **ckw)
-            cols.append(col)
-            segs += sg
-        classic_cols[(label, frame_seed)] = cols
+        acc = torch.zeros((n_pad, 3), dtype=torch.float32, device=DEVICE)
+        segs = cuda_trace.classic_render_cuda(acc, cpack, frame_seed, fpx, fpy, chunk=chunk, n_passes=n_passes,
+                                              **ckw)
+        classic_accum[(label, frame_seed, n_passes)] = acc
         return segs
 
-    classic_ms, classic_device_ms, classic_bound = {}, {}, {}
+    classic_ms, classic_device_ms, classic_bound, classic_split_of = {}, {}, {}, {}
+    kernel_of = {"cpu": "classic_window_kernel", "gpu": "classic_sample_kernel", "march": "classic_march_kernel"}
     for label in setups:
-        box = []
-        classic_ms[label] = cuda_time_ms(lambda: box.append(classic_frame(label, 1)), 3)
+        box, np_ = [], frame_passes[label]
+        classic_ms[label] = cuda_time_ms(lambda: box.append(classic_frame(label, 1, np_)), 3)
         # the kernels' own device time beside the events' span, which also holds the gaps in which
         # the device waits for the host between launches
-        classic_device_ms[label] = device_ms(lambda: classic_frame(label, 1), "classic_pass_kernel")
-        dev = classic_device_ms[label]
-        # the f32 operations of the pass, tallied by the counting build; bytes: 8 read + 12 written a lane
+        names = (kernel_of[label],) + (("classic_march_kernel",) if label == "gpu" else ())
+        timed = device_ms(lambda: classic_frame(label, 1, np_), names)
+        classic_device_ms[label] = timed[kernel_of[label]]
+        dev = sum(timed[k] for k in names) if all(timed[k] is not None for k in names) else None
+        # the f32 operations and hash rounds of the call, tallied by the counting build, and the split;
+        # bytes, each input read once and each output written once: px, py and the accumulator read, the
+        # accumulator written (8 + 12 + 12 a lane); under faithful fog the sample kernel also reads, and the
+        # march kernel writes, a sample's ray, march and state (40 bytes a lane and sample)
         cpack, ckw = setups[label]
-        counted = [cuda_trace.count_ops(cpack, 1, px, py, **ckw) for px, py in chunks]
-        if sum(sg for sg, _o in counted) != int(box[-1]):
+        counted = cuda_trace.classic_count_split(classic_accum[(label, 1, np_)], cpack, 1, fpx, fpy, chunk=chunk,
+                                                 n_passes=np_, **ckw)
+        if counted["segments"] != int(box[-1]):
             print("[18] FAIL: the counting build traced other paths than the classic instance", file=sys.stderr)
             return 1
-        cops = sum(o for _s, o in counted)
-        classic_bound[label] = max(cops / PEAK_F32_FLOPS, n * (8 + 12) / PEAK_BYTES) * 1e3
+        sp = classic_split_of[label] = cuda_trace.classic_split([counted])
+        march = counted["march"]
+        parts = {label: (counted["ops"] - (march["ops"] if march else 0),
+                         counted["rng_rounds"] - (march["rng_rounds"] if march else 0),
+                         n_pad * (32 + (16 * 40 if march else 0)))}
+        if march:
+            parts["march"] = (march["ops"], march["rng_rounds"], n_pad * (8 + 16 * 40))
+            classic_device_ms["march"] = timed["classic_march_kernel"]
+        for part, (ops_k, rounds_k, bytes_k) in parts.items():
+            by_ops, by_bytes = ops_k / PEAK_F32_FLOPS * 1e3, bytes_k / PEAK_BYTES * 1e3
+            slots_ms = (ops_k + cuda_trace.HASH_ROUND_SLOTS * rounds_k) / cuda_trace.UNFUSED_SLOTS * 1e3
+            classic_bound[part] = (max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes", ops_k,
+                                   slots_ms)
+        timed_line = ", ".join(f"{k} {'not measured' if v is None else f'{v:.3f} ms'}" for k, v in timed.items())
         print(
-            f"[18] classic instance, demo_showcase 1920x1080 one pass, {label} contract"
-            f"{' (faithful fog, 16 launches a chunk)' if label == 'gpu' else ' (depth 80)'}: {classic_ms[label]:.3f} ms "
+            f"[18] classic instance, demo_showcase 1920x1080, {label} contract"
+            f"{' faithful fog, one pass of 16 samples' if label == 'gpu' else ' depth 80, a window of 8 passes'} as "
+            f"the Renderer launches it ({counted['launches']} launches, {n_pad} lanes): {classic_ms[label]:.3f} ms "
             f"({int(box[-1])} segments, {int(box[-1]) / classic_ms[label] / 1e3:.2f} Mrays/s); bound "
-            f"{classic_bound[label]:.4f} ms ({cops:.6g} f32 operations); kernels' device time "
-            f"(torch.profiler) {'not measured' if dev is None else f'{dev:.3f} ms, device idle {1 - dev / classic_ms[label]:.1%}'}"
-            f" | card {card}",
+            f"{sum(classic_bound[k][0] for k in parts):.4f} ms ({counted['ops']:.6g} f32 operations; "
+            f"{sp['bound_slots_ms']:.4f} ms with its hash rounds as FFMA slots), of it "
+            + ", ".join(f"{kernel_of[k]} {classic_bound[k][0]:.4f} ms ({classic_bound[k][3]:.4f} as slots)"
+                        for k in parts)
+            + f"; kernels' device time (torch.profiler) {timed_line}"
+            f"{'' if dev is None else f', device idle {1 - dev / classic_ms[label]:.1%}'} | card {card}",
             flush=True,
         )
-    classic_frame("cpu", 2)  # the cpu frame's second pass, for phase 19
+        print(f"[18] its split: {cuda_trace.classic_split_line(sp)} | card {card}", flush=True)
+    classic_frame("cpu", 1, 2)  # the cpu frame's 2-pass window, for phase 19 beside the timed 8-pass one
 
     from path_trace_golang_tpu_torch import integrator
 
@@ -1749,6 +1942,8 @@ def main(argv) -> int:
         pbox = []
         trace_plain_ms[label] = cuda_time_ms(
             lambda: pbox.append(cuda_trace.trace_grid_plain(o3, d3, rst, tpack, cfg)), 1)
+        if label == "gpu":  # the march kernel's plain version: the trace's fog march on the same rays
+            march_plain_ms = cuda_time_ms(lambda: integrator.fog_prepass_grid(o3, d3, rst, tpack), 1)
         (krad, kst, kseg), (prad, pst, pseg) = box[-1], pbox[0]
         same = torch.equal(krad.view(torch.int32), prad.to_rows().view(torch.int32)) and torch.equal(kst, pst) \
             and int(kseg) == int(pseg)
@@ -1770,36 +1965,30 @@ def main(argv) -> int:
             flush=True,
         )
 
-    # ---- 19. the classic instance against its plain version at the paths' own arguments
+    # ---- 19. the classic instance against its plain version at the paths' own arguments, bit for bit: on
+    # strided lanes the cpu frame's 8-pass window that phase 18 timed (the main path's launch, frame seeds
+    # 1-8) and a 2-pass window; the faithful-fog frame's first chunk in full (its padded last chunk: the second
+    # process)
     cpack, ckw = cpu_setup
-    for frame_seed in (1, 2):
-        cols = torch.cat([c.to_rows() for c in classic_cols[("cpu", frame_seed)]])
-        held = hold_frame_lanes(cuda_trace, "19", "demo_showcase 1920x1080 d80 cpu contract", cpack, ckw, cols, 1920,
-                                CLASSIC_CHECK_LANES, 1, frame_seed)
+    for n_passes in (8, 2):
+        held = hold_frame_lanes(cuda_trace, "19", "demo_showcase 1920x1080 d80 cpu contract", cpack, ckw,
+                                classic_accum[("cpu", 1, n_passes)][:n], 1920, CLASSIC_CHECK_LANES, n_passes,
+                                exact=True, classic=True)
         if held is None or not held[0]:
             print("[19] FAIL: the classic instance disagrees with its plain version on the cpu frame",
                   file=sys.stderr)
             return 1
         classic_err = max(classic_err, held[1])
+        if n_passes == 8:
+            cpu_plain_ms = held[2] * 1e3
     fpack, fkw = fog_setup
-    px, py = chunks[0]
-    t0 = time.perf_counter()
-    col_p, segs_p = cuda_trace.render_pass_plain(fpack, 1, px, py, **fkw)
-    torch.cuda.synchronize()
-    fog_plain_s = time.perf_counter() - t0
-    col_k = classic_cols[("gpu", 1)][0]
-    segs_k = cuda_trace.render_pass_cuda(fpack, 1, px, py, **fkw)[1]
-    share, seg_gap, mean_gap, err = lane_stats(col_k.to_rows(), col_p.to_rows(), segs_k, segs_p)
-    print(
-        f"[19] demo_showcase 1920x1080 d12 faithful fog, the first chunk ({px.numel()} lanes, frame seed 1): "
-        f"lanes matching {share:.4%}, segments {int(segs_k)} vs {int(segs_p)} (gap {seg_gap:.4%}), channel-mean gap "
-        f"{mean_gap:.4%}, max |a-b| {err:.4g}; plain version {fog_plain_s:.1f} s",
-        flush=True,
-    )
+    good, err, fog_plain_s = hold_fog_chunk(cuda_trace, fpack, fkw, classic_accum[("gpu", 1, 1)], fpx, fpy, 0,
+                                            chunk, n)
+    fog_chunk_plain_ms = fog_plain_s * 1e3
     classic_err = max(classic_err, err)
-    if not (share >= 0.95 and seg_gap <= 0.02 and mean_gap <= 0.01):
-        print("[19] FAIL: the classic instance disagrees with its plain version on the faithful-fog chunk",
-              file=sys.stderr)
+    if not good:
+        print("[19] FAIL: the classic instance disagrees with its plain version on a faithful-fog chunk, or a "
+              "lane's result depends on the launch it ran in", file=sys.stderr)
         return 1
     max_abs_err = max(max_abs_err, classic_err)
 
@@ -1815,7 +2004,7 @@ def main(argv) -> int:
 
     # ---- 28. the fuzzed scenes, B1 and the classic instance against their plain versions
     good, fuzz_err = fuzz_phase(pt, cuda_trace, card)
-    max_abs_err = max(max_abs_err, fuzz_err)
+    max_abs_err, classic_err = max(max_abs_err, fuzz_err), max(classic_err, fuzz_err)
     if not good:
         print("[28] FAIL: the whole-pass kernel disagrees with its plain version on a fuzzed scene", file=sys.stderr)
         return 1
@@ -1868,12 +2057,8 @@ def main(argv) -> int:
         "max_abs_err_over": f"256x144 d12 n_passes 1 and 2 (showcase, cornell); 1920x1080 d12 n_passes 8, "
                             f"{MAIN_CHECK_LANES} strided lanes (showcase); 192x192 d8 n_passes 1 and 2 "
                             f"(demo_mesh, bench_mesh); 192x108 d6 n_passes 1 and 2 (12 lights); 512x512 d8 "
-                            f"n_passes 8, {MESH_CHECK_LANES} strided lanes (bench_mesh); the classic instance: "
-                            f"64x36 and 256x144 d12 (cpu contract on showcase and cornell, faithful fog on "
-                            f"showcase), 1920x1080 d80 cpu contract frame seeds 1 and 2, {CLASSIC_CHECK_LANES} "
-                            f"strided lanes, and the first 1920x1080 d12 faithful-fog chunk, {chunk} lanes; the four "
-                            f"fuzzed scenes of tests/test_fuzz.py at {FUZZ_W}x{FUZZ_H} d{FUZZ_DEPTH}, both "
-                            f"contracts",
+                            f"n_passes 8, {MESH_CHECK_LANES} strided lanes (bench_mesh); the four fuzzed scenes "
+                            f"of tests/test_fuzz.py at {FUZZ_W}x{FUZZ_H} d{FUZZ_DEPTH}, gpu contract",
         "kernel_ms_at_plain_shape": small_k,
         "launches_mesh_path": mesh_launches,
         "mesh_ms": mesh_ms,
@@ -1882,21 +2067,45 @@ def main(argv) -> int:
         "mesh_max_abs_err": mesh_check_err,
         "mesh_walk_share_of_operations": mesh_walk_ops / mesh_ops,
         "mesh_walk_share_of_lane_cycles": mesh_walk_cycles / mesh_cycles,
-        "classic_source": "path_trace_golang_tpu_torch/csrc/classic.cu",
-        "classic_max_abs_err": classic_err,
-        "classic_cpu_ms": classic_ms["cpu"],
-        "classic_cpu_shape": "demo_showcase 1920x1080 d80, cpu contract, one pass (all launches of one frame)",
-        "classic_cpu_launches": classic_runs["cpu"]["counts"]["LAUNCHES"],
-        "classic_cpu_launches_are": "launches of the classic instance on the cpu-contract path (4 renders of "
-                                    "16 passes)",
-        "classic_cpu_device_ms": classic_device_ms["cpu"],
-        "classic_cpu_bound_ms": classic_bound["cpu"],
-        "classic_fog_ms": classic_ms["gpu"],
-        "classic_fog_device_ms": classic_device_ms["gpu"],
-        "classic_fog_bound_ms": classic_bound["gpu"],
-        "classic_fog_shape": "demo_showcase 1920x1080 d12, faithful fog, one pass (16 launches a chunk)",
-        "classic_fog_launches": classic_runs["gpu"]["counts"]["LAUNCHES"],
-    }, {
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "path_trace_golang_tpu_torch/csrc/classic.cu",
+        "replaces": "path_trace_golang_tpu/ops/pallas_trace.py:404",
+        "replaces_part": what,
+        "launches": classic_runs[run]["counts"][counter],
+        "launches_are": f"launches of {kernel_of[label]} on the {path} path (4 renders)",
+        "max_abs_err": classic_err,
+        "max_abs_err_over": "the classic instance's comparisons of phases 3, 15, 19 and 28, every one bit for bit",
+        "ms": classic_device_ms[label] if classic_device_ms[label] is not None else classic_ms[run],
+        "ms_is": f"{kernel_of[label]}'s device time (torch.profiler) on the shape below"
+                 if classic_device_ms[label] is not None else "CUDA events around the shape below",
+        "events_ms": classic_ms[run],
+        "plain_ms": plain,
+        "plain_shape": plain_shape,
+        "bound_ms": classic_bound[label][0],
+        "bound_by": classic_bound[label][1],
+        "bound_slots_ms": classic_bound[label][3],
+        "ops": classic_bound[label][2],
+        "library_ms": None,
+        "shape": shape,
+    } for name, label, run, counter, path, what, plain, plain_shape, shape in (
+        ("classic_window", "cpu", "cpu", "CLASSIC_LAUNCHES", "cpu-contract (1080p d80, 16 passes)",
+         "the classic per-sample loop of render.pass_body_grid (render.py:296-322), the cpu contract", cpu_plain_ms,
+         f"{CLASSIC_CHECK_LANES} strided lanes of the 1080p d80 frame, the 8-pass window",
+         f"demo_showcase 1920x1080 d80, cpu contract, a window of 8 passes over {n_pad} lanes in one launch"),
+        ("classic_sample", "gpu", "gpu", "CLASSIC_LAUNCHES", "faithful-fog (1080p d12, 1 pass)",
+         "the classic per-sample loop of render.pass_body_grid (render.py:296-322) under faithful fog: the bounces",
+         fog_chunk_plain_ms,
+         f"the whole pass body on the first chunk ({chunk} lanes) of the 1080p d12 faithful-fog frame",
+         f"demo_showcase 1920x1080 d12, faithful fog, one pass: 16 samples over {n_pad} lanes, 16 launches (after "
+         f"16 of the march kernel)"),
+        ("classic_march", "march", "gpu", "MARCH_LAUNCHES", "faithful-fog (1080p d12, 1 pass)",
+         "the classic per-sample loop under faithful fog: each sample's state advance, camera ray and the trace's "
+         "fog march (integrator._trace_gpu's fog_prepass_grid)", march_plain_ms,
+         f"integrator.fog_prepass_grid on the first chunk's {chunk} primary rays",
+         f"demo_showcase 1920x1080 d12, faithful fog, one pass: 16 samples over {n_pad} lanes, 16 launches"))
+    ] + [{
         "name": "fog_pass",
         "route": "cuda",
         "source": "path_trace_golang_tpu_torch/csrc/render_pass.cu",

@@ -1,5 +1,5 @@
-// The classic per-sample loop, one thread per lane: kernel B3 (trace given
-// rays) and the classic instance of the whole-pass kernel.
+// The classic per-sample loop: kernel B3 (trace given rays) and the classic
+// instance of the whole-pass kernel.
 //
 // Replaces: path_trace_golang_tpu/ops/pallas_trace.py::trace_grid_pallas
 // (kernel B3: integrator._trace_cpu or _trace_gpu on the rays the caller
@@ -11,8 +11,9 @@
 // (gpu_bounce of common.cuh) after the fog march on the trace's own stream.
 //
 // What bounds it on an H100: f32 arithmetic outside the tensor cores (67
-// TFLOP/s at 700 W), not bytes: B3 reads 28 bytes a ray and writes 20.
-// One thread owns one lane's whole path in registers, the scene tables sit
+// TFLOP/s at 700 W; half of that for multiply-adds built with --fmad=false)
+// and the hash rounds of the RNG, not bytes: B3 reads 28 bytes a ray and
+// writes 20.  A lane's whole path lives in registers, the scene tables sit
 // in shared memory, and meshes of any size go through intersect<PAGED> and
 // occluded<PAGED> as in the regeneration kernel.
 //
@@ -21,22 +22,50 @@
 // alive, and every lane, dead or alive, draws one bounce's quota on every
 // trip (PHYSICS.md D7).  A lane's returned state is therefore its state
 // after its own L bounces advanced by (T - L) more quotas, where T, the
-// trips of the call, is the longest path among its lanes.  A thread stops
-// at its own path's end, writes L and raises T with atomicMax; since T is
-// known only when every block has finished, the rest is done by a second
-// launch: for B3 pt_trace_grid's advance_kernel, for the whole-pass
-// instance the next sample's launch, which begins with that advance (one
-// sample a launch, the state kept in device memory between launches).
-// Draws per trip: the gpu contract's shade draws + 1, the cpu contract's 9.
-// The fog march of faithful fog draws 2 per light and step first.
+// trips of the call (for the Renderer: of the lane's chunk), is the longest
+// path among its lanes.  A thread stops at its own path's end, writes L and
+// raises T with atomicMax; since T is known only when every block has
+// finished, the rest is done by a second launch: for B3 pt_trace_grid's
+// advance_kernel, for the whole-pass instance the next sample's launch,
+// which begins with that advance.  Draws per trip: the gpu contract's shade
+// draws + 1, the cpu contract's 9.  The fog march of faithful fog draws 2
+// per light and step first.
+//
+// What the design does about it:
+// - with one sample a pass (the cpu contract) no lane waits on another's
+//   path: classic_window_kernel runs a window of passes over all of a
+//   frame's lanes in one launch of persistent blocks, one bounce an
+//   iteration of one flat loop, so that a thread starts its lane's next
+//   pass as soon as the last one ends and then takes the next lane (a
+//   nested loop would wait for the warp's longest path every pass; depth 80
+//   has a long tail), and adds each pass's radiance into the Renderer's
+//   accumulator in pass order, one f32 add a pass as the plain version's
+//   accum += col;
+// - with several samples a pass (faithful fog), a sample is two launches
+//   over all of a frame's chunks: classic_march_kernel (the state advance,
+//   the camera ray and the fog march, most of the work, in step on every
+//   lane) and classic_sample_kernel (the bounces), each lane reading the
+//   longest path of its own chunk (trips[chunk][sample]); the last sample
+//   adds the pass into the accumulator.
 //
 // Built by path_trace_golang_tpu_torch/ops/cuda_trace.py like render_pass.cu
 // (its own nvcc, its own library) and bound with ctypes through
-// pt_trace_grid() and pt_classic_pass().
+// pt_trace_grid(), pt_classic_window() and pt_classic_samples().
+
+#include <algorithm>
 
 #include "common.cuh"
 
 namespace {
+
+// the blocks of 128 threads an SM that ptxas must leave room for (registers
+// at most 65,536 / (128 x blocks)), by kernel and instance (PERF.md, the
+// occupancy A/B): faithful fog's march and bounces gain from 64 registers
+// and 8 blocks despite their spills (-9% and -4% of a pass); the cpu
+// window's kernel moves by less than the runs' spread from 48 to 80
+// registers, and keeps ptxas' choice (72, 95 with pages); the paged march
+// and bounces, which no measured cell runs, keep ptxas' choice (a minimum of 1)
+constexpr int MARCH_MIN_BLOCKS = 8, SAMPLE_MIN_BLOCKS = 8;
 
 constexpr int CPU_DRAWS = 9;  // 2 + 3 Lambert, 2 metal lobe, 1 Fresnel, 1 russian roulette
 
@@ -111,11 +140,14 @@ __device__ bool exit_scan(const Scene& S, V o, V d, V& exit_p OPS_PARAM) {
 template <bool PAGED>
 __device__ bool cpu_bounce(const Scene& S, const Params& P, int dep, V& orig, V& dir, V& thr, V& col,
                            uint32_t& st OPS_PARAM) {
+  STAGE_BEGIN(isect_t0);
   Hit h = intersect<PAGED>(S, orig, dir, -1, false OPS_ARG);
+  STAGE_END(isect_t0, STAGE_ISECT);
   if (!h.hit) {
     OPS(C_NORMALIZE + C_BACKGROUND + 6);
     col = add(col, mul(thr, background(S, normalize(dir))));
     skip_u(st, CPU_DRAWS);
+    RNG(CPU_DRAWS);
     return false;
   }
   const float* mt = S.mat + h.mat_idx * MAT_STRIDE;
@@ -136,6 +168,7 @@ __device__ bool cpu_bounce(const Scene& S, const Params& P, int dep, V& orig, V&
   const float bu1 = next_u(st), bu2 = next_u(st), bu3 = next_u(st);
   const float mu1 = next_u(st), mu2 = next_u(st);
   const float u_fr = next_u(st);
+  RNG(8);
 
   V new_dir = n, new_orig = p;
   V att = is_diel ? mk(1.0f, 1.0f, 1.0f) : mk(mt[4], mt[5], mt[6]);
@@ -183,6 +216,7 @@ __device__ bool cpu_bounce(const Scene& S, const Params& P, int dep, V& orig, V&
   // russian roulette on the remaining depth (renderer.go:373-393)
   const int remaining = P.max_depth - dep;
   float u_rr = next_u(st);
+  RNG(1);
   float mc = max_comp(att);
   bool rr_active = remaining <= P.rr_threshold;
   float rr_prob = nmin(mc, F(0.95));
@@ -200,37 +234,57 @@ __device__ bool cpu_bounce(const Scene& S, const Params& P, int dep, V& orig, V&
   return alive;
 }
 
-// one lane of the classic loop for a given ray (integrator.py::_trace_gpu /
-// _trace_cpu): the fog march first under faithful fog, then bounces up to
-// max_depth.  Returns the radiance; st advances by the fog march's draws
-// and one quota per own bounce, len receives the lane's bounces.  An
-// inactive lane marches nothing and bounces never, but draws the march's
-// quota all the same.
-template <bool PAGED, bool CPU>
-__device__ __forceinline__ V trace_lane(const Scene& S, const Params& P, const Shading& D, V orig, V dir,
-                                        uint32_t& st, bool active, int& len OPS_PARAM) {
+// the fog march of faithful fog that starts a lane's trace, on the trace's
+// own stream (integrator.py::_trace_gpu): its gated radiance, from which
+// the bounces add on.  An inactive lane marches nothing but draws the
+// march's quota all the same.
+template <bool PAGED>
+__device__ __forceinline__ V trace_march(const Scene& S, V orig, V dir, uint32_t& st, bool active OPS_PARAM) {
   V col = mk(0.0f, 0.0f, 0.0f);
-  if (!CPU && (P.flags & FLAG_FOG_TRACE)) {
-    if (active) {
-      const float gate = S.fog[3] > 0.5f ? 1.0f : 0.0f;
-      col = muls(fog_march<PAGED>(S, fog_params(S.fog), orig, dir, st OPS_ARG), gate);
-    } else {
-      skip_u(st, FOG_STEPS * 2 * S.n_lights);
-    }
+  STAGE_BEGIN(fog_t0);
+  if (active) {
+    const float gate = S.fog[3] > 0.5f ? 1.0f : 0.0f;
+    col = muls(fog_march<PAGED>(S, fog_params(S.fog), orig, dir, st OPS_ARG), gate);
+  } else {
+    skip_u(st, FOG_STEPS * 2 * S.n_lights);
+    RNG(FOG_STEPS * 2 * S.n_lights);
   }
+  STAGE_END(fog_t0, STAGE_FOG);
+  return col;
+}
+
+// the bounces of one lane's trace, up to max_depth, adding into col; st
+// advances one quota per own bounce, len receives the lane's bounces
+template <bool PAGED, bool CPU>
+__device__ __forceinline__ V trace_bounces(const Scene& S, const Params& P, const Shading& D, V orig, V dir, V col,
+                                           uint32_t& st, bool active, int& len OPS_PARAM) {
   V thr = mk(1.0f, 1.0f, 1.0f);
   int glass_obj = -1;
   float glass_dist = 0.0f;
   bool alive = active;
   len = 0;
+  STAGE_BEGIN(loop_t0);
   for (int dep = 0; alive && dep < P.max_depth; ++dep) {
     len += 1;
     if constexpr (CPU)
       alive = cpu_bounce<PAGED>(S, P, dep, orig, dir, thr, col, st OPS_ARG);
     else
       alive = gpu_bounce<PAGED>(S, P, D, dep, orig, dir, thr, col, st, glass_obj, glass_dist OPS_ARG);
+    LANE_DONE();
   }
+  STAGE_END(loop_t0, STAGE_LOOP);
   return col;
+}
+
+// one lane of the classic loop for a given ray (integrator.py::_trace_gpu /
+// _trace_cpu): the fog march first under faithful fog, then the bounces.
+// Returns the radiance.
+template <bool PAGED, bool CPU>
+__device__ __forceinline__ V trace_lane(const Scene& S, const Params& P, const Shading& D, V orig, V dir,
+                                        uint32_t& st, bool active, int& len OPS_PARAM) {
+  V col = mk(0.0f, 0.0f, 0.0f);
+  if (!CPU && (P.flags & FLAG_FOG_TRACE)) col = trace_march<PAGED>(S, orig, dir, st, active OPS_ARG);
+  return trace_bounces<PAGED, CPU>(S, P, D, orig, dir, col, st, active, len OPS_ARG);
 }
 
 // kernel B3: rays[6][n] (origin, direction), states and an optional active
@@ -272,91 +326,274 @@ __global__ void __launch_bounds__(BLOCK) trace_grid_kernel(Tables T, Params P, c
 }
 
 // the draws that the call's other trips take: (T - L) quotas for each lane
+// (the counting build adds their hash rounds into counters[13])
 __global__ void __launch_bounds__(BLOCK) advance_kernel(uint32_t* __restrict__ st, const int* __restrict__ len,
-                                                        const int* __restrict__ trips, int n, int draws) {
+                                                        const int* __restrict__ trips, int n, int draws,
+                                                        unsigned long long* __restrict__ counters) {
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  int skip = 0;
   if (lane < n) {
     uint32_t s = st[lane];
-    skip_u(s, (*trips - len[lane]) * draws);
+    skip = (*trips - len[lane]) * draws;
+    skip_u(s, skip);
     st[lane] = s;
   }
+#ifdef PT_COUNT_OPS
+  unsigned long long rounds = (unsigned long long)skip;
+  for (int off = 16; off > 0; off >>= 1) rounds += __shfl_down_sync(0xffffffffu, rounds, off);
+  if ((threadIdx.x & 31) == 0 && rounds) atomicAdd(counters + 13, rounds);
+#else
+  (void)counters;
+#endif
 }
 
-// the classic instance of the whole-pass kernel: sample ``sample`` of a pass
-// (render.py:296-322) for pixel lanes.  Sample 0 seeds the lane and adds the
-// fog-once estimate where the flags ask for it; a later sample first
-// advances the state that the previous launch left by the previous sample's
-// other trips.  Then two jitter draws, the stratum, the camera ray, the
-// trace; the radiance adds into out[3][n].  The state, path length and trips
-// are kept for the next sample.
-template <bool PAGED, bool CPU>
-__global__ void __launch_bounds__(BLOCK) classic_pass_kernel(Tables T, Params P, const int* __restrict__ g_px,
-                                                             const int* __restrict__ g_py, int sample,
-                                                             float* __restrict__ out, uint32_t* __restrict__ st_buf,
-                                                             int* __restrict__ len_buf, int* __restrict__ trips,
-                                                             unsigned long long* __restrict__ segs_out) {
+// the camera ray of a classic sample (render.py:296-322): two jitter draws,
+// the stratum, the camera ray (and the lens draws) from st
+__device__ __forceinline__ void sample_ray(const Scene& S, const Params& P, uint32_t px, uint32_t py, int sample,
+                                           uint32_t& st, V& o, V& d OPS_PARAM) {
+  const float inv_w = 1.0f / (float)(P.width > 1 ? P.width - 1 : 1);
+  const float inv_h = 1.0f / (float)(P.height > 1 ? P.height - 1 : 1);
+  const float pxf = (float)(int)px;
+  const float fy = (float)(P.height - 1) - (float)(int)py;
+  float jx = next_u(st), jy = next_u(st);
+  RNG(2);
+  OPS(2 * C_DRAW + 10);
+  float su = jx, sv = jy;
+  if (P.n_strata > 1) {
+    const float inv_strata = F(1.0 / P.n_strata);
+    su = (jx + (float)(sample % P.n_strata)) * inv_strata;
+    sv = (jy + (float)(sample / P.n_strata)) * inv_strata;
+  }
+  camera_ray(S, (pxf + su) * inv_w, (fy + sv) * inv_h, P.flags & FLAG_APERTURE, P.flags & FLAG_LENS_DISK, st, o, d
+             OPS_ARG);
+}
+
+// the classic instance for one sample a pass (the cpu contract's bounce, no
+// fog once a pass): a window of n_passes passes for pixel lanes, pass p
+// seeded at frame_seed + p, its radiance added into accum[lane][3] in pass
+// order.  Persistent blocks run one flat loop of one bounce an iteration;
+// a thread whose path ends starts its lane's next pass in the next
+// iteration, and after its lane's last pass takes the next lane from
+// counters[CURSOR] (zero on entry), so that its warp waits on no other
+// thread's path until the lanes run out (10% off the window against one
+// thread a lane: PERF.md).
+template <bool PAGED>
+__global__ void __launch_bounds__(BLOCK)
+    classic_window_kernel(Tables T, Params P, const int* __restrict__ g_px, const int* __restrict__ g_py,
+                          float* __restrict__ accum, unsigned long long* __restrict__ counters) {
   extern __shared__ float smem[];
   __shared__ unsigned long long s_segs;
-  __shared__ int s_trips;
-  if (threadIdx.x == 0) { s_segs = 0ull; s_trips = 0; }
+  if (threadIdx.x == 0) s_segs = 0ull;
+  const Scene S = load_scene(T, P, smem);
+  unsigned long long segs = 0ull;
+  OPS_DECL;
+  int lane = (int)atomicAdd(counters + CURSOR, 1ull);
+  uint32_t px = 0, py = 0, st = 0;
+  int p = 0, dep = 0;
+  bool fresh = true, tracing = false;
+  V acc = mk(0.0f, 0.0f, 0.0f), col = acc, orig = acc, dir = acc, thr = acc;
+  STAGE_BEGIN(loop_t0);
+  while (lane < P.n_lanes) {
+    if (!tracing) {
+      STAGE_BEGIN(cam_t0);
+      if (fresh) {
+        px = (uint32_t)g_px[lane];
+        py = (uint32_t)g_py[lane];
+        acc = mk(accum[3 * (size_t)lane], accum[3 * (size_t)lane + 1], accum[3 * (size_t)lane + 2]);
+        p = 0;
+        fresh = false;
+      }
+      st = seed_lane(px, py, P.frame_seed + (uint32_t)p);
+      RNG(1);
+      sample_ray(S, P, px, py, 0, st, orig, dir OPS_ARG);
+      thr = mk(1.0f, 1.0f, 1.0f);
+      col = mk(0.0f, 0.0f, 0.0f);
+      dep = 0;
+      tracing = true;
+      STAGE_END(cam_t0, STAGE_CAMERA);
+    }
+    bool done = true;
+    if (dep < P.max_depth) {
+      segs += 1;
+      done = !cpu_bounce<PAGED>(S, P, dep, orig, dir, thr, col, st OPS_ARG);
+      dep += 1;
+      done = done || dep >= P.max_depth;
+      LANE_DONE();
+    }
+    if (done) {  // the pass's radiance into the accumulator (pass_body_grid, then accum += col)
+      tracing = false;
+      if (P.flags & FLAG_NORMALIZE) col = muls(col, F(1.0 / P.samples));
+      acc = add(acc, col);
+      if (++p == P.n_passes) {
+        accum[3 * (size_t)lane] = acc.x;
+        accum[3 * (size_t)lane + 1] = acc.y;
+        accum[3 * (size_t)lane + 2] = acc.z;
+        lane = (int)atomicAdd(counters + CURSOR, 1ull);
+        fresh = true;
+      }
+    }
+  }
+  STAGE_END(loop_t0, STAGE_LOOP);
+#ifdef PT_COUNT_OPS
+  ops.stage[STAGE_LOOP] -= ops.stage[STAGE_CAMERA];  // the loop's stage is its bounces (and the warp's wait)
+#endif
+  add_counters(segs, &s_segs, counters OPS_ARG);
+}
+
+// the classic instance, one sample of a pass for pixel lanes in chunks of
+// ``chunk`` (render.py:296-322), as two launches a sample, the longest paths
+// of each chunk's samples in trips[chunk][samples]: first the sample's ray
+// (classic_march_kernel): sample 0 seeds the lane (and adds the fog-once
+// estimate where the flags ask for it), a later sample advances the state
+// that the last launch left by the previous sample's other trips of the
+// lane's chunk; then the stratum's camera ray and, under faithful fog, the
+// trace's fog march, whose gated radiance goes with the ray to ray_buf[9][n]
+// (origin, direction, march) and the state to st_buf.  Then the bounces
+// (classic_sample_kernel) from there; the running radiance, state and path
+// length stay in col_buf[3][n], st_buf, len_buf for the next sample, and
+// the last sample adds the pass into accum[lane][3].  The march holds most
+// of faithful fog's time and runs in step on every lane (FOG_STEPS steps x
+// every light) at its own register budget (PERF.md: 13% off the pass).
+template <bool PAGED, bool CPU>
+__global__ void __launch_bounds__(BLOCK, PAGED ? 1 : MARCH_MIN_BLOCKS)
+    classic_march_kernel(Tables T, Params P, const int* __restrict__ g_px, const int* __restrict__ g_py, int sample,
+                         int chunk, float* __restrict__ col_buf, float* __restrict__ ray_buf,
+                         uint32_t* __restrict__ st_buf, const int* __restrict__ len_buf,
+                         const int* __restrict__ trips, unsigned long long* __restrict__ counters) {
+  extern __shared__ float smem[];
+  __shared__ unsigned long long s_segs;
+  if (threadIdx.x == 0) s_segs = 0ull;
+  const Scene S = load_scene(T, P, smem);
+  OPS_DECL;
+  const size_t n = (size_t)P.n_lanes;
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane < P.n_lanes) {
+    const uint32_t px = (uint32_t)g_px[lane], py = (uint32_t)g_py[lane];
+    uint32_t st;
+    STAGE_BEGIN(adv_t0);
+    if (sample == 0) {
+      st = seed_lane(px, py, P.frame_seed);
+      RNG(1);
+      V col = mk(0.0f, 0.0f, 0.0f);
+      if (P.flags & FLAG_FOG_ONCE) {  // one pass: the fog estimate on its own stream (render.py:232-266)
+        const float gate = S.fog[3] > 0.5f ? 1.0f : 0.0f;
+        const float inv_w = 1.0f / (float)(P.width > 1 ? P.width - 1 : 1);
+        const float inv_h = 1.0f / (float)(P.height > 1 ? P.height - 1 : 1);
+        uint32_t fst = seed_lane(px, py, P.frame_seed ^ 0x9E3779B9u);
+        float jx = next_u(fst), jy = next_u(fst);
+        RNG(3);
+        OPS(2 * C_DRAW + 4 + 2 + 9);
+        V fo, fd;
+        camera_ray(S, ((float)(int)px + jx) * inv_w, ((float)(P.height - 1) - (float)(int)py + jy) * inv_h,
+                   P.flags & FLAG_APERTURE, P.flags & FLAG_LENS_DISK, fst, fo, fd OPS_ARG);
+        col = muls(muls(fog_march<PAGED>(S, fog_params(S.fog), fo, fd, fst OPS_ARG), gate), (float)P.samples);
+      }
+      col_buf[lane] = col.x;
+      col_buf[n + lane] = col.y;
+      col_buf[2 * n + lane] = col.z;
+    } else {
+      const int c = lane / chunk;
+      st = st_buf[lane];
+      const int skip = (trips[c * P.samples + sample - 1] - len_buf[lane]) * trip_draws(P.flags, P.n_lights);
+      skip_u(st, skip);
+      RNG(skip);
+    }
+    STAGE_END(adv_t0, STAGE_ADVANCE);
+    STAGE_BEGIN(cam_t0);
+    V o, d;
+    sample_ray(S, P, px, py, sample, st, o, d OPS_ARG);
+    STAGE_END(cam_t0, STAGE_CAMERA);
+    V m = mk(0.0f, 0.0f, 0.0f);
+    if (!CPU && (P.flags & FLAG_FOG_TRACE)) m = trace_march<PAGED>(S, o, d, st, true OPS_ARG);
+    const float v[9] = {o.x, o.y, o.z, d.x, d.y, d.z, m.x, m.y, m.z};
+    for (int k = 0; k < 9; ++k) ray_buf[k * n + lane] = v[k];
+    st_buf[lane] = st;
+  }
+#ifdef PT_COUNT_OPS
+  add_counters(0ull, &s_segs, counters OPS_ARG);
+#else
+  (void)counters;
+#endif
+}
+
+// the bounces of a classic sample from classic_march_kernel's ray, state and
+// march (ray_buf, st_buf), adding into the running radiance
+template <bool PAGED, bool CPU>
+__global__ void __launch_bounds__(BLOCK, PAGED ? 1 : SAMPLE_MIN_BLOCKS)
+    classic_sample_kernel(Tables T, Params P, int sample, int chunk, float* __restrict__ col_buf,
+                          const float* __restrict__ ray_buf, uint32_t* __restrict__ st_buf, int* __restrict__ len_buf,
+                          int* __restrict__ trips, float* __restrict__ accum,
+                          unsigned long long* __restrict__ counters) {
+  extern __shared__ float smem[];
+  __shared__ unsigned long long s_segs;
+  if (threadIdx.x == 0) s_segs = 0ull;
   const Scene S = load_scene(T, P, smem);
   const Shading D = make_shading(S, P);
-  const bool aperture = P.flags & FLAG_APERTURE, disk = P.flags & FLAG_LENS_DISK;
   const bool keep = sample + 1 < P.samples;  // a next sample reads the state
   unsigned long long segs = 0ull;
   OPS_DECL;
-  const int n = P.n_lanes;
-  int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < n) {
-    const uint32_t px = (uint32_t)g_px[lane], py = (uint32_t)g_py[lane];
-    const float inv_w = 1.0f / (float)(P.width > 1 ? P.width - 1 : 1);
-    const float inv_h = 1.0f / (float)(P.height > 1 ? P.height - 1 : 1);
-    const float pxf = (float)(int)px;
-    const float fy = (float)(P.height - 1) - (float)(int)py;
-    uint32_t st;
-    V col = mk(0.0f, 0.0f, 0.0f);
-    if (sample == 0) {
-      st = seed_lane(px, py, P.frame_seed);
-      if (P.flags & FLAG_FOG_ONCE) {  // one pass: the fog estimate on its own stream (render.py:232-266)
-        const float gate = S.fog[3] > 0.5f ? 1.0f : 0.0f;
-        uint32_t fst = seed_lane(px, py, P.frame_seed ^ 0x9E3779B9u);
-        float jx = next_u(fst), jy = next_u(fst);
-        OPS(2 * C_DRAW + 4 + 2 + 9);
-        V o, d;
-        camera_ray(S, (pxf + jx) * inv_w, (fy + jy) * inv_h, aperture, disk, fst, o, d OPS_ARG);
-        col = muls(muls(fog_march<PAGED>(S, fog_params(S.fog), o, d, fst OPS_ARG), gate), (float)P.samples);
-      }
-    } else {
-      st = st_buf[lane];
-      skip_u(st, (trips[sample - 1] - len_buf[lane]) * trip_draws(P.flags, P.n_lights));
-      col = mk(out[lane], out[n + lane], out[2 * n + lane]);
-    }
-    float jx = next_u(st), jy = next_u(st);
-    OPS(2 * C_DRAW + 10);
-    float su = jx, sv = jy;
-    if (P.n_strata > 1) {
-      const float inv_strata = F(1.0 / P.n_strata);
-      su = (jx + (float)(sample % P.n_strata)) * inv_strata;
-      sv = (jy + (float)(sample / P.n_strata)) * inv_strata;
-    }
-    V o, d;
-    camera_ray(S, (pxf + su) * inv_w, (fy + sv) * inv_h, aperture, disk, st, o, d OPS_ARG);
-    int len;
-    col = add(col, trace_lane<PAGED, CPU>(S, P, D, o, d, st, true, len OPS_ARG));
+  const size_t n = (size_t)P.n_lanes;
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool valid = lane < P.n_lanes;
+  int len = 0;
+  if (valid) {
+    uint32_t st = st_buf[lane];
+    const V o = mk(ray_buf[lane], ray_buf[n + lane], ray_buf[2 * n + lane]);
+    const V d = mk(ray_buf[3 * n + lane], ray_buf[4 * n + lane], ray_buf[5 * n + lane]);
+    const V m = mk(ray_buf[6 * n + lane], ray_buf[7 * n + lane], ray_buf[8 * n + lane]);
+    V col = mk(col_buf[lane], col_buf[n + lane], col_buf[2 * n + lane]);
+    col = add(col, trace_bounces<PAGED, CPU>(S, P, D, o, d, m, st, true, len OPS_ARG));
     segs = (unsigned long long)len;
     if (keep) {
       st_buf[lane] = st;
       len_buf[lane] = len;
-      if (len) atomicMax(&s_trips, len);
-    } else if (P.flags & FLAG_NORMALIZE) {
-      col = muls(col, F(1.0 / P.samples));
+      col_buf[lane] = col.x;
+      col_buf[n + lane] = col.y;
+      col_buf[2 * n + lane] = col.z;
+    } else {  // the pass into the accumulator (pass_body_grid, then accum += col)
+      if (P.flags & FLAG_NORMALIZE) col = muls(col, F(1.0 / P.samples));
+      float* a = accum + 3 * (size_t)lane;
+      a[0] = a[0] + col.x;
+      a[1] = a[1] + col.y;
+      a[2] = a[2] + col.z;
     }
-    out[lane] = col.x;
-    out[n + lane] = col.y;
-    out[2 * n + lane] = col.z;
   }
-  add_counters(segs, &s_segs, segs_out OPS_ARG);
-  if (threadIdx.x == 0 && keep && s_trips) atomicMax(trips + sample, s_trips);
+  add_counters(segs, &s_segs, counters OPS_ARG);
+  // the chunk's longest path: a warp's lanes of one chunk together, one atomic each
+  const int key = valid && keep ? lane / chunk : -1;
+  const unsigned same = __match_any_sync(0xffffffffu, key);
+  const int most = __reduce_max_sync(same, len);
+  if (key >= 0 && most > 0 && (int)(threadIdx.x & 31) == __ffs(same) - 1)
+    atomicMax(trips + key * P.samples + sample, most);
+}
+
+// the launch plumbing of the classic instance: the Params of a call
+inline Params classic_params(Params P, int n_lanes, unsigned int frame_seed, int width, int height, int n_strata,
+                             int samples, int n_passes, int max_depth, int rr_threshold, int flags) {
+  P.n_lanes = n_lanes; P.frame_seed = frame_seed; P.width = width; P.height = height;
+  P.n_strata = n_strata; P.samples = samples; P.n_passes = n_passes; P.max_depth = max_depth;
+  P.rr_threshold = rr_threshold; P.flags = flags;
+  return P;
+}
+
+template <bool PAGED, bool CPU>
+cudaError_t launch_samples(const Tables& T, const Params& P, size_t smem, cudaStream_t stream, const int* px,
+                           const int* py, int sample0, int sample1, int chunk, float* col, float* rays,
+                           unsigned int* state, int* len, int* trips, float* accum, unsigned long long* march_counters,
+                           unsigned long long* counters) {
+  auto march = classic_march_kernel<PAGED, CPU>;
+  auto bounce = classic_sample_kernel<PAGED, CPU>;
+  cudaError_t e = prepare_launch(march, smem);
+  if (e == cudaSuccess) e = prepare_launch(bounce, smem);
+  if (e != cudaSuccess) return e;
+  const int grid = (P.n_lanes + BLOCK - 1) / BLOCK;
+  for (int s = sample0; s < sample1; ++s) {
+    march<<<grid, BLOCK, smem, stream>>>(T, P, px, py, s, chunk, col, rays, state, len, trips, march_counters);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    bounce<<<grid, BLOCK, smem, stream>>>(T, P, s, chunk, col, rays, state, len, trips, accum, counters);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -380,29 +617,66 @@ extern "C" int pt_trace_grid(PT_SCENE_PARAMS, const float* rays, const unsigned 
   kernel<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(T, P, rays, st_in, active, out, st_out, len, trips, segs);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  advance_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(st_out, len, trips, n, trip_draws(flags, n_lights));
+  advance_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(st_out, len, trips, n, trip_draws(flags, n_lights), segs);
   return (int)cudaGetLastError();
 }
 
-// sample ``sample`` of one pass of the classic loop for n pixel lanes;
-// the caller launches samples 0 .. samples - 1 in order on one stream, with
-// trips[samples] zeroed and out, state and len of n lanes each
-extern "C" int pt_classic_pass(PT_SCENE_PARAMS, const int* px, const int* py, int n_lanes, unsigned int frame_seed,
-                               int width, int height, int n_strata, int samples, int sample, int max_depth,
-                               int rr_threshold, int flags, float* out, unsigned int* state, int* len, int* trips,
-                               unsigned long long* segs, void* stream) {
-  if (n_lanes <= 0) return 0;
-  PT_SCENE_UNPACK(T, P);
-  P.n_lanes = n_lanes; P.frame_seed = frame_seed; P.width = width; P.height = height;
-  P.n_strata = n_strata; P.samples = samples; P.n_passes = 1; P.max_depth = max_depth;
-  P.rr_threshold = rr_threshold; P.flags = flags;
+// a window of n_passes passes of the cpu contract (one sample a pass, no fog
+// once a pass) for n_lanes pixel lanes, added into accum[n_lanes][3]:
+// persistent blocks (as many as fit) whose threads take lanes from
+// counters[CURSOR], which the call zeroes
+extern "C" int pt_classic_window(PT_SCENE_PARAMS, const int* px, const int* py, int n_lanes, unsigned int frame_seed,
+                                 int width, int height, int n_strata, int n_passes, int max_depth, int rr_threshold,
+                                 int flags, float* accum, unsigned long long* counters, void* stream) {
+  if (n_lanes <= 0 || n_passes <= 0) return 0;
+  if (!(flags & FLAG_CPU) || (flags & FLAG_FOG_ONCE)) return (int)cudaErrorInvalidValue;
+  PT_SCENE_UNPACK(T, P0);
+  const Params P = classic_params(P0, n_lanes, frame_seed, width, height, n_strata, 1, n_passes, max_depth,
+                                  rr_threshold, flags);
   const size_t smem = scene_smem_bytes(P);
-  const bool cpu = flags & FLAG_CPU;
-  auto kernel = n_pages > 0 ? (cpu ? classic_pass_kernel<true, true> : classic_pass_kernel<true, false>)
-                            : (cpu ? classic_pass_kernel<false, true> : classic_pass_kernel<false, false>);
+  auto kernel = n_pages > 0 ? classic_window_kernel<true> : classic_window_kernel<false>;
   cudaError_t e = prepare_launch(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<(n_lanes + BLOCK - 1) / BLOCK, BLOCK, smem, (cudaStream_t)stream>>>(T, P, px, py, sample, out, state,
-                                                                              len, trips, segs);
+  int per_sm = 0, dev = 0, sms = 0;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK, smem)) != cudaSuccess) return (int)e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)e;
+  const int grid = std::min((n_lanes + BLOCK - 1) / BLOCK, std::max(per_sm, 1) * sms);
+  e = cudaMemsetAsync(counters + CURSOR, 0, sizeof(unsigned long long), (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(T, P, px, py, accum, counters);
   return (int)cudaGetLastError();
+}
+
+// samples sample0 .. sample1 - 1 of one pass of the classic loop for n_lanes
+// pixel lanes in chunks of ``chunk`` lanes (the last may be short), two
+// launches a sample (its ray and march, then its bounces), the last sample
+// adding the pass into accum[n_lanes][3]; launched in order on one stream.
+// col f32[3][n], state and len [n] carry a lane from one sample to the
+// next, rays f32[9][n] from a sample's first launch to its second, trips
+// int[n_chunks][samples] the chunks' longest paths (zeroed by the call that
+// starts at sample 0).  The march launches add their counts (counting build)
+// into march_counters, the bounces' into counters.
+extern "C" int pt_classic_samples(PT_SCENE_PARAMS, const int* px, const int* py, int n_lanes, int chunk,
+                                  unsigned int frame_seed, int width, int height, int n_strata, int samples,
+                                  int sample0, int sample1, int max_depth, int rr_threshold, int flags, float* col,
+                                  float* rays, unsigned int* state, int* len, int* trips, float* accum,
+                                  unsigned long long* march_counters, unsigned long long* counters, void* stream) {
+  if (n_lanes <= 0 || sample0 >= sample1) return 0;
+  if (chunk <= 0 || sample0 < 0 || sample1 > samples) return (int)cudaErrorInvalidValue;
+  PT_SCENE_UNPACK(T, P0);
+  const Params P = classic_params(P0, n_lanes, frame_seed, width, height, n_strata, samples, 1, max_depth,
+                                  rr_threshold, flags);
+  const size_t smem = scene_smem_bytes(P);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (sample0 == 0) {
+    const size_t n_chunks = ((size_t)n_lanes + chunk - 1) / chunk;
+    cudaError_t e = cudaMemsetAsync(trips, 0, sizeof(int) * n_chunks * samples, s);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const bool cpu = flags & FLAG_CPU;
+  auto run = n_pages > 0 ? (cpu ? launch_samples<true, true> : launch_samples<true, false>)
+                         : (cpu ? launch_samples<false, true> : launch_samples<false, false>);
+  return (int)run(T, P, smem, s, px, py, sample0, sample1, chunk, col, rays, state, len, trips, accum,
+                  march_counters, counters);
 }

@@ -18,7 +18,7 @@
 // and keeps the walk's own sum beside it, and WALK_CLOCK(call) adds the
 // cycles of one call of the walk.  RNG(n) counts n rounds of the hash (one a
 // draw, one a skipped draw, one a seed).  STAGE_BEGIN/STAGE_END add the
-// cycles of a stage of the regeneration loop into its slot (STAGE_*),
+// cycles of a stage of a loop into its slot (STAGE_*),
 // NEE_ENTRY counts the lanes of a warp that enter next-event estimation
 // together, LANE_DONE stamps the end of a lane's last segment.  In the normal
 // build these macros expand to nothing (or to the bare call) and the
@@ -28,14 +28,18 @@
 // uint64; the counting build also fills [1] the f32 operation count, [2] the
 // part of it done inside the paged walk, [3] the clock cycles that lanes
 // spent inside the paged walk, [4] the cycles they spent in all, [5] the
-// fog kernel's lane cycles (STAGE_FOG), [6..9] the cycles of the loop's
+// fog march's lane cycles (STAGE_FOG: the fog kernel, or the classic loop's
+// in-trace march), [6..9] the cycles of the loop's
 // stages, [10] the lanes that entered NEE summed over warp
 // entries and [11] those entries, [12] the warp tail (cycles from the end of
-// a lane's last segment to the end of its warp's), [13] the hash rounds, and
+// a lane's last segment to the end of its warp's), [13] the hash rounds,
 // [14..17] the launch's first block start, first block end (both stored
 // bit-inverted, so that atomicMax keeps the least), last block end and last
-// block start, in ns of %globaltimer.  counters[CURSOR] is the next lane of
-// a launch whose blocks take lanes as they go.
+// block start, in ns of %globaltimer, [18] and [19] the classic loop's
+// state advance and its jitter + camera ray (STAGE_ADVANCE, STAGE_CAMERA),
+// and [20] each warp's most segments of one thread times 32, summed (the
+// segments the warps' loops run for, against [0]).  counters[CURSOR] is the
+// next lane of a launch whose blocks take lanes as they go.
 
 #pragma once
 
@@ -45,9 +49,11 @@
 #define F(x) ((float)(x))
 
 // the stages whose cycles the counting build keeps (the fog march in its own
-// kernel, the rest in the regeneration loop)
-constexpr int STAGE_FOG = 0, STAGE_ISECT = 1, STAGE_NEE = 2, STAGE_LITE = 3, STAGE_LOOP = 4, N_STAGES = 5;
-constexpr int N_COUNTERS = 19, CURSOR = 18;
+// kernel or in the classic loop's trace, the bounce loop's, the classic
+// loop's state advance and camera ray)
+constexpr int STAGE_FOG = 0, STAGE_ISECT = 1, STAGE_NEE = 2, STAGE_LITE = 3, STAGE_LOOP = 4, STAGE_ADVANCE = 5,
+              STAGE_CAMERA = 6, N_STAGES = 7;
+constexpr int N_COUNTERS = 22, CURSOR = 21;
 
 #ifdef PT_COUNT_OPS
 __device__ __forceinline__ unsigned long long global_ns() {
@@ -1080,6 +1086,13 @@ __device__ __forceinline__ bool gpu_bounce(const Scene& S, const Params& P, cons
 // block.  Every thread of the block calls it, after s_segs was zeroed.
 __device__ __forceinline__ void add_counters(unsigned long long segs, unsigned long long* s_segs,
                                              unsigned long long* segs_out OPS_PARAM) {
+#ifdef PT_COUNT_OPS
+  const unsigned long long cycles = (unsigned long long)(clock64() - ops.t0);  // before this function's atomics
+  // the segments the warp's loop ran for: its busiest thread's, per thread
+  unsigned long long warp_segs = segs;
+  for (int off = 16; off > 0; off >>= 1) warp_segs = max(warp_segs, __shfl_xor_sync(0xffffffffu, warp_segs, off));
+  if ((threadIdx.x & 31) == 0 && warp_segs) atomicAdd(segs_out + 20, 32ull * warp_segs);
+#endif
   for (int off = 16; off > 0; off >>= 1) segs += __shfl_down_sync(0xffffffffu, segs, off);
   if ((threadIdx.x & 31) == 0 && segs) atomicAdd(s_segs, segs);
 #ifdef PT_COUNT_OPS
@@ -1087,8 +1100,14 @@ __device__ __forceinline__ void add_counters(unsigned long long segs, unsigned l
   long long warp_end = ops.t_last;
   for (int off = 16; off > 0; off >>= 1) warp_end = max(warp_end, __shfl_xor_sync(0xffffffffu, warp_end, off));
   const unsigned long long tail = ops.t_last ? (unsigned long long)(warp_end - ops.t_last) : 0ull;
+  // the classic loop's advance and camera-ray cycles into counters[18..19]
+  for (int k = STAGE_ADVANCE; k <= STAGE_CAMERA; ++k) {
+    unsigned long long c = ops.stage[k];
+    for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xffffffffu, c, off);
+    if ((threadIdx.x & 31) == 0 && c) atomicAdd(segs_out + 18 + (k - STAGE_ADVANCE), c);
+  }
   // the counting build adds the lane's counts into counters[1..13]
-  unsigned long long tally[13] = {ops.all, ops.walk, ops.walk_cycles, (unsigned long long)(clock64() - ops.t0),
+  unsigned long long tally[13] = {ops.all, ops.walk, ops.walk_cycles, cycles,
                                   ops.stage[0], ops.stage[1], ops.stage[2], ops.stage[3], ops.stage[4],
                                   ops.nee_active, ops.nee_entries, tail, ops.rng};
   for (int c = 0; c < 13; ++c) {

@@ -18,10 +18,16 @@ passes, for flat pixel lanes:
   the given lanes (with pages, persistent blocks whose threads take lanes
   as they go);
   for the cpu contract and faithful fog the classic instance of
-  ``csrc/classic.cu``, one thread a lane and one launch a sample; or it
-  raises;
+  ``csrc/classic.cu`` on the lanes as one chunk; or it raises;
 * on CPU tensors it runs :func:`render_pass_plain`, the torch
   ``render.pass_body_grid``, which the kernel is held to.
+
+:func:`classic_render` runs the classic instance as the Renderer launches
+it on the card: a window of passes over all of a frame's lanes in chunks,
+added into the Renderer's accumulator (under the cpu contract one launch a
+window, under faithful fog one launch a sample over all chunks); on CPU
+tensors its plain version, ``pass_body_grid`` pass by pass and chunk by
+chunk.
 
 :func:`trace_grid` traces given rays with the classic loop: kernel B3 of
 ``csrc/classic.cu`` on CUDA tensors, the torch ``integrator._trace_cpu`` /
@@ -39,7 +45,9 @@ bind), and bound with ``ctypes``.  ``LAUNCHES``
 counts launches of the whole-pass kernel, ``PAGED_LAUNCHES`` those of them
 that carried pages (the walk ran inside them), ``CLASSIC_LAUNCHES`` those of
 them of the classic instance, ``FOG_LAUNCHES`` launches of the fog kernel,
-``TRACE_LAUNCHES`` calls that launched kernel B3, ``WALK_LAUNCHES``
+``MARCH_LAUNCHES`` those of the classic instance's march kernel (faithful
+fog: the first of a sample's two launches; ``CLASSIC_LAUNCHES`` counts the
+second), ``TRACE_LAUNCHES`` calls that launched kernel B3, ``WALK_LAUNCHES``
 launches of the walk alone; ``PLAIN_CALLS``, ``FOG_PLAIN_CALLS``,
 ``TRACE_PLAIN_CALLS`` and ``WALK_PLAIN_CALLS`` count calls of the plain
 versions.
@@ -66,15 +74,18 @@ from .vec import V3
 
 __all__ = [
     "render_pass", "render_pass_plain", "render_pass_cuda", "count_ops", "count_ops_split", "build",
-    "fog_pass", "fog_count_ops", "b1_split", "split_line", "N_COUNTERS",
+    "fog_pass", "fog_count_ops", "b1_split", "split_line", "classic_split", "classic_split_line", "N_COUNTERS",
+    "classic_render", "classic_render_plain", "classic_render_cuda", "classic_count_split",
     "trace_grid", "trace_grid_plain", "trace_grid_cuda", "trace_count_ops",
     "paged_traverse", "paged_occluded", "paged_count_ops",
-    "LAUNCHES", "FOG_LAUNCHES", "PAGED_LAUNCHES", "CLASSIC_LAUNCHES", "TRACE_LAUNCHES", "WALK_LAUNCHES",
+    "LAUNCHES", "FOG_LAUNCHES", "MARCH_LAUNCHES", "PAGED_LAUNCHES", "CLASSIC_LAUNCHES", "TRACE_LAUNCHES",
+    "WALK_LAUNCHES",
     "PLAIN_CALLS", "FOG_PLAIN_CALLS", "TRACE_PLAIN_CALLS", "WALK_PLAIN_CALLS",
 ]
 
 LAUNCHES = 0
 FOG_LAUNCHES = 0
+MARCH_LAUNCHES = 0
 PAGED_LAUNCHES = 0
 CLASSIC_LAUNCHES = 0
 TRACE_LAUNCHES = 0
@@ -160,8 +171,11 @@ def _lib(count_ops: bool = False, source: str = "render_pass"):
         elif source == "classic":
             lib.pt_trace_grid.argtypes = _SCENE_ARGTYPES + [p, p, p, i, i, i, i, p, p, p, p, p, p]
             lib.pt_trace_grid.restype = i
-            lib.pt_classic_pass.argtypes = _SCENE_ARGTYPES + [p, p, i, u, i, i, i, i, i, i, i, i, p, p, p, p, p, p]
-            lib.pt_classic_pass.restype = i
+            lib.pt_classic_window.argtypes = _SCENE_ARGTYPES + [p, p, i, u, i, i, i, i, i, i, i, p, p, p]
+            lib.pt_classic_window.restype = i
+            lib.pt_classic_samples.argtypes = _SCENE_ARGTYPES + [p, p, i, i, u, i, i, i, i, i, i, i, i, i,
+                                                                 p, p, p, p, p, p, p, p, p]
+            lib.pt_classic_samples.restype = i
         lib.pt_error_string.argtypes = [i]
         lib.pt_error_string.restype = ctypes.c_char_p
         _LIBS[key] = lib
@@ -228,21 +242,23 @@ def render_pass_cuda(
 ):
     """Launch the whole-pass kernel on the current stream: the fog kernel
     (where the fog is marched once a pass) and the regeneration instance, or
-    the classic instance once for each sample.  ``fog_terms``: the window's
-    terms from :func:`fog_pass` on the same lanes, which the call then does
-    not march again."""
-    global LAUNCHES, PAGED_LAUNCHES, CLASSIC_LAUNCHES, FOG_LAUNCHES
-    col, counters, launches, fog_launches = _launch(
-        False, pack, frame_seed, px, py, tcfg=tcfg, width=width, height=height, n_strata=n_strata,
-        samples=samples, has_aperture=has_aperture, normalize_pass=normalize_pass, n_passes=n_passes,
-        fog_terms=fog_terms,
-    )
-    LAUNCHES += launches
-    FOG_LAUNCHES += fog_launches
-    if pack.paged is not None:
-        PAGED_LAUNCHES += launches
+    the classic instance (:func:`classic_render_cuda` on the lanes as one
+    chunk, into a zeroed accumulator).  ``fog_terms``: the window's terms
+    from :func:`fog_pass` on the same lanes, which the call then does not
+    march again."""
+    global LAUNCHES, PAGED_LAUNCHES, FOG_LAUNCHES
+    kw = dict(tcfg=tcfg, width=width, height=height, n_strata=n_strata, samples=samples,
+              has_aperture=has_aperture, normalize_pass=normalize_pass)
     if not _regen(tcfg):
-        CLASSIC_LAUNCHES += launches
+        accum = _classic_accum(px, n_passes, fog_terms)
+        segs = classic_render_cuda(accum, pack, frame_seed, px, py, chunk=px.numel(), **kw)
+        return V3(accum[:, 0], accum[:, 1], accum[:, 2]), segs
+    col, counters, fog_launches = _launch(False, pack, frame_seed, px, py, n_passes=n_passes, fog_terms=fog_terms,
+                                          **kw)
+    LAUNCHES += 1
+    if pack.paged is not None:
+        PAGED_LAUNCHES += 1
+    FOG_LAUNCHES += fog_launches
     return col, counters[0]
 
 
@@ -258,7 +274,7 @@ def count_ops(pack: ScenePack, frame_seed: int, px, py, **kw):
 
 # the counters of a launch (csrc/common.cuh): [0] segments, the counting
 # build's tallies after it, the lane cursor last
-N_COUNTERS = 19
+N_COUNTERS = 22
 _COUNT_NAMES = (
     "segments", "ops", "walk_ops", "walk_cycles", "cycles",
     "fog_cycles", "isect_cycles", "nee_cycles", "lite_cycles", "loop_cycles",
@@ -273,6 +289,27 @@ def _count_dict(counters) -> dict:
     # the launch's first block start and first block end are kept bit-inverted (atomicMax keeps the least)
     out["first_start_ns"], out["first_end_ns"], out["last_end_ns"] = _U64 ^ vals[14], _U64 ^ vals[15], vals[16]
     out["last_start_ns"] = vals[17]
+    out["advance_cycles"], out["camera_cycles"], out["warp_segments"] = vals[18], vals[19], vals[20]
+    return out
+
+
+def _launch_spans(c: dict):
+    """(block ends' spread, span, drain) in ns of one launch's dict, or the
+    sums that :func:`_merge_counts` kept for several."""
+    if "launch_span_ns" in c:
+        return c["launch_tail_ns"], c["launch_span_ns"], c["launch_drain_ns"]
+    return (c["last_end_ns"] - c["first_end_ns"], c["last_end_ns"] - c["first_start_ns"],
+            c["last_end_ns"] - c["last_start_ns"])
+
+
+def _merge_counts(counted) -> dict:
+    """The dicts of several launches as one: tallies summed, and each
+    launch's block-time spans summed (``launch_tail_ns``, ``launch_span_ns``,
+    ``launch_drain_ns``) with the number of ``launches``."""
+    out = {k: sum(c[k] for c in counted) for k in counted[0] if not k.endswith("_ns")}
+    spans = [_launch_spans(c) for c in counted]
+    out["launch_tail_ns"], out["launch_span_ns"], out["launch_drain_ns"] = (sum(x) for x in zip(*spans))
+    out["launches"] = len(counted)
     return out
 
 
@@ -289,8 +326,17 @@ def count_ops_split(pack: ScenePack, frame_seed: int, px, py, **kw) -> dict:
     ``nee_active`` and ``nee_entries`` (the lanes of a warp that enter NEE
     together, summed, and the number of such entries), ``warp_tail_cycles``,
     ``rng_rounds`` (rounds of the hash) and the launch's block times in ns
-    (``first_start_ns``, ``first_end_ns``, ``last_end_ns``, ``last_start_ns``)."""
-    _col, counters, _n, _fog = _launch(True, pack, frame_seed, px, py, **kw)
+    (``first_start_ns``, ``first_end_ns``, ``last_end_ns``, ``last_start_ns``);
+    under the classic instance also ``advance_cycles`` and ``camera_cycles``
+    (its state advance, its jitter and camera ray), the march's cycles in
+    ``fog_cycles``, and its launches' dicts merged
+    (:func:`classic_count_split` on the lanes as one chunk); ``warp_segments`` counts the
+    segments that the warps' loops ran for (32 times a warp's busiest
+    thread's)."""
+    if not _regen(kw["tcfg"]):
+        accum = _classic_accum(px, kw.pop("n_passes", 1), kw.pop("fog_terms", None))
+        return classic_count_split(accum, pack, frame_seed, px, py, chunk=px.numel(), **kw)
+    _col, counters, _fog = _launch(True, pack, frame_seed, px, py, **kw)
     return _count_dict(counters)
 
 
@@ -310,11 +356,10 @@ def b1_split(counted) -> dict:
     tot = {k: sum(c[k] for c in counted) for k in counted[0] if not k.endswith("_ns")}
     cyc = max(tot["cycles"], 1)
     inner = tot["isect_cycles"] + tot["nee_cycles"] + tot["lite_cycles"]
-    spread = sum(c["last_end_ns"] - c["first_end_ns"] for c in counted)
-    span = sum(c["last_end_ns"] - c["first_start_ns"] for c in counted)
+    spread, span, drain = (sum(x) for x in zip(*(_launch_spans(c) for c in counted)))
     slots = tot["ops"] + HASH_ROUND_SLOTS * tot["rng_rounds"]
     return {
-        "launches": len(counted),
+        "launches": sum(c.get("launches", 1) for c in counted),
         "share_fog": tot["fog_cycles"] / cyc,
         "share_isect": tot["isect_cycles"] / cyc,
         "share_nee": tot["nee_cycles"] / cyc,
@@ -325,7 +370,7 @@ def b1_split(counted) -> dict:
         "nee_active_share": tot["nee_active"] / max(32 * tot["nee_entries"], 1),
         "nee_entries": tot["nee_entries"],
         "launch_tail_ns": spread,
-        "launch_drain_ns": sum(c["last_end_ns"] - c["last_start_ns"] for c in counted),
+        "launch_drain_ns": drain,
         "launch_span_ns": span,
         "launch_tail_share": spread / max(span, 1),
         "rng_rounds": tot["rng_rounds"],
@@ -348,6 +393,64 @@ def split_line(sp: dict) -> str:
         f"{sp['share_outside']:.2%}; NEE active-lane share {sp['nee_active_share']:.2%} over "
         f"{sp['nee_entries']} warp entries; block ends spread over {sp['launch_tail_ns'] / 1e6:.3f} ms of the "
         f"launches' {sp['launch_span_ns'] / 1e6:.3f} ms ({sp['launch_tail_share']:.2%}, {sp['launches']} launches), "
+        f"{sp['launch_drain_ns'] / 1e6:.3f} ms from the last block start to the last end; "
+        f"{sp['rng_rounds']:.6g} hash rounds ({sp['rng_rounds_per_segment']:.1f} a segment, "
+        f"{HASH_ROUND_SLOTS * sp['rng_rounds_per_segment']:.0f} FFMA slots beside {sp['ops_per_segment']:.1f} "
+        f"counted operations); bound {sp['bound_ops_ms']:.4f} ms (f32 operations at 67 TFLOP/s), "
+        f"{sp['bound_slots_ms']:.4f} ms (operations and hash rounds as FFMA slots at 32.79 Tslots/s)"
+    )
+
+
+def classic_split(counted) -> dict:
+    """The classic instance's split from :func:`count_ops_split`'s dicts of
+    one frame's calls: the lane cycles of each stage as shares of all (the
+    state advance, jitter + camera ray, the in-trace fog march, closest hit,
+    NEE and the specular-NEE ray, the rest of shading and roulette, the warp
+    tail), the segments the warps ran for against those traced (``simt``),
+    the launch tail, the hash rounds and both bounds."""
+    tot = {k: sum(c[k] for c in counted)
+           for k in _COUNT_NAMES + ("advance_cycles", "camera_cycles", "warp_segments")}
+    cyc = max(tot["cycles"], 1)
+    inner = tot["isect_cycles"] + tot["nee_cycles"] + tot["lite_cycles"] + tot["warp_tail_cycles"]
+    spread, span, drain = (sum(x) for x in zip(*(_launch_spans(c) for c in counted)))
+    slots = tot["ops"] + HASH_ROUND_SLOTS * tot["rng_rounds"]
+    staged = tot["advance_cycles"] + tot["camera_cycles"] + tot["fog_cycles"] + tot["loop_cycles"]
+    return {
+        "launches": sum(c.get("launches", 1) for c in counted),
+        "share_advance": tot["advance_cycles"] / cyc,
+        "share_camera": tot["camera_cycles"] / cyc,
+        "share_march": tot["fog_cycles"] / cyc,
+        "share_isect": tot["isect_cycles"] / cyc,
+        "share_nee": tot["nee_cycles"] / cyc,
+        "share_lite": tot["lite_cycles"] / cyc,
+        "share_rest": (tot["loop_cycles"] - inner) / cyc,
+        "share_warp_tail": tot["warp_tail_cycles"] / cyc,
+        "share_outside": (cyc - staged) / cyc,
+        "simt": tot["segments"] / max(tot["warp_segments"], 1),
+        "launch_tail_ns": spread,
+        "launch_drain_ns": drain,
+        "launch_span_ns": span,
+        "launch_tail_share": spread / max(span, 1),
+        "rng_rounds": tot["rng_rounds"],
+        "rng_rounds_per_segment": tot["rng_rounds"] / max(tot["segments"], 1),
+        "ops": tot["ops"],
+        "ops_per_segment": tot["ops"] / max(tot["segments"], 1),
+        "segments": tot["segments"],
+        "bound_ops_ms": tot["ops"] / PEAK_F32_FLOPS * 1e3,
+        "bound_slots_ms": slots / UNFUSED_SLOTS * 1e3,
+        "ffma_slots": slots,
+    }
+
+
+def classic_split_line(sp: dict) -> str:
+    """One line of :func:`classic_split`'s numbers."""
+    return (
+        f"lane cycles: state advance {sp['share_advance']:.2%}, jitter + camera {sp['share_camera']:.2%}, fog march "
+        f"{sp['share_march']:.2%}, closest hit {sp['share_isect']:.2%}, NEE {sp['share_nee']:.2%}, specular-NEE ray "
+        f"{sp['share_lite']:.2%}, rest of shading and roulette {sp['share_rest']:.2%}, warp tail "
+        f"{sp['share_warp_tail']:.2%}, outside {sp['share_outside']:.2%}; segments traced / segments the warps ran "
+        f"for {sp['simt']:.2%}; block ends spread over {sp['launch_tail_ns'] / 1e6:.3f} ms of the launches' "
+        f"{sp['launch_span_ns'] / 1e6:.3f} ms ({sp['launch_tail_share']:.2%}, {sp['launches']} launches), "
         f"{sp['launch_drain_ns'] / 1e6:.3f} ms from the last block start to the last end; "
         f"{sp['rng_rounds']:.6g} hash rounds ({sp['rng_rounds_per_segment']:.1f} a segment, "
         f"{HASH_ROUND_SLOTS * sp['rng_rounds_per_segment']:.0f} FFMA slots beside {sp['ops_per_segment']:.1f} "
@@ -460,15 +563,20 @@ def _launch_fog(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height
     return terms
 
 
+def _classic_accum(px, n_passes, fog_terms):
+    """The zeroed accumulator of the classic instance run by the
+    whole-pass kernel's entry points on ``px``'s lanes as one chunk."""
+    if n_passes != 1:
+        raise ValueError("n_passes > 1 requires the regeneration loop (gpu contract)")
+    if fog_terms is not None:
+        raise ValueError("fog_terms belong to the regeneration loop (gpu contract)")
+    return torch.zeros((px.numel(), 3), dtype=torch.float32, device=px.device)
+
+
 def _launch(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, n_strata, samples,
             has_aperture, normalize_pass, n_passes=1, fog_terms=None):
-    """Returns (col V3, the counters, launches of the whole-pass kernel,
-    launches of the fog kernel)."""
-    regen = _regen(tcfg)
-    if not regen and n_passes != 1:
-        raise ValueError("n_passes > 1 requires the regeneration loop (gpu contract)")
-    if not regen and fog_terms is not None:
-        raise ValueError("fog_terms belong to the regeneration loop (gpu contract)")
+    """The regeneration instance.  Returns (col V3, the counters, launches
+    of the fog kernel)."""
     dev = _check_device("render_pass_cuda", pack, px, py)
     px = px.to(torch.int32).contiguous()
     py = py.to(torch.int32).contiguous()
@@ -480,35 +588,150 @@ def _launch(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, n_
     flags = _flags(pack, tcfg, has_aperture, normalize_pass)
     stream = torch.cuda.current_stream(dev).cuda_stream
     seed = int(frame_seed) & MASK32
-    if regen:
-        lib = _lib(counting, "render_pass")
-        terms = fog_terms
-        if terms is not None and tuple(terms.shape) != (n_passes, 3, n):
-            raise ValueError(f"render_pass_cuda: fog_terms must be f32[{n_passes}, 3, {n}]")
-        if terms is None and flags & FLAG_FOG_ONCE:
-            terms = _launch_fog(counting, pack, frame_seed, px, py, tcfg=tcfg, width=width, height=height,
-                                samples=samples, has_aperture=has_aperture, n_passes=n_passes, counters=counters)
-        err = lib.pt_render_pass(
-            *scene, px.data_ptr(), py.data_ptr(), n, seed, width, height, n_strata, samples, n_passes,
-            tcfg.max_depth, tcfg.rr_threshold, flags, None if terms is None else terms.data_ptr(),
-            out.data_ptr(), counters.data_ptr(), stream,
-        )
-        raise_on(err, lib, "render_pass")
-        return V3(out[0], out[1], out[2]), counters, 1, int(terms is not None and fog_terms is None)
-    # the classic instance: one launch a sample; state, path lengths and the
-    # trips of each sample stay on the card from one launch to the next
+    lib = _lib(counting, "render_pass")
+    terms = fog_terms
+    if terms is not None and tuple(terms.shape) != (n_passes, 3, n):
+        raise ValueError(f"render_pass_cuda: fog_terms must be f32[{n_passes}, 3, {n}]")
+    if terms is None and flags & FLAG_FOG_ONCE:
+        terms = _launch_fog(counting, pack, frame_seed, px, py, tcfg=tcfg, width=width, height=height,
+                            samples=samples, has_aperture=has_aperture, n_passes=n_passes, counters=counters)
+    err = lib.pt_render_pass(
+        *scene, px.data_ptr(), py.data_ptr(), n, seed, width, height, n_strata, samples, n_passes,
+        tcfg.max_depth, tcfg.rr_threshold, flags, None if terms is None else terms.data_ptr(),
+        out.data_ptr(), counters.data_ptr(), stream,
+    )
+    raise_on(err, lib, "render_pass")
+    return V3(out[0], out[1], out[2]), counters, int(terms is not None and fog_terms is None)
+
+
+# ---------------------------------------------------------------------------
+# The classic instance on a frame's lanes: a window of passes into the accumulator
+# ---------------------------------------------------------------------------
+
+def classic_render(accum, pack: ScenePack, frame_seed: int, px, py, *, chunk: int, n_passes: int = 1, **kw):
+    """A window of ``n_passes`` passes of the classic loop (the cpu contract,
+    faithful fog) for flat lanes ``px``/``py`` (int32[N]) in chunks of
+    ``chunk`` lanes, pass p at frame seed ``frame_seed + p``, each pass's
+    radiance added into ``accum`` (f32[N, 3]) in pass order, as the
+    Renderer's ``accum += col``.  A chunk is the set of lanes whose longest
+    path advances every lane's state between samples (PHYSICS.md D7).
+    Other keyword arguments as :func:`render_pass_plain`.  Returns the
+    segments (int64 0-d tensor).  CUDA tensors go to the kernels, CPU
+    tensors to :func:`classic_render_plain`; nothing falls back."""
+    if px.is_cuda:
+        return classic_render_cuda(accum, pack, frame_seed, px, py, chunk=chunk, n_passes=n_passes, **kw)
+    if px.device.type == "cpu":
+        return classic_render_plain(accum, pack, frame_seed, px, py, chunk=chunk, n_passes=n_passes, **kw)
+    raise NotImplementedError(f"classic_render: no kernel for device {px.device}")
+
+
+def classic_render_plain(accum, pack: ScenePack, frame_seed: int, px, py, *, chunk: int, n_passes: int = 1, **kw):
+    """The plain version: ``render.pass_body_grid`` pass by pass and chunk
+    by chunk, each pass's colour added into ``accum``."""
+    global PLAIN_CALLS
+    from ..render import pass_body_grid
+
+    PLAIN_CALLS += 1
+    segs = torch.zeros((), dtype=torch.int64, device=px.device)
+    for p in range(n_passes):
+        for c0 in range(0, px.numel(), chunk):
+            col, sg = pass_body_grid(pack, (int(frame_seed) + p) & MASK32, px[c0:c0 + chunk], py[c0:c0 + chunk],
+                                     **kw)
+            accum[c0:c0 + chunk] += col.to_rows()
+            segs = segs + sg
+    return segs
+
+
+def classic_render_cuda(accum, pack: ScenePack, frame_seed: int, px, py, *, chunk: int, n_passes: int = 1, **kw):
+    """Launch the classic instance on the current stream: under the cpu
+    contract one launch of the window kernel for all the lanes and passes;
+    else, pass by pass, two launches a sample over all the lanes (the march
+    kernel, then the sample kernel), each lane reading its own chunk's
+    longest paths."""
+    global LAUNCHES, PAGED_LAUNCHES, CLASSIC_LAUNCHES, MARCH_LAUNCHES
+    _c, _m, launches, march_launches = _launch_classic(False, accum, pack, frame_seed, px, py, chunk=chunk,
+                                                       n_passes=n_passes, **kw)
+    LAUNCHES += launches
+    CLASSIC_LAUNCHES += launches
+    MARCH_LAUNCHES += march_launches
+    if pack.paged is not None:
+        PAGED_LAUNCHES += launches
+    return _c[0][0]
+
+
+def classic_count_split(accum, pack: ScenePack, frame_seed: int, px, py, **kw) -> dict:
+    """The counting build of :func:`classic_render_cuda` on the same
+    inputs (on a copy of ``accum``): all its launches' tallies merged as in
+    :func:`count_ops_split`, and under ``"march"`` those of the march
+    kernel's launches alone.  Not a launch of the render path."""
+    counted, marched, _n, _m = _launch_classic(True, accum.clone(), pack, frame_seed, px, py, **kw)
+    out = _merge_counts([_count_dict(c) for c in counted + marched])
+    out["march"] = _merge_counts([_count_dict(c) for c in marched]) if marched else None
+    return out
+
+
+def _classic_scene_args(pack: ScenePack, width: int, height: int):
+    """The scene arguments with the camera basis of a frame size, made once a pack."""
+    key = ("_classic_args", width, height)
+    if key not in pack._host:
+        basis = camera_basis(pack.cam, width, height).contiguous()
+        pack._host[key] = (basis, _scene_args(pack, basis))
+    return pack._host[key][1]
+
+
+def _launch_classic(counting: bool, accum, pack, frame_seed, px, py, *, chunk, n_passes=1, tcfg, width, height,
+                    n_strata, samples, has_aperture, normalize_pass):
+    """Returns (the counters of the window or bounce launches: one tensor, or
+    in the counting build one a sample, in a list; those of the march
+    launches likewise, empty under the cpu contract's window; launches of
+    the classic instance; launches of the march)."""
+    if _regen(tcfg):
+        raise ValueError("classic_render: the classic instance runs the cpu contract and faithful fog")
+    dev = _check_device("classic_render_cuda", pack, px, py, accum)
+    n = px.numel()
+    if tuple(accum.shape) != (n, 3) or accum.dtype != torch.float32 or not accum.is_contiguous():
+        raise ValueError(f"classic_render_cuda: accum must be a contiguous f32[{n}, 3]")
+    if int(chunk) < 1 or n_passes < 1:
+        raise ValueError("classic_render_cuda: chunk and n_passes must be positive")
+    px = px.to(torch.int32).contiguous()
+    py = py.to(torch.int32).contiguous()
+    scene = _classic_scene_args(pack, width, height)
+    flags = _flags(pack, tcfg, has_aperture, normalize_pass)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    seed = int(frame_seed) & MASK32
     lib = _lib(counting, "classic")
+    new = lambda: torch.zeros(N_COUNTERS, dtype=torch.int64, device=dev)  # noqa: E731
+    counters = [new()]
+    if samples == 1 and flags & FLAG_CPU and not flags & FLAG_FOG_ONCE:
+        err = lib.pt_classic_window(
+            *scene, px.data_ptr(), py.data_ptr(), n, seed, width, height, n_strata, n_passes, tcfg.max_depth,
+            tcfg.rr_threshold, flags, accum.data_ptr(), counters[0].data_ptr(), stream,
+        )
+        raise_on(err, lib, "classic window")
+        return counters, [], 1, 0
+    # state, path lengths, the running colour, the sample's ray and march, and
+    # each chunk's longest paths stay on the card from one launch to the next
+    col = torch.empty((3, n), dtype=torch.float32, device=dev)
+    rays = torch.empty((9, n), dtype=torch.float32, device=dev)
     state = torch.empty(n, dtype=torch.int32, device=dev)
     lengths = torch.empty(n, dtype=torch.int32, device=dev)
-    trips = torch.zeros(max(samples, 1), dtype=torch.int32, device=dev)
-    for s in range(samples):
-        err = lib.pt_classic_pass(
-            *scene, px.data_ptr(), py.data_ptr(), n, seed, width, height, n_strata, samples, s,
-            tcfg.max_depth, tcfg.rr_threshold, flags, out.data_ptr(), state.data_ptr(), lengths.data_ptr(),
-            trips.data_ptr(), counters.data_ptr(), stream,
-        )
-        raise_on(err, lib, "classic render_pass")
-    return V3(out[0], out[1], out[2]), counters, samples, 0
+    trips = torch.empty(-(-n // int(chunk)) * samples, dtype=torch.int32, device=dev)
+    march = [counters[0]] if not counting else []
+    for p in range(n_passes):
+        # the counting build gives each sample's two launches their own counters
+        for s0, s1 in ([(s, s + 1) for s in range(samples)] if counting else [(0, samples)]):
+            if counting:
+                march.append(new())
+                if p or s0:
+                    counters.append(new())
+            err = lib.pt_classic_samples(
+                *scene, px.data_ptr(), py.data_ptr(), n, int(chunk), (seed + p) & MASK32, width, height, n_strata,
+                samples, s0, s1, tcfg.max_depth, tcfg.rr_threshold, flags, col.data_ptr(), rays.data_ptr(),
+                state.data_ptr(), lengths.data_ptr(), trips.data_ptr(), accum.data_ptr(), march[-1].data_ptr(),
+                counters[-1].data_ptr(), stream,
+            )
+            raise_on(err, lib, "classic samples")
+    return counters, march if counting else [], n_passes * samples, n_passes * samples
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,10 @@ physically normalized render instead.  Several passes run in one kernel
 launch (a pass window, default 8), each lane reseeding at every pass
 boundary, so a window render equals the pass-by-pass render.  Faithful
 fog (``faithful_fog=True``) and the cpu contract (one sample a pass, the
-default backend) run the classic per-sample loop, one pass at a time.
+default backend) run the classic per-sample loop: on the card the cpu
+contract renders a window of passes in one launch (``PATHTRACER_PASS_WINDOW``,
+default 8; ``=1`` gives one pass a launch) and faithful fog one launch a
+sample over all chunks; on the CPU both go pass by pass and chunk by chunk.
 
 The renderer runs on the card (``device="cuda"``) unless the caller asks
 for the CPU; with no card it raises instead of falling back.  A failure
@@ -317,11 +320,17 @@ class Renderer:
 
         passes = max(1, cfg.samples_per_px)
         update_every = max(1, passes // (10 if gpu else 20))
-        window = 1  # the classic loop renders one pass a launch
-        if regen_enabled(tcfg):
-            window = max(1, int(os.environ.get("PATHTRACER_PASS_WINDOW", "8")))
+        regen = regen_enabled(tcfg)
+        # a window of passes: under the regeneration loop as the JAX Renderer's, capped at the update cadence
+        # when a callback is given; under the classic loop with one sample a pass (the cpu contract) the
+        # window ends at every pass where progress is due, and is one pass when cancel is given, as the JAX
+        # Renderer checks it after every classic pass; faithful fog renders one pass at a time
+        window = max(1, int(os.environ.get("PATHTRACER_PASS_WINDOW", "8")))
+        if regen:
             if progress is not None or cancel is not None:
                 window = min(window, update_every)
+        elif samples > 1 or cancel is not None:
+            window = 1
 
         accum = torch.zeros((n_pad, 3), dtype=torch.float32, device=dev)
         total_segs = torch.zeros((), dtype=torch.int64, device=dev)
@@ -340,23 +349,35 @@ class Renderer:
                 u8 = box_smooth(u8, sm.radius, sm.strength)
             return u8
 
-        # on the card the regeneration instance takes a whole window's lanes in
-        # one launch (its blocks take lanes as they go); the lanes, and so the
-        # image and the segments, are the same as chunk by chunk
-        launch = n_pad if dev.type == "cuda" and regen_enabled(tcfg) else chunk
+        kw = dict(tcfg=tcfg, width=w, height=h, n_strata=n_strata, samples=samples, has_aperture=has_aperture,
+                  normalize_pass=self.normalize_pass)
+        # on the card a window's lanes go to the kernels whole: the regeneration
+        # instance's in one launch (its blocks take lanes as they go), the
+        # classic instance's lanes, made once a render, with their chunks; the
+        # lanes, and so the image and the segments, are the same as chunk by chunk
+        card = dev.type == "cuda"
+        if card and not regen:
+            idx = torch.arange(n_pad, dtype=torch.int32, device=dev)
+            cpx, cpy = idx % w, torch.div(idx, w, rounding_mode="floor")
+        launch = n_pad if card and regen else chunk
         p = 0
         while p < passes:
             nw = min(window, passes - p)
+            if not regen and progress is not None:
+                nw = min(nw, update_every - p % update_every)
             frame_seed = (self.seed + p) & MASK32
-            for start in range(0, n_pad, launch):
-                idx = torch.arange(start, start + launch, dtype=torch.int32, device=dev)
-                col, segs = trace_pass_lanes(
-                    pack, frame_seed, idx, tcfg=tcfg, width=w, height=h, n_strata=n_strata,
-                    samples=samples, has_aperture=has_aperture,
-                    normalize_pass=self.normalize_pass, n_passes=nw,
-                )
-                accum[start:start + launch] += col
-                total_segs = total_segs + segs
+            if card and not regen:
+                total_segs = total_segs + cuda_trace.classic_render(
+                    accum, pack, frame_seed, cpx, cpy, chunk=chunk, n_passes=nw, **kw)
+            else:
+                # the regeneration loop takes a window in one call a chunk, the classic loop a pass
+                for q in range(1 if regen else nw):
+                    for start in range(0, n_pad, launch):
+                        idx = torch.arange(start, start + launch, dtype=torch.int32, device=dev)
+                        col, segs = trace_pass_lanes(
+                            pack, (frame_seed + q) & MASK32, idx, n_passes=nw if regen else 1, **kw)
+                        accum[start:start + launch] += col
+                        total_segs = total_segs + segs
             p += nw
             if progress is not None and ((p % update_every) < nw or p == passes):
                 # progress frames skip denoise/smooth (gpu.go:2291-2293)

@@ -403,6 +403,103 @@ def test_renderer_traces_the_padded_last_chunk(monkeypatch):
     assert ok[:w * h - chunk].mean() >= 0.95 and ok.mean() >= 0.95
 
 
+WIN_W, WIN_H, WIN_PASSES, WIN_DEPTH = 8, 6, 60, 3  # 60 passes: progress every 3rd (passes // 20)
+
+
+def _window_run(monkeypatch, window, cancel_after=None):
+    """A cpu-contract render of WIN_PASSES passes with ``PATHTRACER_PASS_WINDOW``
+    at ``window`` and two chunks, the second padded: the passes at which
+    ``progress`` came, the accumulator it saw each time, the segments and the
+    passes done."""
+    monkeypatch.setenv("PATHTRACER_PASS_WINDOW", str(window))
+    seen, calls = [], []
+    monkeypatch.setattr(TR, "finalize_cpu_contract", lambda flat, count: (
+        seen.append((count, flat.clone())), tpost.finalize_cpu_contract(flat, count))[1])
+    cancel = None
+    if cancel_after is not None:
+        cancel = lambda: (calls.append(1), len(calls) >= cancel_after)[1]  # noqa: E731
+    r = tpt.Renderer(contract="cpu", seed=CSEED, chunk=30, device="cpu")
+    progress = []
+    img = r.render(TB.demo_cornell(), tpt.RenderConfig(WIN_W, WIN_H, WIN_PASSES, WIN_DEPTH),
+                   progress=lambda p, im: progress.append(p), cancel=cancel)
+    return progress, seen, r.stats, img
+
+
+def test_cpu_contract_window_equals_pass_by_pass(monkeypatch):
+    """The cpu contract's pass window (PATHTRACER_PASS_WINDOW 2, which the
+    progress cadence splits, and 8, which it cuts) against one pass a
+    window, bit for bit: the accumulator at every progress call and at the
+    end, the segments, the passes at which ``progress`` is called (every
+    3rd: a window ends there) and the pass at which ``cancel`` stops (a
+    cancel callback keeps the window at one pass, as the JAX Renderer
+    checks it after every classic pass)."""
+    want = _window_run(monkeypatch, 1)
+    assert want[0] == list(range(3, WIN_PASSES + 1, 3)) and want[2].passes == WIN_PASSES
+    for window in (2, 8):
+        got = _window_run(monkeypatch, window)
+        assert got[0] == want[0]
+        assert [c for c, _a in got[1]] == [c for c, _a in want[1]]
+        assert all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for (_c, a), (_d, b) in zip(got[1], want[1]))
+        assert got[2].ray_segments == want[2].ray_segments and np.array_equal(got[3], want[3])
+    stop = _window_run(monkeypatch, 1, cancel_after=7)
+    got = _window_run(monkeypatch, 8, cancel_after=7)
+    assert got[2].passes == stop[2].passes == 7 and got[0] == stop[0] == [3, 6]
+    assert got[2].ray_segments == stop[2].ray_segments and np.array_equal(got[3], stop[3])
+
+
+def test_classic_render_plain_equals_chunk_by_chunk():
+    """The all-chunks entry of the classic instance (``classic_render``,
+    here its plain version on CPU tensors) equals chunk-by-chunk
+    ``pass_body_grid`` calls bit for bit under faithful fog: 3 chunks of the
+    fog scene's 384 lanes, the last padded to 150 lanes by off-frame rows,
+    added into a non-zero accumulator; segments equal."""
+    scene, contract, faithful, w, h, _spp, depth, seed, n_strata, samples, _key = _classic("faithful_fog")
+    sc = scene(TS)
+    tp = tsoa.pack_scene(sc, w, h, device="cpu")
+    tcfg = TI.trace_config_for_scene(tp, sc, depth, contract, faithful_fog=faithful)
+    chunk = 150
+    idx = torch.arange(3 * chunk, dtype=torch.int32)
+    assert 2 * chunk < w * h < 3 * chunk
+    px, py = idx % w, idx // w
+    kw = dict(tcfg=tcfg, width=w, height=h, n_strata=n_strata, samples=samples,
+              has_aperture=sc.camera.aperture > 0, normalize_pass=False)
+    start = torch.from_numpy(np.random.default_rng(61).random((3 * chunk, 3)).astype(np.float32))
+    want, want_segs = start.clone(), 0
+    for c0 in range(0, 3 * chunk, chunk):
+        col, segs = TR.pass_body_grid(tp, seed, px[c0:c0 + chunk], py[c0:c0 + chunk], **kw)
+        want[c0:c0 + chunk] += col.to_rows()
+        want_segs += int(segs)
+    got, whole = start.clone(), start.clone()
+    plain = cuda_trace.PLAIN_CALLS
+    segs = cuda_trace.classic_render(got, tp, seed, px, py, chunk=chunk, **kw)
+    assert cuda_trace.PLAIN_CALLS == plain + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)) and int(segs) == want_segs
+    # the chunks' longest paths matter here: the lanes as one chunk draw other samples on most lanes
+    cuda_trace.classic_render(whole, tp, seed, px, py, chunk=3 * chunk, **kw)
+    assert (whole != want).any(dim=-1).double().mean() > 0.5
+
+
+def test_classic_split_arithmetic():
+    """The classic instance's split follows from the counting build's
+    tallies of a frame's launches (two launches merged as one call's):
+    stage shares of all cycles, the segments the warps ran for, the launch
+    tail, hash rounds a segment and the bound in FFMA slots."""
+    launch = dict(segments=10, ops=2000, walk_ops=0, walk_cycles=0, cycles=1000, fog_cycles=100, isect_cycles=200,
+                  nee_cycles=150, lite_cycles=50, loop_cycles=700, nee_active=48, nee_entries=3, warp_tail_cycles=40,
+                  rng_rounds=200, first_start_ns=0, first_end_ns=80, last_end_ns=100, last_start_ns=10,
+                  advance_cycles=50, camera_cycles=70, warp_segments=40)
+    merged = cuda_trace._merge_counts([launch, launch])
+    assert merged["launches"] == 2 and merged["launch_span_ns"] == 200 and merged["cycles"] == 2000
+    sp = cuda_trace.classic_split([merged, launch])
+    assert sp["launches"] == 3 and sp["share_advance"] == pytest.approx(0.05)
+    assert sp["share_rest"] == pytest.approx((700 - 200 - 150 - 50 - 40) / 1000)
+    assert sp["share_outside"] == pytest.approx((1000 - 50 - 70 - 100 - 700) / 1000)
+    assert sp["simt"] == 0.25 and sp["launch_tail_share"] == pytest.approx(0.2)
+    assert sp["rng_rounds_per_segment"] == 20 and sp["bound_slots_ms"] == pytest.approx(
+        (6000 + 16 * 600) / cuda_trace.UNFUSED_SLOTS * 1e3)
+    assert "warps ran for 25.00%" in cuda_trace.classic_split_line(sp)
+
+
 def _stats(img):
     f = np.asarray(img).astype(np.float64)
     return {"mean": [round(float(x), 4) for x in f.mean(axis=(0, 1))],
@@ -512,11 +609,50 @@ def test_classic_kernel_matches_plain_on_card(name):
     idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
     kw = dict(tcfg=tcfg, width=w, height=h, n_strata=n_strata, samples=samples,
               has_aperture=sc.camera.aperture > 0, normalize_pass=False)
-    launches = cuda_trace.CLASSIC_LAUNCHES
+    # one launch of the window kernel a window of passes (cpu contract), or of the sample kernel a sample,
+    # each after one of the march kernel (faithful fog)
+    per_pass = 1 if samples == 1 else samples
+    launches, marches = cuda_trace.CLASSIC_LAUNCHES, cuda_trace.MARCH_LAUNCHES
     ck, sk = cuda_trace.render_pass(tp, seed, idx % w, idx // w, **kw)
-    assert cuda_trace.CLASSIC_LAUNCHES == launches + samples
+    assert cuda_trace.CLASSIC_LAUNCHES == launches + per_pass
+    assert cuda_trace.MARCH_LAUNCHES == marches + (0 if samples == 1 else samples)
     cp, spl = cuda_trace.render_pass_plain(tp, seed, idx % w, idx // w, **kw)
     torch.cuda.synchronize()
     assert torch.equal(ck.to_rows(), cp.to_rows()) and int(sk) == int(spl)
-    img = TR.Renderer(contract=contract, faithful_fog=faithful, seed=seed).render(sc, TR.RenderConfig(w, h, 1, depth))
-    assert img.shape == (h, w, 3)
+    launches = cuda_trace.CLASSIC_LAUNCHES
+    img = TR.Renderer(contract=contract, faithful_fog=faithful, seed=seed).render(sc, TR.RenderConfig(w, h, 2, depth))
+    assert img.shape == (h, w, 3) and cuda_trace.CLASSIC_LAUNCHES == launches + (1 if samples == 1 else 2 * per_pass)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cpu", "faithful_fog"])
+def test_classic_render_bit_equal_to_plain_on_card(name):
+    """The classic instance as the Renderer launches it on the card against
+    its plain version (``pass_body_grid`` pass by pass and chunk by chunk):
+    all of a frame's lanes in chunks, the last padded by off-frame rows,
+    added into a non-zero accumulator; the cpu contract in 3 chunks as one
+    window of 3 passes in one launch of persistent blocks, faithful fog in
+    11 chunks of 37 lanes, one launch of the sample kernel a sample over all
+    chunks (after one of the march kernel).  Accumulator bit for bit,
+    segments equal."""
+    _card()
+    scene, contract, faithful, w, h, _spp, depth, seed, n_strata, samples, _key = _classic(name)
+    sc = scene(TS)
+    tp = tsoa.pack_scene(sc, w, h, device="cuda")
+    tcfg = TI.trace_config_for_scene(tp, sc, depth, contract, faithful_fog=faithful)
+    # faithful fog in chunks of 37 lanes, so that warps straddle chunks whose longest paths differ
+    n_chunks = 3 if samples == 1 else 11
+    chunk = -(-w * h // n_chunks) + (5 if samples == 1 else 2)
+    assert (n_chunks - 1) * chunk < w * h < n_chunks * chunk
+    idx = torch.arange(n_chunks * chunk, dtype=torch.int32, device="cuda")
+    kw = dict(tcfg=tcfg, width=w, height=h, n_strata=n_strata, samples=samples,
+              has_aperture=sc.camera.aperture > 0, normalize_pass=False)
+    n_passes = 3 if samples == 1 else 1
+    start = torch.from_numpy(np.random.default_rng(62).random((n_chunks * chunk, 3)).astype(np.float32)).cuda()
+    got, want = start.clone(), start.clone()
+    launches = cuda_trace.CLASSIC_LAUNCHES
+    sk = cuda_trace.classic_render(got, tp, seed, idx % w, idx // w, chunk=chunk, n_passes=n_passes, **kw)
+    assert cuda_trace.CLASSIC_LAUNCHES == launches + (1 if samples == 1 else samples)
+    sp = cuda_trace.classic_render_plain(want, tp, seed, idx % w, idx // w, chunk=chunk, n_passes=n_passes, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)) and int(sk) == int(sp)
