@@ -8,9 +8,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. report the card (nvidia-smi name and power limit);
 2. build the kernels (csrc/render_pass.cu, csrc/classic.cu and
    csrc/probes.cu, each with csrc/common.cuh and csrc/paged_walk.cuh, and
-   csrc/repro.cu, nvcc for sm_90a) and the first three's operation-counting
-   variants (-DPT_COUNT_OPS), all builds side by side, and print ptxas'
-   registers, spills and shared memory;
+   csrc/repro.cu, nvcc for sm_90a) and their operation-counting variants
+   (-DPT_COUNT_OPS; repro.cu's holds only T6's step split), all builds side
+   by side, and print ptxas' registers, spills, stack frames and shared
+   memory;
 3. hold the whole-pass kernel against its plain PyTorch version on the
    card for demo_showcase and demo_cornell at 256x144, depth 12, one pass
    and one 2-pass window: at least 95% of lanes within |a-b| <= 1e-3|b| +
@@ -32,7 +33,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    inputs need with the counting variant, derive each kernel's bound (f32
    operations at 67 TFLOP/s, and as FFMA slots at the unfused rate), and
    print B1's split: lane cycles by stage, NEE's active-lane share, the warp
-   tail, the launch's block ends and the hash rounds;
+   tail, the launch's block ends and the hash rounds; and the fog kernel's
+   (the march's split: lane cycles of its primary hit, noise, light
+   sampling and shadow tests, the lanes that run a shadow test, the blocked
+   share, the primitives a test visits, the sinf arguments past 105,615);
 7. hold B1 against its plain version at the main path's own arguments
    (1920x1080, depth 12, frame seed 1, one 8-pass window): the lanes that
    phase 6's full-size launch produced, and the kernel run on the same
@@ -95,7 +99,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     (a window of 8 passes; one pass of 16 samples) by CUDA events, and each
     kernel's own device time from torch.profiler (which shows how long the
     card waits for the host), count their operations and hash rounds,
-    derive their bounds and print their split; drive trace() (B3) on the
+    derive their bounds and print their split (and the march kernel's
+    march split, as phase 6 prints the fog kernel's); drive trace() (B3) on the
     262,144 primary rays of the cpu frame's first chunk, each contract,
     time it and its plain version, count its operations and derive its
     bound;
@@ -136,7 +141,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     tools/repro/mosaic_cond_skip.py at the JAX default of 16,384 rounds (at
     fewer, printed, if a call would pass 2 s), which must show control ~
     true >> false, and half the rounds about half the time; the library
-    call torch.matmul a step beside it;
+    call torch.matmul a step beside it; the split of a step by clock64
+    (counting build: the products, the write and barrier wait, the rest);
 26. T7 (the staged relayout): stages 1-5 at G = 1, 2, 4, 8 bit for bit;
     then tools/repro/mosaic_reshape_repro.py at each G;
 27. T8 (the grouped rows): G = 1, 2, 4, 8 bit for bit; then
@@ -184,9 +190,13 @@ walk alone on the frame's primary rays (closest hit and any hit).
 ``--split`` adds the split from the counting build on the render's own
 calls: B1's under the gpu contract, the classic instance's with
 ``--contract cpu`` or ``--faithful-fog`` (lane cycles by stage, the segments
-the warps ran for, block ends, hash rounds, both bounds).  It imports the package that lies beside the script, so a copy of this
-file in the root of another commit's tree times that commit: to compare two
-commits, run them in turns in one shell on one card.
+the warps ran for, block ends, hash rounds, both bounds), and the fog
+march's (the fog kernel's, or the march kernel's under faithful fog).
+``--kernels`` also reports each render kernel's own device time in a render
+(torch.profiler, median of 3 renders).  It imports the package that lies
+beside the script, so a copy of this file in the root of another commit's
+tree times that commit: to compare two commits, run them in turns in one
+shell on one card.
 """
 
 from __future__ import annotations
@@ -219,6 +229,8 @@ B3_CHECK_RAYS = 8192  # camera rays (and as many random ones) of each B3 batch i
 PARTIAL_RAYS = 2048 + 17  # rays of the walk's partial-warp case: its launch's last warp holds 17
 FUZZ_SCENES = os.path.join(HERE, "tests", "torch_fuzz_scenes.json")  # tests/test_fuzz.py's scenes as JSON
 FUZZ_W, FUZZ_H, FUZZ_DEPTH = 64, 48, 4  # phase 28's frame
+FRAME_KERNELS = ("fog_pass_kernel", "render_pass_kernel", "classic_window_kernel", "classic_march_kernel",
+                 "classic_sample_kernel")  # the render kernels whose device time --render-only --kernels reports
 
 
 def smi_line() -> str:
@@ -606,7 +618,10 @@ def render_split(pt, cuda_trace, name, w, h, passes, depth, contract="gpu", fait
     """The split of one render's whole-pass calls, each counted with the
     counting build on the call's own inputs: B1's (``cuda_trace.b1_split``)
     under the gpu contract, else the classic instance's
-    (``cuda_trace.classic_split``)."""
+    (``cuda_trace.classic_split``); and the fog march's own
+    (``cuda_trace.march_split``: the fog kernel's, or the march kernel's
+    under faithful fog), None where the render marched no fog or the tree's
+    counting build does not split it."""
     counted = []
 
     def hook(orig, a, k):
@@ -615,9 +630,11 @@ def render_split(pt, cuda_trace, name, w, h, passes, depth, contract="gpu", fait
         return orig(*a, **k)
 
     in_render(pt, cuda_trace, name, w, h, passes, depth, contract, faithful, hook)
-    if contract == "gpu" and not faithful:
-        return cuda_trace.b1_split(counted)
-    return cuda_trace.classic_split(counted)
+    regen = contract == "gpu" and not faithful
+    marched = [c.get("fog" if regen else "march") for c in counted]
+    march = (cuda_trace.march_split([m for m in marched if m])
+             if hasattr(cuda_trace, "march_split") and any(marched) else None)
+    return (cuda_trace.b1_split(counted) if regen else cuda_trace.classic_split(counted)), march
 
 
 def frame_kernel_times(pt, cuda_trace, name, w, h, passes, depth, contract, faithful):
@@ -634,6 +651,11 @@ def frame_kernel_times(pt, cuda_trace, name, w, h, passes, depth, contract, fait
     shape = f"a window of {passes} passes" if window else f"{passes} passes"
     out = {"pass_ms": pass_ms, "pass_is": f"the whole-pass calls of one render ({shape}, {calls} calls)"}
     ro, rd, rst = primary_rays(pack, kw, 1, 0, chunk)
+    # each kernel's own device time in a render (torch.profiler), median of 3 renders
+    per_render = [device_ms(lambda: in_render(pt, cuda_trace, name, w, h, passes, depth, contract, faithful,
+                                              lambda o, a, k: o(*a, **k)), FRAME_KERNELS) for _ in range(3)]
+    out["kernel_device_ms"] = {k: statistics.median(r[k] for r in per_render) for k in FRAME_KERNELS
+                               if all(r[k] is not None for r in per_render)}
     out["trace_ms"] = cuda_time_ms(lambda: integrator.trace(ro, rd, rst, pack, kw["tcfg"]), 5)
     out["trace_rays"] = chunk
     if pack.paged is not None:
@@ -817,6 +839,25 @@ def primary_rays(pack, kw, frame_seed, start, count):
 def ptxas_lines(cuda_trace):
     return [f"{src}: {ln.strip()}" for src, log in cuda_trace.BUILD_LOG.items() for ln in log.splitlines()
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+
+
+def ptxas_of(cuda_trace, source, kernel):
+    """ptxas' report of the normal build of ``source`` for the instances of
+    ``kernel`` (a part of the mangled name): {mangled name: {registers,
+    stack_frame, spill_stores, spill_loads}}."""
+    import re
+
+    out, name = {}, None
+    for ln in cuda_trace.BUILD_LOG.get(source, "").splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", ln)
+        if entry:
+            name = entry.group(1) if kernel in entry.group(1) else None
+        elif name and "bytes stack frame" in ln:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            out.setdefault(name, {}).update(zip(("stack_frame", "spill_stores", "spill_loads"), nums))
+        elif name and "registers" in ln:
+            out.setdefault(name, {})["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    return out
 
 
 def device_ms(fn, kernels):
@@ -1145,6 +1186,7 @@ REPRO_SOURCE = "path_trace_golang_tpu_torch/csrc/repro.cu"
 REPRO_GROUPS = (1, 2, 4, 8)  # G of T7's and T8's comparisons and tool runs
 T6_CHECK_ROUNDS = (1, 3)  # rounds of T6's bit-for-bit comparisons (32 and 96 products)
 T6_ROUNDS = 16384  # the JAX script's default
+T6_SPLIT_ROUNDS = 256  # rounds of T6's step split in the counting build
 
 
 def repro_phases(card):
@@ -1156,7 +1198,7 @@ def repro_phases(card):
     stderr)."""
     import numpy as np
     import torch
-    from path_trace_golang_tpu_torch.ops import repro
+    from path_trace_golang_tpu_torch.ops import cuda_trace, repro
     from path_trace_golang_tpu_torch.tools.perf import timing
     from path_trace_golang_tpu_torch.tools.repro import group_rows_relayout as t8
     from path_trace_golang_tpu_torch.tools.repro import mosaic_cond_skip as t6
@@ -1283,6 +1325,16 @@ def repro_phases(card):
     print(f"[25] T6 bound {t6_bound:.3f} ms ({t6_flops:.4g} flops at 67 TFLOP/s; {2 * t6_bound:.3f} ms at the 33.5 "
           f"Tops/s of unfused code); library torch.matmul a step x {steps} steps {t6_lib_ms:.3f} ms; plain "
           f"{t6_plain_ms:.3f} ms at 1 round (kernel {t6_small_ms:.4f} ms there) | card {card}", flush=True)
+    t6_split = None  # a tree whose counting build has no step split (the parent of the A/B) prints none
+    if hasattr(repro, "cond_chain_split"):
+        t6_split = repro.cond_chain_split(flags[1], a, b_rand, T6_SPLIT_ROUNDS)
+        per_step = sum(t6_split[k] for k in ("products", "barrier", "rest"))
+        print(f"[25] T6's step split (counting build, cond true on the random b, {T6_SPLIT_ROUNDS} rounds), clock "
+              f"cycles a step and thread: products {t6_split['products']:.1f} "
+              f"({t6_split['products'] / per_step:.1%}), write and barrier wait {t6_split['barrier']:.1f} "
+              f"({t6_split['barrier'] / per_step:.1%}), rest {t6_split['rest']:.1f} "
+              f"({t6_split['rest'] / per_step:.1%}); a step of the timed chain {t6_ms['true'] / steps * 1e6:.1f} ns "
+              f"| card {card}", flush=True)
 
     # ---- 26. T7, the staged relayout: every stage at every G against the plain version; then the tool at every G
     x7, w7 = t7.make_inputs(DEVICE)
@@ -1378,6 +1430,9 @@ def repro_phases(card):
         "ctrl_ms": t6_ms["ctrl"],
         "false_ms": t6_ms["false"],
         "half_rounds_ms": half,
+        "step_ns": t6_ms["true"] / steps * 1e6,
+        "step_split_cycles": t6_split,
+        "ptxas": ptxas_of(cuda_trace, "repro", "chain_kernel"),
     }, {
         "name": "reshape_stage",
         "route": "cuda",
@@ -1456,12 +1511,16 @@ def main(argv) -> int:
             times = frame_kernel_times(pt, cuda_trace, name, w, h, passes, depth, contract, faithful)
             run["plain_calls"] = sum(getattr(cuda_trace, c, 0) for c in PLAIN_COUNTERS)  # the render's too
         if "--split" in rest:
-            times["split"] = render_split(pt, cuda_trace, name, w, h, passes, depth, contract, faithful)
+            times["split"], times["march_split"] = render_split(pt, cuda_trace, name, w, h, passes, depth, contract,
+                                                                faithful)
             b1 = contract == "gpu" and not faithful
             line = (cuda_trace.split_line if b1 else cuda_trace.classic_split_line)(times["split"])
-            print(f"[render] {'B1' if b1 else 'the classic instance'}'s split on {name} {w}x{h} d{depth} "
-                  f"x{passes}, {contract} contract{', faithful fog' if faithful else ''}: {line} | card {card}",
+            what = f"on {name} {w}x{h} d{depth} x{passes}, {contract} contract{', faithful fog' if faithful else ''}"
+            print(f"[render] {'B1' if b1 else 'the classic instance'}'s split {what}: {line} | card {card}",
                   flush=True)
+            if times["march_split"] is not None:
+                print(f"[render] the fog march's split ({'the fog kernel' if b1 else 'classic_march_kernel'}) "
+                      f"{what}: {cuda_trace.march_split_line(times['march_split'])} | card {card}", flush=True)
         print(json.dumps({
             "scene": name, "width": w, "height": h, "passes": passes, "depth": depth, "renders": renders,
             "contract": contract, "faithful_fog": faithful, "card": card, "tree": HERE,
@@ -1484,13 +1543,13 @@ def main(argv) -> int:
         return 0 if classic_holds(pt, cuda_trace) else 1
 
     # ---- 2. build: one nvcc for each source and variant, all started together (--probes, --repro: that
-    # library only; the repros have no counting variant: their bounds come from their shapes)
+    # library only; the repros' counting variant holds T6's step split alone: their bounds come from their shapes)
     probes_only, repro_only = "--probes" in argv, "--repro" in argv
     sources = ("probes",) if probes_only else ("repro",) if repro_only else tuple(cuda_trace.SOURCES)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=2 * len(sources)) as pool:
         builds = [pool.submit(cuda_trace.build, count_ops=c, source=src)
-                  for src in sources for c in ((False,) if src == "repro" else (False, True))]
+                  for src in sources for c in (False, True)]
         sos = [b.result() for b in builds]
     print(
         f"[2] built {', '.join(os.path.relpath(so, HERE) for so in sos)} in {time.perf_counter() - t0:.1f} s",
@@ -1628,6 +1687,9 @@ def main(argv) -> int:
         flush=True,
     )
     print(f"[6] B1's split on the window: {cuda_trace.split_line(split)} | card {card}", flush=True)
+    fog_split = cuda_trace.march_split([fog_counted])
+    print(f"[6] the fog kernel's split on the window: {cuda_trace.march_split_line(fog_split)} | card {card}",
+          flush=True)
 
     # the classic instance's two longest holds (phases 15 and 19, faithful fog) in a second process beside
     # phases 7-10, which hold and time nothing; read before phase 11 times the mesh path; stopped at exit
@@ -1921,6 +1983,10 @@ def main(argv) -> int:
             flush=True,
         )
         print(f"[18] its split: {cuda_trace.classic_split_line(sp)} | card {card}", flush=True)
+        if march:
+            classic_split_of["march"] = cuda_trace.march_split([march])
+            print(f"[18] classic_march_kernel's split: {cuda_trace.march_split_line(classic_split_of['march'])} | "
+                  f"card {card}", flush=True)
     classic_frame("cpu", 1, 2)  # the cpu frame's 2-pass window, for phase 19 beside the timed 8-pass one
 
     from path_trace_golang_tpu_torch import integrator
@@ -2089,6 +2155,8 @@ def main(argv) -> int:
         "ops": classic_bound[label][2],
         "library_ms": None,
         "shape": shape,
+        "ptxas": ptxas_of(cuda_trace, "classic", kernel_of[label]),
+        "split": classic_split_of[label],
     } for name, label, run, counter, path, what, plain, plain_shape, shape in (
         ("classic_window", "cpu", "cpu", "CLASSIC_LAUNCHES", "cpu-contract (1080p d80, 16 passes)",
          "the classic per-sample loop of render.pass_body_grid (render.py:296-322), the cpu contract", cpu_plain_ms,
@@ -2124,6 +2192,8 @@ def main(argv) -> int:
         "ops": fog_ops,
         "library_ms": None,
         "shape": f"demo_showcase 1920x1080, one 8-pass window: {n_pad} lanes x 8 passes, one thread each",
+        "ptxas": ptxas_of(cuda_trace, "render_pass", "fog_pass_kernel"),
+        "march_split": fog_split,
     }, {
         "name": "trace_grid",
         "route": "cuda",

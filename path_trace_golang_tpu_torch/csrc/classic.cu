@@ -44,7 +44,8 @@
 // - with several samples a pass (faithful fog), a sample is two launches
 //   over all of a frame's chunks: classic_march_kernel (the state advance,
 //   the camera ray and the fog march, most of the work, in step on every
-//   lane) and classic_sample_kernel (the bounces), each lane reading the
+//   lane, its shadow tests culled warp by warp: common.cuh, shadow_cull)
+//   and classic_sample_kernel (the bounces), each lane reading the
 //   longest path of its own chunk (trips[chunk][sample]); the last sample
 //   adds the pass into the accumulator.
 //
@@ -61,7 +62,8 @@ namespace {
 // the blocks of 128 threads an SM that ptxas must leave room for (registers
 // at most 65,536 / (128 x blocks)), by kernel and instance (PERF.md, the
 // occupancy A/B): faithful fog's march and bounces gain from 64 registers
-// and 8 blocks despite their spills (-9% and -4% of a pass); the cpu
+// and 8 blocks despite their spills (-9% and -4% of a pass; the march with
+// its shadow cull again: 6, 12 and 16 blocks lose 2-26%); the cpu
 // window's kernel moves by less than the runs' spread from 48 to 80
 // registers, and keeps ptxas' choice (72, 95 with pages); the paged march
 // and bounces, which no measured cell runs, keep ptxas' choice (a minimum of 1)

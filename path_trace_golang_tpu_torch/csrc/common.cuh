@@ -37,9 +37,21 @@
 // bit-inverted, so that atomicMax keeps the least), last block end and last
 // block start, in ns of %globaltimer, [18] and [19] the classic loop's
 // state advance and its jitter + camera ray (STAGE_ADVANCE, STAGE_CAMERA),
-// and [20] each warp's most segments of one thread times 32, summed (the
-// segments the warps' loops run for, against [0]).  counters[CURSOR] is the
-// next lane of a launch whose blocks take lanes as they go.
+// [20] each warp's most segments of one thread times 32, summed (the
+// segments the warps' loops run for, against [0]), and the fog march's own
+// split: [21..24] the lane cycles of its primary hit, its noise, its light
+// sampling with the shadow tests and the shadow tests alone (STAGE_MHIT,
+// STAGE_MNOISE, STAGE_MLIGHT, STAGE_MSHADOW: each timed as the warp runs
+// it, to the __syncwarp of the lanes that began it, so that a lane waiting
+// for the others counts in the stage it waits in), [25] the lanes present
+// at a light's shadow test and [26] those that run it, summed over warp
+// iterations, [27] the iterations in which any lane runs it, [28] the tests
+// that come back blocked, [29] the objects and triangles and [30] the BVH
+// nodes that the tests visit before they return (the paged walk's not
+// counted), [31] the noise's sinf calls and [32] those whose argument lies
+// past 105,615 in magnitude (CUDA's slow Payne-Hanek reduction), [33] the
+// march's warp tail (MARCH_DONE).  counters[CURSOR] is the next lane of a
+// launch whose blocks take lanes as they go.
 
 #pragma once
 
@@ -52,8 +64,8 @@
 // kernel or in the classic loop's trace, the bounce loop's, the classic
 // loop's state advance and camera ray)
 constexpr int STAGE_FOG = 0, STAGE_ISECT = 1, STAGE_NEE = 2, STAGE_LITE = 3, STAGE_LOOP = 4, STAGE_ADVANCE = 5,
-              STAGE_CAMERA = 6, N_STAGES = 7;
-constexpr int N_COUNTERS = 22, CURSOR = 21;
+              STAGE_CAMERA = 6, STAGE_MHIT = 7, STAGE_MNOISE = 8, STAGE_MLIGHT = 9, STAGE_MSHADOW = 10, N_STAGES = 11;
+constexpr int N_COUNTERS = 35, CURSOR = 34;
 
 #ifdef PT_COUNT_OPS
 __device__ __forceinline__ unsigned long long global_ns() {
@@ -68,6 +80,8 @@ struct OpsCount {
   unsigned long long ns0;  // the thread's start, in ns of %globaltimer
   unsigned long long stage[N_STAGES];
   unsigned long long nee_active, nee_entries, rng;
+  long long t_march;  // the end of the lane's fog march (0: it marched none)
+  unsigned long long shadow_lanes, shadow_active, shadow_entries, shadow_blocked, prims, nodes, sin_calls, sin_large;
 };
 __device__ __forceinline__ OpsCount ops_start() {
   OpsCount o = {};
@@ -98,6 +112,30 @@ __device__ __forceinline__ OpsCount ops_start() {
     }                                                            \
   } while (0)
 #define LANE_DONE() (ops.t_last = clock64())
+// a stage of the fog march timed as the warp runs it: from its start to the
+// __syncwarp of the lanes that began it together
+#define WSTAGE_BEGIN(v)                   \
+  const unsigned v##_mask = __activemask(); \
+  const long long v = clock64()
+#define WSTAGE_END(v, k) (__syncwarp(v##_mask), ops.stage[k] += clock64() - (v))
+// the fog march's shadow test as the warp runs it: the lanes present, those
+// that test, and the cycles until the lanes that began it together meet
+#define SHADOW_BEGIN(valid)                                         \
+  const unsigned sh_mask = __activemask();                          \
+  const unsigned sh_testing = __ballot_sync(sh_mask, valid);        \
+  if ((threadIdx.x & 31) == __ffs(sh_mask) - 1) {                   \
+    ops.shadow_lanes += __popc(sh_mask);                            \
+    ops.shadow_active += __popc(sh_testing);                        \
+    ops.shadow_entries += sh_testing != 0u;                         \
+  }                                                                 \
+  const long long sh_t0 = clock64()
+#define SHADOW_END(blocked)                                                          \
+  (ops.shadow_blocked += (blocked), __syncwarp(sh_mask), ops.stage[STAGE_MSHADOW] += \
+   clock64() - sh_t0)
+#define MARCH_DONE() (ops.t_march = clock64())
+#define SIN_ARG(x) (ops.sin_calls += 1, ops.sin_large += fabsf(x) > F(105615.0) ? 1 : 0)
+#define VISIT_PRIM() (ops.prims += 1)
+#define VISIT_NODE() (ops.nodes += 1)
 #else
 #define OPS_DECL
 #define OPS(n) ((void)0)
@@ -110,6 +148,14 @@ __device__ __forceinline__ OpsCount ops_start() {
 #define STAGE_END(v, k) ((void)0)
 #define NEE_ENTRY() ((void)0)
 #define LANE_DONE() ((void)0)
+#define WSTAGE_BEGIN(v)
+#define WSTAGE_END(v, k) ((void)0)
+#define SHADOW_BEGIN(valid)
+#define SHADOW_END(blocked) ((void)0)
+#define MARCH_DONE() ((void)0)
+#define SIN_ARG(x) ((void)0)
+#define VISIT_PRIM() ((void)0)
+#define VISIT_NODE() ((void)0)
 #endif
 
 namespace {
@@ -135,7 +181,7 @@ constexpr int C_DRAW = 3, C_NORMALIZE = 11, C_DOT = 5, C_REFLECT = 12;
 constexpr int C_UNIT_BALL = 36, C_UNIT_DISK = 24, C_COSINE_DIR = 73, C_SPHERE_SURF = 29;
 constexpr int C_GGX = 131, C_REFRACT = 34, C_SCHLICK = 12, C_LUM_CLAMP = 10, C_BACKGROUND = 14;
 constexpr int C_HASH31 = 21, C_PHASE = 11, C_RAY_SETUP = 9, C_SPHERE = 24, C_PLANE = 2, C_BOX = 32;
-constexpr int C_NODE = 23, C_TRI = 46, C_COSINE_ONB = 71;
+constexpr int C_NODE = 23, C_TRI = 46, C_COSINE_ONB = 71, C_CULL = 58;
 #endif
 
 struct V {
@@ -526,31 +572,45 @@ __device__ Hit intersect(const Scene& S, V o, V d, int exclude, bool lite OPS_PA
   return h;
 }
 
-// any hit before t_max (ops/geometry.py::occluded)
-template <bool PAGED>
-__device__ bool occluded(const Scene& S, V o, V d, float t_max OPS_PARAM) {
+// any hit before t_max (ops/geometry.py::occluded).  CULL: only the
+// objects m < 31 whose bit m of `cull` is set, every object from 31 on, and
+// the mesh's node walk only where bit 31 is set (shadow_cull below).  The
+// result is an OR over the primitives, so leaving out primitives that no
+// ray of the call can hit changes nothing.
+template <bool PAGED, bool CULL = false>
+__device__ bool occluded(const Scene& S, V o, V d, float t_max, uint32_t cull OPS_PARAM) {
   const float t_min = F(0.001);
   float a = dot(d, d);
   float inv_a = 1.0f / a;
   float inv_dx = 1.0f / d.x, inv_dy = 1.0f / d.y, inv_dz = 1.0f / d.z;
   OPS(C_RAY_SETUP);
-  for (int m = 0; m < S.n_obj; ++m) {
+  auto blocks = [&](int m) {
     const float* ob = S.obj + m * OBJ_STRIDE;
     int typ = (int)ob[0];
     float t;
     OPS(typ == OBJ_SPHERE ? C_SPHERE : (typ == OBJ_PLANE ? C_PLANE : C_BOX));
+    VISIT_PRIM();
     bool ok = object_t(ob, typ, o, d, a, inv_a, inv_dx, inv_dy, inv_dz, t_min, t);
-    if (ok && t <= t_max) return true;
+    return ok && t <= t_max;
+  };
+  if (CULL && S.n_obj <= 31) {
+    for (uint32_t mm = cull & ((1u << S.n_obj) - 1u); mm; mm &= mm - 1u)
+      if (blocks(__ffs(mm) - 1)) return true;
+  } else {  // shadow_cull culls nothing above 31 objects
+    for (int m = 0; m < S.n_obj; ++m)
+      if (blocks(m)) return true;
   }
   if constexpr (PAGED) {
     bool blocked;
     WALK_CLOCK(blocked = paged_occluded(S.pages, o, d, mk(inv_dx, inv_dy, inv_dz), t_min, t_max OPS_ARG));
     return blocked;
   }
+  if (CULL && !(cull >> 31)) return false;
   int nd = 0;
   while (nd < S.n_nodes) {
     const float* bn = S.bounds + nd * 6;
     OPS(C_NODE);
+    VISIT_NODE();
     float t1x = (bn[0] - o.x) * inv_dx, t2x = (bn[3] - o.x) * inv_dx;
     float t1y = (bn[1] - o.y) * inv_dy, t2y = (bn[4] - o.y) * inv_dy;
     float t1z = (bn[2] - o.z) * inv_dz, t2z = (bn[5] - o.z) * inv_dz;
@@ -564,6 +624,7 @@ __device__ bool occluded(const Scene& S, V o, V d, float t_max OPS_PARAM) {
         for (int k = 0; k < count; ++k) {
           const float* r = S.tri + (first + k) * TRI_STRIDE;
           OPS(C_TRI);
+          VISIT_PRIM();
           float e1x = r[3], e1y = r[4], e1z = r[5], e2x = r[6], e2y = r[7], e2z = r[8];
           float px = d.y * e2z - d.z * e2y;
           float py = d.z * e2x - d.x * e2z;
@@ -639,7 +700,7 @@ __device__ V direct_light(const Scene& S, V p, V n, V albedo, uint32_t& st OPS_P
     valid = valid && cos_s > 0.0f && cos_l > 0.0f;
     if (!valid) continue;
     OPS(7);
-    if (occluded<PAGED>(S, add(p, muls(n, F(0.001))), wi, dist - F(0.002) OPS_ARG)) continue;
+    if (occluded<PAGED>(S, add(p, muls(n, F(0.001))), wi, dist - F(0.002), ~0u OPS_ARG)) continue;
     OPS(13 + C_LUM_CLAMP + 3);
     float inv_d2 = 1.0f / nmax(dist_sq, F(1e-6));
     float w = cos_s * cos_l * inv_d2 * nmin(inv_pdf, F(1e6));
@@ -655,11 +716,13 @@ __device__ V direct_light(const Scene& S, V p, V n, V albedo, uint32_t& st OPS_P
 }
 
 // ---- fog (ops/fog.py) ----
-__device__ __forceinline__ float hash31(V p) {
+__device__ __forceinline__ float hash31(V p OPS_PARAM) {
   float qx = p.x * F(127.1) + p.y * F(311.7) + p.z * F(74.7);
   float qy = p.x * F(269.5) + p.y * F(183.3) + p.z * F(246.1);
   float qz = p.x * F(113.5) + p.y * F(271.9) + p.z * F(124.6);
-  float s = sinf(qx + qy + qz) * F(43758.5453);
+  float q = qx + qy + qz;
+  SIN_ARG(q);
+  float s = sinf(q) * F(43758.5453);
   return s - floorf(s);
 }
 
@@ -694,7 +757,7 @@ __device__ float volume_noise(V p, const Fog& f OPS_PARAM) {
     OPS(2);
     if ((float)i < f.octaves) {
       OPS(3 + C_HASH31 + 3);
-      total = total + hash31(muls(p, freq)) * amp;
+      total = total + hash31(muls(p, freq) OPS_ARG) * amp;
       norm = norm + amp;
     }
     amp = amp * 0.5f;
@@ -710,9 +773,158 @@ __device__ __forceinline__ float phase_hg(float cos_theta, float g) {
   return (1.0f - gg) / (4.0f * F(3.14159265359) * denom * sqrtf(nmax(denom, F(1e-6))));
 }
 
+// ---- the shadow cull of the fog march ----
+// A float's bits mapped to an unsigned key that orders as the floats do
+// (NaN keys sort beyond the infinities), and back.
+__device__ __forceinline__ uint32_t float_key(float f) {
+  const uint32_t u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float key_float(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// whether the box c +- h, which lies in the ball (c, rad), may touch the
+// hull of ball (c1, r1) and ball (c2, r2) grown by eps: the hull lies in
+// the capsule of radius max(r1, r2) around segment c1-c2 and in the box of
+// both balls
+__device__ __forceinline__ bool hull_may_touch(V c, V h, float rad, V c1, float r1, V c2, float r2, float eps) {
+  const V lo = sub(c, h), hi = add(c, h);
+  const V hlo = mk(nmin(c1.x - r1, c2.x - r2) - eps, nmin(c1.y - r1, c2.y - r2) - eps,
+                   nmin(c1.z - r1, c2.z - r2) - eps);
+  const V hhi = mk(nmax(c1.x + r1, c2.x + r2) + eps, nmax(c1.y + r1, c2.y + r2) + eps,
+                   nmax(c1.z + r1, c2.z + r2) + eps);
+  if (hi.x < hlo.x || lo.x > hhi.x || hi.y < hlo.y || lo.y > hhi.y || hi.z < hlo.z || lo.z > hhi.z) return false;
+  // the ball against the capsule
+  const V v = sub(c2, c1), w = sub(c, c1);
+  const float vv = dot(v, v);
+  const float u = vv > 0.0f ? clampf(dot(w, v) / vv, 0.0f, 1.0f) : 0.0f;
+  const V q = sub(w, muls(v, u));
+  const float reach = rad + nmax(r1, r2) + eps;
+  return !(dot(q, q) > reach * reach);
+}
+
+// the box of the march positions of the lanes `mask` of a warp (all of
+// which run this together), its ball and the scale of its coordinates
+struct PosBox {
+  unsigned mask;
+  V c;
+  float r, ext;
+};
+
+__device__ __forceinline__ PosBox pos_box(V pos, unsigned mask) {
+  const V lo = mk(key_float(__reduce_min_sync(mask, float_key(pos.x))),
+                  key_float(__reduce_min_sync(mask, float_key(pos.y))),
+                  key_float(__reduce_min_sync(mask, float_key(pos.z))));
+  const V hi = mk(key_float(__reduce_max_sync(mask, float_key(pos.x))),
+                  key_float(__reduce_max_sync(mask, float_key(pos.y))),
+                  key_float(__reduce_max_sync(mask, float_key(pos.z))));
+  const V e = muls(sub(hi, lo), 0.5f);
+  PosBox b;
+  b.mask = mask;
+  b.c = muls(add(lo, hi), 0.5f);
+  b.r = sqrtf(dot(e, e));
+  b.ext = nmax(max_comp(mk(fabsf(lo.x), fabsf(lo.y), fabsf(lo.z))), max_comp(mk(fabsf(hi.x), fabsf(hi.y), fabsf(hi.z))));
+  return b;
+}
+
+// The primitives that a shadow ray of the warp toward the sphere light (lc,
+// lr), light number `light`, could hit, for the fog march (bit m: object
+// m < 31; bit 31: the mesh).  It is exact: it leaves out only primitives
+// that cannot report a hit for any ray of the warp, rounding included
+// (u = 2^-24; --fmad=false, so each operation rounds once):
+// - the rays.  Every lane that runs this together marches toward the same
+//   light (checked; lanes of several lights cull nothing) from a position
+//   in pb (the box of the positions of the lanes that made it together at
+//   this step, checked, or else made again over these lanes).  A ray's end
+//   o + t_max d lies within a few u of its coordinates of the segment from
+//   o to its point on the light's sphere, so every ray lies in the hull H
+//   of pb's ball and the light's ball, up to those few u.
+// - a plane or a box reports a hit only at a t within a few u (relative) of
+//   a t at which the exact ray meets its faces moved by a few u of their
+//   coordinates: within a few u of the coordinates of H.
+// - a sphere's disc cancels: half_b^2 - a (|oc|^2 - r^2) is off by at most
+//   some 20u a (|oc|^2 + r^2), so the point o + t d of a reported hit lies
+//   within R = sqrt(r^2 + CULL_SPHERE_ERR (D^2 + r^2)) of the centre, D the
+//   largest |oc| of the warp (from pb's ball; no square root: D^2 <=
+//   2 |c - pb.c|^2 + 2 pb.r^2).  2^-16 is 256u; a test holds the
+//   plain sphere test's hits (the same float32 arithmetic) from D up to
+//   5,000 to 16u (tests/test_torch_render.py).
+// - the mesh: a triangle's computed hit has no such bound (its
+//   barycentrics' error grows as 1 / det for a grazing ray), but the walk
+//   tests no triangle of a ray that misses the root node's box, and that
+//   slab test takes the whole forward ray, with the rounding of a box's.
+//   Where the balls lie apart along the axis a from pb's centre to the
+//   light's, every ray's part beyond its light point lies in the
+//   half-space (x - lc).a >= -lr; so the mesh is left out where its root
+//   box lies farther than eps from H and wholly below -lr - eps along a.
+// A primitive is kept where its box (a sphere's ball grown to R) lies
+// within eps of H, eps = 1e-2 + 1e-4 S, S the largest magnitude among the
+// positions, the light and the primitive's own coordinates: some 1,700u S,
+// far above the few u of the terms above and of this function's own
+// arithmetic.  The lanes share out the primitives (each tests every n-th),
+// and the warp ORs their bits.  Above 31 objects, where a coordinate is
+// not finite, and for the paged walk, nothing is left out.
+constexpr float CULL_SPHERE_ERR = 1.52587890625e-5f;  // 2^-16
+
+__device__ __forceinline__ uint32_t shadow_cull(const Scene& S, V pos, PosBox pb, int light, V lc, float lr
+                                                OPS_PARAM) {
+  const unsigned m = __activemask();
+  if (!__all_sync(m, __shfl_sync(m, light, __ffs(m) - 1) == light)) return ~0u;
+  if (!__all_sync(m, (m & ~pb.mask) == 0u)) pb = pos_box(pos, m);
+  lr = fabsf(lr);
+  const float ext = nmax(pb.ext, max_comp(mk(fabsf(lc.x), fabsf(lc.y), fabsf(lc.z))) + lr);
+  if (S.n_obj > 31 || !isfinite(ext)) return ~0u;
+  const int rank = __popc(m & ((1u << (threadIdx.x & 31)) - 1u)), lanes = __popc(m);
+  uint32_t bits = 0u;
+  for (int k = rank; k < 32; k += lanes) {
+    bool keep = false;
+    if (k < S.n_obj) {
+      const float* ob = S.obj + k * OBJ_STRIDE;
+      const int typ = (int)ob[0];
+      const V c = mk(ob[4], ob[5], ob[6]);
+      if (typ == OBJ_PLANE) {  // the plane y = c.y (object_t reads nothing else) against H's span in y
+        const float eps = F(1e-2) + F(1e-4) * nmax(ext, fabsf(c.y));
+        keep = !(c.y < nmin(pb.c.y - pb.r, lc.y - lr) - eps || c.y > nmax(pb.c.y + pb.r, lc.y + lr) + eps);
+      } else {
+        V h;
+        float rad;
+        if (typ == OBJ_SPHERE) {  // the ball grown to R, D^2 <= 2 |c - pb.c|^2 + 2 pb.r^2
+          const float r = fabsf(ob[8]);
+          const V w = sub(c, pb.c);
+          rad = sqrtf(r * r + CULL_SPHERE_ERR * (2.0f * dot(w, w) + 2.0f * pb.r * pb.r + r * r));
+          h = mk(rad, rad, rad);
+        } else {
+          h = mk(fabsf(ob[8] * 0.5f), fabsf(ob[9] * 0.5f), fabsf(ob[10] * 0.5f));
+          rad = sqrtf(dot(h, h));
+        }
+        const float scale = max_comp(mk(fabsf(c.x), fabsf(c.y), fabsf(c.z))) + max_comp(h);
+        const float eps = F(1e-2) + F(1e-4) * nmax(ext, scale);
+        keep = hull_may_touch(c, h, rad, pb.c, pb.r, lc, lr, eps);
+      }
+      OPS(C_CULL);
+    } else if (k == 31 && S.n_nodes > 0) {  // the root node's box
+      const V lo = mk(S.bounds[0], S.bounds[1], S.bounds[2]), hi = mk(S.bounds[3], S.bounds[4], S.bounds[5]);
+      const V c = muls(add(lo, hi), 0.5f), h = muls(sub(hi, lo), 0.5f);
+      const float scale = max_comp(mk(fabsf(c.x), fabsf(c.y), fabsf(c.z))) + max_comp(h);
+      const float eps = F(1e-2) + F(1e-4) * nmax(ext, scale);
+      // apart: |axis| > lr + pb.r + eps; below: the box's reach along the
+      // axis, times |axis|, under -(lr + eps) |axis| (both squared)
+      const V axis = sub(lc, pb.c);
+      const float ll = dot(axis, axis), apart = lr + pb.r + eps, below = lr + eps;
+      const float ahead = dot(sub(c, lc), axis) + fabsf(axis.x) * h.x + fabsf(axis.y) * h.y + fabsf(axis.z) * h.z;
+      keep = !(ll > apart * apart && ahead < 0.0f && ahead * ahead > below * below * ll) ||
+             hull_may_touch(c, h, sqrtf(dot(h, h)), pb.c, pb.r, lc, lr, eps);
+      OPS(C_CULL);
+    }
+    bits |= (uint32_t)keep << k;
+  }
+  return __reduce_or_sync(m, bits);
+}
+
 // estimateVolumeLight (ops/fog.py); every light of the list, 2 draws each
 template <bool PAGED>
-__device__ V volume_light(const Scene& S, V pos, V view, float g, uint32_t& st OPS_PARAM) {
+__device__ V volume_light(const Scene& S, V pos, const PosBox& pb, V view, float g, uint32_t& st OPS_PARAM) {
   V out = mk(0.0f, 0.0f, 0.0f);
   const float PI4 = 4.0f * F(3.14159265359);
   for (int i = 0; i < S.n_lights; ++i) {
@@ -734,9 +946,15 @@ __device__ V volume_light(const Scene& S, V pos, V view, float g, uint32_t& st O
     V wi = muls(to_l, 1.0f / dist);
     float cos_l = nmax(-dot(ln, wi), 0.0f);
     valid = valid && cos_l > 0.0f;
-    if (!valid) continue;
-    OPS(1);
-    if (occluded<PAGED>(S, pos, wi, dist - F(0.002) OPS_ARG)) continue;
+    SHADOW_BEGIN(valid);
+    const uint32_t cull = shadow_cull(S, pos, pb, i, mk(ob[4], ob[5], ob[6]), radius OPS_ARG);
+    bool blocked = false;
+    if (valid) {
+      OPS(1);
+      blocked = occluded<PAGED, true>(S, pos, wi, dist - F(0.002), cull OPS_ARG);
+    }
+    SHADOW_END(blocked);
+    if (!valid || blocked) continue;
     OPS(C_DOT + C_PHASE + 2 + 2 + 6);
     float phase = phase_hg(-dot(wi, view), g);
     float geom = cos_l / nmax(dist_sq, F(1e-6));
@@ -868,7 +1086,9 @@ constexpr int FOG_STEPS = 24;
 // 40), each estimating the in-fog light; 2 draws per light and step from st
 template <bool PAGED>
 __device__ __forceinline__ V fog_march(const Scene& S, const Fog& fp, V o, V d, uint32_t& st OPS_PARAM) {
+  WSTAGE_BEGIN(hit_t0);
   Hit h = intersect<PAGED>(S, o, d, -1, false OPS_ARG);
+  WSTAGE_END(hit_t0, STAGE_MHIT);
   float t_max = nmin(h.hit ? h.t : F(40.0), F(40.0));
   float step = t_max * F(1.0 / FOG_STEPS);
   V rad = mk(0.0f, 0.0f, 0.0f);
@@ -876,16 +1096,22 @@ __device__ __forceinline__ V fog_march(const Scene& S, const Fog& fp, V o, V d, 
     float t = ((float)i + 0.5f) * step;
     V pos = add(o, muls(d, t));
     OPS(2 + 6 + 5 + 3 + 3 + 2 + 9);
+    WSTAGE_BEGIN(noise_t0);
     float n = volume_noise(pos, fp OPS_ARG);
+    WSTAGE_END(noise_t0, STAGE_MNOISE);
     float scale = fp.hetero > 0.0f ? (1.0f - fp.k) * (1.0f - n) + (1.0f + fp.k) * n : 1.0f;
     float sigma_s = fp.sigma_s * scale, sigma_a = fp.sigma_a * scale;
     float sigma_t = sigma_s + sigma_a;
     float tr = expf(-sigma_t * t);
-    V ls = volume_light<PAGED>(S, pos, d, fp.g, st OPS_ARG);
+    WSTAGE_BEGIN(light_t0);
+    const PosBox pb = pos_box(pos, __activemask());
+    V ls = volume_light<PAGED>(S, pos, pb, d, fp.g, st OPS_ARG);
+    WSTAGE_END(light_t0, STAGE_MLIGHT);
     float w = sigma_s * tr * step;
     if (sigma_t > 0.0f && sigma_s > 0.0f && step > 0.0f)
       rad = add(rad, mk(S.fog[4] * ls.x * w, S.fog[5] * ls.y * w, S.fog[6] * ls.z * w));
   }
+  MARCH_DONE();
   return rad;
 }
 
@@ -1106,13 +1332,21 @@ __device__ __forceinline__ void add_counters(unsigned long long segs, unsigned l
     for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xffffffffu, c, off);
     if ((threadIdx.x & 31) == 0 && c) atomicAdd(segs_out + 18 + (k - STAGE_ADVANCE), c);
   }
-  // the counting build adds the lane's counts into counters[1..13]
-  unsigned long long tally[13] = {ops.all, ops.walk, ops.walk_cycles, cycles,
+  // the fog march's warp tail: the warp's last march end less the lane's own
+  long long march_end = ops.t_march;
+  for (int off = 16; off > 0; off >>= 1) march_end = max(march_end, __shfl_xor_sync(0xffffffffu, march_end, off));
+  const unsigned long long march_tail = ops.t_march ? (unsigned long long)(march_end - ops.t_march) : 0ull;
+  // the counting build adds the lane's counts into counters[1..13] and the
+  // march's into [21..33]
+  unsigned long long tally[26] = {ops.all, ops.walk, ops.walk_cycles, cycles,
                                   ops.stage[0], ops.stage[1], ops.stage[2], ops.stage[3], ops.stage[4],
-                                  ops.nee_active, ops.nee_entries, tail, ops.rng};
-  for (int c = 0; c < 13; ++c) {
+                                  ops.nee_active, ops.nee_entries, tail, ops.rng,
+                                  ops.stage[STAGE_MHIT], ops.stage[STAGE_MNOISE], ops.stage[STAGE_MLIGHT],
+                                  ops.stage[STAGE_MSHADOW], ops.shadow_lanes, ops.shadow_active, ops.shadow_entries,
+                                  ops.shadow_blocked, ops.prims, ops.nodes, ops.sin_calls, ops.sin_large, march_tail};
+  for (int c = 0; c < 26; ++c) {
     for (int off = 16; off > 0; off >>= 1) tally[c] += __shfl_down_sync(0xffffffffu, tally[c], off);
-    if ((threadIdx.x & 31) == 0 && tally[c]) atomicAdd(segs_out + 1 + c, tally[c]);
+    if ((threadIdx.x & 31) == 0 && tally[c]) atomicAdd(segs_out + (c < 13 ? 1 + c : 21 + (c - 13)), tally[c]);
   }
 #endif
   __syncthreads();

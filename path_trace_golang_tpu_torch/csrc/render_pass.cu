@@ -23,7 +23,11 @@
 //   each: it holds no bounce state, so it runs at its own register budget,
 //   and its lanes march in step (FOG_STEPS steps x every light).  Its terms
 //   go to device memory (12 bytes a lane and pass), and the loop adds them
-//   to a lane's color in pass order, the adds of the plain version.
+//   to a lane's color in pass order, the adds of the plain version.  Its
+//   shadow tests held two thirds of its lanes' cycles, each visiting nearly
+//   every primitive: the march's shadow cull (common.cuh, shadow_cull) has
+//   the warp leave out of a light's tests the primitives that no ray of the
+//   warp can reach (1.55 visits a test instead of 13.63 on the showcase).
 // - one launch of render_pass_kernel covers a pass window's lanes: one
 //   end-of-launch tail a window instead of one a chunk.  The paged instance
 //   runs as many blocks as fit on the card, each thread taking the next
@@ -34,9 +38,10 @@
 //   lost 3% there and won 12% on the paged mesh frame: PERF.md).  A lane's
 //   result does not depend on the thread or launch that runs it: it is
 //   seeded per pixel and pass, and segments are summed exactly.
-// - __launch_bounds__ trade registers for warps: the page-free loop and the
-//   fog kernel run at 48 registers (10 blocks an SM) with spills, which
-//   beat 128 registers without them by 1.36x; the paged loop keeps 128.
+// - __launch_bounds__ trade registers for warps: the page-free loop runs at
+//   48 registers (10 blocks an SM) with spills, which beat 128 registers
+//   without them by 1.36x, the fog kernel at 64 (8 blocks; 3% faster than
+//   48 with the cull); the paged loop keeps 128.
 // - a lane keeps its loop state in registers; the scene tables (materials,
 //   objects, lights, mesh rows, BVH nodes, camera basis) are copied once per
 //   block into shared memory.  Work whose result a lane does not use is
@@ -60,11 +65,11 @@
 namespace {
 
 // the blocks of 128 threads an SM that ptxas must leave room for (registers
-// at most 65,536 / (128 x blocks)): the page-free loop and the fog march
-// gain from more warps to hide their latency despite the spills (10 blocks,
-// 48 registers), the paged loop loses (4 blocks, 128 registers); PERF.md,
-// the occupancy A/B.
-constexpr int B1_MIN_BLOCKS = 10, B1_PAGED_MIN_BLOCKS = 4, FOG_MIN_BLOCKS = 10;
+// at most 65,536 / (128 x blocks)): the page-free loop gains from more warps
+// to hide its latency despite the spills (10 blocks, 48 registers), the
+// paged loop loses (4 blocks, 128 registers), the fog march runs best at 8
+// (64 registers); PERF.md, the occupancy A/Bs.
+constexpr int B1_MIN_BLOCKS = 10, B1_PAGED_MIN_BLOCKS = 4, FOG_MIN_BLOCKS = 8;
 
 // the fog-once term of pass p for one lane on its own counter stream
 // (render.py:232-266): jitter, camera ray and the march, times the gate and
@@ -94,27 +99,29 @@ __global__ void __launch_bounds__(BLOCK, FOG_MIN_BLOCKS)
     fog_pass_kernel(Tables T, Params P, const int* __restrict__ g_px, const int* __restrict__ g_py,
                     float* __restrict__ terms, unsigned long long* __restrict__ counters) {
   extern __shared__ float smem[];
+#ifdef PT_COUNT_OPS
+  __shared__ unsigned long long s_segs;
+  if (threadIdx.x == 0) s_segs = 0ull;
+#endif
   const Scene S = load_scene(T, P, smem);
   OPS_DECL;
   const long long n = P.n_lanes;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n * P.n_passes) {
     const int lane = (int)(i % n), p = (int)(i / n);
+    STAGE_BEGIN(fog_t0);
     const V t = fog_term<PAGED>(S, P, (uint32_t)g_px[lane], (uint32_t)g_py[lane], p OPS_ARG);
+    STAGE_END(fog_t0, STAGE_FOG);
     float* out = terms + 3 * (size_t)p * n + lane;
     out[0] = t.x;
     out[n] = t.y;
     out[2 * n] = t.z;
   }
 #ifdef PT_COUNT_OPS
-  // the counting build adds the march's operations, hash rounds and lane
-  // cycles (the last as the fog stage's) into counters[1], [13] and [5]
-  unsigned long long tally[3] = {ops.all, ops.rng, (unsigned long long)(clock64() - ops.t0)};
-  const int slot[3] = {1, 13, 5};
-  for (int c = 0; c < 3; ++c) {
-    for (int off = 16; off > 0; off >>= 1) tally[c] += __shfl_down_sync(0xffffffffu, tally[c], off);
-    if ((threadIdx.x & 31) == 0 && tally[c]) atomicAdd(counters + slot[c], tally[c]);
-  }
+  // the counting build's tallies: the march's operations, hash rounds, lane
+  // cycles (in all, and the terms' as the fog stage's), its split, the block
+  // times
+  add_counters(0ull, &s_segs, counters OPS_ARG);
 #else
   (void)counters;
 #endif

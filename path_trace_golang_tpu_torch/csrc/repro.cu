@@ -131,61 +131,142 @@ __global__ void __launch_bounds__(1024) window_slice_kernel(const __nv_bfloat16*
 //
 // Design: column j of a @ c depends only on column j of c, so the chain
 // splits into N independent matrix-vector chains, one block each (N = 128
-// blocks of 128 threads, no grid-wide sync).  Thread k keeps row k of `a` in
-// registers for the whole launch and the column in shared memory, double
-// buffered: a step is 32 broadcast 16-byte reads, N products and N sums in
-// four interleaved partial sums, one write and one barrier.  The flag is
-// read from device memory, so nvcc cannot fold the branch.  The partial
-// sums change the order of a row's sum: the result equals the plain
-// version's (a[:, :, None] * c[None]).sum(1) bit for bit where each row of a
-// has at most two nonzero entries (T6's matrix), and within rounding of the
-// order otherwise.  What bounds it: the f32 instruction rate, 2*N^3 operations a
-// step (a multiply and an add each, unfused); the chain of steps serialises
-// the blocks' barriers.
+// blocks, no grid-wide sync), the column in shared memory, double buffered.
+// A step is 2*N^2 operations, 256 issue cycles of each of the block's 4
+// schedulers at best.  The shared reads bound it: a warp whose lanes each
+// hold a row of `a` must read (broadcast) all N entries of the column a
+// step, one shared-memory wavefront an entry (a 16-byte read of 4 entries
+// takes 4), 4 x 128 = 512 wavefronts a step with one thread a row (PERF.md:
+// the step took 513 cycles, and four threads a row, four warps a
+// scheduler, took longer still).  So a thread holds T6_ROWS rows and uses
+// each entry it reads for all of them: 512 / T6_ROWS wavefronts a step, and
+// T6_PARTS threads share those rows' entries (T6_PARTS * 128 / T6_ROWS
+// threads).  Two rows and two parts (128 threads, 64 entries of each row a
+// thread) won the A/B of the layouts (PERF.md): more parts add the
+// shuffles and warps that hide latency no better than they cost.  Thread
+// (g, p), lanes of one warp for one row group, keeps the p-th part of rows
+// g * T6_ROWS .. + T6_ROWS - 1 of `a` in registers for the whole launch; a
+// step is 16-byte reads of that part of the column (each part padded by 16
+// bytes, so that the parts a warp reads lie in other banks), each row's
+// products and sums in four interleaved partial sums, the parts' sums
+// joined in a fixed order ((q0 + q1) + (q2 + q3) for four parts) by
+// shuffles, one write a row and one barrier.  The flag is read from device
+// memory, so nvcc cannot fold the branch; the loop over rounds tests it
+// every round (not unswitched: PERF.md).
+//
+// Bit-identity: the kernel sums a row's 128 products in another order than
+// the plain version's (a[:, :, None] * c[None]).sum(1).  Each row of T6's
+// own `a` (mosaic_cond_skip.py's _mk_a) has at most two nonzero entries, so
+// each sum holds at most two nonzero terms beside exact zeros, and every
+// order gives the same float: x + (+-0) = x for x != 0, and a sum of zeros
+// is -0 only where every term is -0.  The kernel equals the plain version
+// bit for bit there; for a general `a` within the rounding of the order.
+// No fused multiply-add (--fmad=false): each product is rounded on its own,
+// as in the plain version.
+//
+// What bounds it: the f32 instruction rate of one SM a column, 2*N^2
+// operations a step (a multiply and an add each, unfused: 128 a cycle and
+// SM); the chain of steps serialises the blocks' barriers.
 // ---------------------------------------------------------------------------
+
+constexpr int T6_ROWS = 2;   // rows of `a` a thread
+constexpr int T6_PARTS = 2;  // threads a row
+constexpr int T6_K = LANE / T6_PARTS;        // entries of a row a thread holds
+constexpr int T6_THREADS = LANE * T6_PARTS / T6_ROWS;
+constexpr int T6_PAD = LANE + 4 * T6_PARTS;  // the column's floats in shared memory, each part padded by 16 bytes
+static_assert(T6_PARTS == 1 || T6_PARTS == 2 || T6_PARTS == 4 || T6_PARTS == 8, "T6_PARTS must divide a warp");
+static_assert(T6_ROWS >= 1 && T6_ROWS <= T6_PARTS && LANE % T6_ROWS == 0, "T6_ROWS: 1 to T6_PARTS");
+
+#ifdef PT_COUNT_OPS
+// T6's step split in the counting build (-DPT_COUNT_OPS): clock cycles of a
+// step's products, of its write and barrier wait, of the whole chain, and
+// the steps, summed over threads; read and zeroed by pt_t6_clocks()
+__device__ unsigned long long g_t6_clocks[4];
+#define T6_CLOCK(v) const long long v = clock64()
+#define T6_ADD(k, n) (t6_sum[k] += (unsigned long long)(n))
+#else
+#define T6_CLOCK(v)
+#define T6_ADD(k, n) ((void)0)
+#endif
 
 __device__ __forceinline__ void chain_column(bool active, const float* __restrict__ a, const float* __restrict__ b,
                                              float* __restrict__ out, int rounds, int inner) {
-  __shared__ __align__(16) float v[2][LANE];
-  const int k = threadIdx.x, j = blockIdx.x;
-  float ar[LANE];
+  __shared__ __align__(16) float v[2][T6_PAD];
+  const int g = threadIdx.x / T6_PARTS, p = threadIdx.x % T6_PARTS, j = blockIdx.x;
+  const int at = p * (T6_K + 4);  // the first float of this part of the column
+#ifdef PT_COUNT_OPS
+  unsigned long long t6_sum[4] = {0ull, 0ull, 0ull, 0ull};
+#endif
+  T6_CLOCK(c_start);
+  float ar[T6_ROWS][T6_K];
 #pragma unroll
-  for (int q = 0; q < LANE / 4; ++q) {
-    const float4 t = reinterpret_cast<const float4*>(a + (size_t)k * LANE)[q];
-    ar[4 * q] = t.x, ar[4 * q + 1] = t.y, ar[4 * q + 2] = t.z, ar[4 * q + 3] = t.w;
-  }
-  v[0][k] = b[(size_t)k * LANE + j];
+  for (int k = 0; k < T6_ROWS; ++k)
+#pragma unroll
+    for (int q = 0; q < T6_K / 4; ++q) {
+      const float4 t = reinterpret_cast<const float4*>(a + (size_t)(g * T6_ROWS + k) * LANE + p * T6_K)[q];
+      ar[k][4 * q] = t.x, ar[k][4 * q + 1] = t.y, ar[k][4 * q + 2] = t.z, ar[k][4 * q + 3] = t.w;
+    }
+  // the row that this thread writes, where its part's index names one of its group's rows
+  const bool writes = p < T6_ROWS;
+  const int mine = g * T6_ROWS + (writes ? p : 0);
+  const int mine_at = mine + 4 * (mine / T6_K);  // its place in the padded column
+  if (writes) v[0][mine_at] = b[(size_t)mine * LANE + j];
   __syncthreads();
   int cur = 0;
   for (int rr = 0; rr < rounds; ++rr) {
     if (!active) continue;
     for (int s = 0; s < inner; ++s) {
-      const float4* c4 = reinterpret_cast<const float4*>(v[cur]);
-      float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+      T6_CLOCK(c0);
+      const float4* c4 = reinterpret_cast<const float4*>(v[cur] + at);
+      float acc[T6_ROWS][4];
 #pragma unroll
-      for (int q = 0; q < LANE / 4; ++q) {
+      for (int k = 0; k < T6_ROWS; ++k) acc[k][0] = acc[k][1] = acc[k][2] = acc[k][3] = 0.0f;
+#pragma unroll
+      for (int q = 0; q < T6_K / 4; ++q) {
         const float4 c = c4[q];
-        s0 = s0 + ar[4 * q] * c.x;
-        s1 = s1 + ar[4 * q + 1] * c.y;
-        s2 = s2 + ar[4 * q + 2] * c.z;
-        s3 = s3 + ar[4 * q + 3] * c.w;
+#pragma unroll
+        for (int k = 0; k < T6_ROWS; ++k) {
+          acc[k][0] = acc[k][0] + ar[k][4 * q] * c.x;
+          acc[k][1] = acc[k][1] + ar[k][4 * q + 1] * c.y;
+          acc[k][2] = acc[k][2] + ar[k][4 * q + 2] * c.z;
+          acc[k][3] = acc[k][3] + ar[k][4 * q + 3] * c.w;
+        }
       }
+      float sum = 0.0f;
+#pragma unroll
+      for (int k = 0; k < T6_ROWS; ++k) {
+        float r = (acc[k][0] + acc[k][1]) + (acc[k][2] + acc[k][3]);
+#pragma unroll
+        for (int o = 1; o < T6_PARTS; o <<= 1) r = r + __shfl_xor_sync(0xffffffffu, r, o);
+        if (p == k) sum = r;
+      }
+      T6_CLOCK(c1);
       cur ^= 1;
-      v[cur][k] = (s0 + s1) + (s2 + s3);
+      if (writes) v[cur][mine_at] = sum;
       __syncthreads();
+      T6_CLOCK(c2);
+      T6_ADD(0, c1 - c0);
+      T6_ADD(1, c2 - c1);
+      T6_ADD(3, 1);
     }
   }
-  out[(size_t)k * LANE + j] = v[cur][k];
+  if (writes) out[(size_t)mine * LANE + j] = v[cur][mine_at];
+  T6_CLOCK(c_end);
+  T6_ADD(2, c_end - c_start);
+#ifdef PT_COUNT_OPS
+  for (int q = 0; q < 4; ++q) atomicAdd(&g_t6_clocks[q], t6_sum[q]);
+#endif
 }
 
-__global__ void __launch_bounds__(LANE) cond_chain_kernel(const int* __restrict__ flag, const float* __restrict__ a,
-                                                          const float* __restrict__ b, float* __restrict__ out,
-                                                          int rounds, int inner) {
+__global__ void __launch_bounds__(T6_THREADS)
+    cond_chain_kernel(const int* __restrict__ flag, const float* __restrict__ a, const float* __restrict__ b,
+                      float* __restrict__ out, int rounds, int inner) {
   chain_column(flag[0] > 0, a, b, out, rounds, inner);
 }
 
-__global__ void __launch_bounds__(LANE) ctrl_chain_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                                                          float* __restrict__ out, int rounds, int inner) {
+__global__ void __launch_bounds__(T6_THREADS)
+    ctrl_chain_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ out, int rounds,
+                      int inner) {
   chain_column(true, a, b, out, rounds, inner);
 }
 
@@ -354,9 +435,9 @@ extern "C" int pt_cond_chain(int control, const int* flag, const float* a, const
   if (rounds < 0 || inner <= 0 || (uintptr_t)a % 16) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (control)
-    ctrl_chain_kernel<<<LANE, LANE, 0, s>>>(a, b, out, rounds, inner);
+    ctrl_chain_kernel<<<LANE, T6_THREADS, 0, s>>>(a, b, out, rounds, inner);
   else
-    cond_chain_kernel<<<LANE, LANE, 0, s>>>(flag, a, b, out, rounds, inner);
+    cond_chain_kernel<<<LANE, T6_THREADS, 0, s>>>(flag, a, b, out, rounds, inner);
   return (int)cudaGetLastError();
 }
 
@@ -382,5 +463,17 @@ extern "C" int pt_group_rows(const float* x, float* out, int grows, int g, void*
   group_rows_kernel<<<grows, g * LANE, 0, (cudaStream_t)stream>>>(x, out);
   return (int)cudaGetLastError();
 }
+
+#ifdef PT_COUNT_OPS
+// T6's step split of the launches since the last call (counting build):
+// out[4] = the products' cycles, the write and barrier's, the chain's, the
+// steps, each summed over threads; the sums are zeroed
+extern "C" int pt_t6_clocks(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_t6_clocks, sizeof(g_t6_clocks));
+  const unsigned long long zero[4] = {0ull, 0ull, 0ull, 0ull};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_t6_clocks, zero, sizeof(zero));
+  return (int)e;
+}
+#endif
 
 extern "C" const char* pt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

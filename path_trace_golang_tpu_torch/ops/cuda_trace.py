@@ -74,7 +74,8 @@ from .vec import V3
 
 __all__ = [
     "render_pass", "render_pass_plain", "render_pass_cuda", "count_ops", "count_ops_split", "build",
-    "fog_pass", "fog_count_ops", "b1_split", "split_line", "classic_split", "classic_split_line", "N_COUNTERS",
+    "fog_pass", "fog_count_ops", "b1_split", "split_line", "classic_split", "classic_split_line", "march_split",
+    "march_split_line", "N_COUNTERS",
     "classic_render", "classic_render_plain", "classic_render_cuda", "classic_count_split",
     "trace_grid", "trace_grid_plain", "trace_grid_cuda", "trace_count_ops",
     "paged_traverse", "paged_occluded", "paged_count_ops",
@@ -253,12 +254,12 @@ def render_pass_cuda(
         accum = _classic_accum(px, n_passes, fog_terms)
         segs = classic_render_cuda(accum, pack, frame_seed, px, py, chunk=px.numel(), **kw)
         return V3(accum[:, 0], accum[:, 1], accum[:, 2]), segs
-    col, counters, fog_launches = _launch(False, pack, frame_seed, px, py, n_passes=n_passes, fog_terms=fog_terms,
+    col, counters, fog_counters = _launch(False, pack, frame_seed, px, py, n_passes=n_passes, fog_terms=fog_terms,
                                           **kw)
     LAUNCHES += 1
     if pack.paged is not None:
         PAGED_LAUNCHES += 1
-    FOG_LAUNCHES += fog_launches
+    FOG_LAUNCHES += fog_counters is not None
     return col, counters[0]
 
 
@@ -274,11 +275,17 @@ def count_ops(pack: ScenePack, frame_seed: int, px, py, **kw):
 
 # the counters of a launch (csrc/common.cuh): [0] segments, the counting
 # build's tallies after it, the lane cursor last
-N_COUNTERS = 22
+N_COUNTERS = 35
 _COUNT_NAMES = (
     "segments", "ops", "walk_ops", "walk_cycles", "cycles",
     "fog_cycles", "isect_cycles", "nee_cycles", "lite_cycles", "loop_cycles",
     "nee_active", "nee_entries", "warp_tail_cycles", "rng_rounds",
+)
+# counters[21..33]: the fog march's split
+_MARCH_NAMES = (
+    "march_hit_cycles", "march_noise_cycles", "march_light_cycles", "march_shadow_cycles",
+    "shadow_lanes", "shadow_active", "shadow_entries", "shadow_blocked", "shadow_prims", "shadow_nodes",
+    "sin_calls", "sin_large", "march_tail_cycles",
 )
 _U64 = (1 << 64) - 1
 
@@ -290,6 +297,7 @@ def _count_dict(counters) -> dict:
     out["first_start_ns"], out["first_end_ns"], out["last_end_ns"] = _U64 ^ vals[14], _U64 ^ vals[15], vals[16]
     out["last_start_ns"] = vals[17]
     out["advance_cycles"], out["camera_cycles"], out["warp_segments"] = vals[18], vals[19], vals[20]
+    out.update(zip(_MARCH_NAMES, vals[21:34]))
     return out
 
 
@@ -332,12 +340,17 @@ def count_ops_split(pack: ScenePack, frame_seed: int, px, py, **kw) -> dict:
     ``fog_cycles``, and its launches' dicts merged
     (:func:`classic_count_split` on the lanes as one chunk); ``warp_segments`` counts the
     segments that the warps' loops ran for (32 times a warp's busiest
-    thread's)."""
+    thread's).  The fog march's own tallies (``march_*``, ``shadow_*``,
+    ``sin_*``; :func:`march_split`) are those of the fog kernel under
+    ``"fog"`` (None where the call marched no fog once a pass) and, under
+    the classic instance, of the march kernel under ``"march"``."""
     if not _regen(kw["tcfg"]):
         accum = _classic_accum(px, kw.pop("n_passes", 1), kw.pop("fog_terms", None))
         return classic_count_split(accum, pack, frame_seed, px, py, chunk=px.numel(), **kw)
-    _col, counters, _fog = _launch(True, pack, frame_seed, px, py, **kw)
-    return _count_dict(counters)
+    _col, counters, fog_counters = _launch(True, pack, frame_seed, px, py, **kw)
+    out = _count_dict(counters)
+    out["fog"] = None if fog_counters is None else _count_dict(fog_counters)
+    return out
 
 
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores, 700 W
@@ -353,7 +366,7 @@ def b1_split(counted) -> dict:
     less first block end, against the launch's span, summed over launches),
     the hash rounds and both bounds (f32 operations at 67 TFLOP/s;
     operations and hash rounds as FFMA slots at the unfused rate)."""
-    tot = {k: sum(c[k] for c in counted) for k in counted[0] if not k.endswith("_ns")}
+    tot = {k: sum(c[k] for c in counted) for k in counted[0] if not k.endswith("_ns") and k != "fog"}
     cyc = max(tot["cycles"], 1)
     inner = tot["isect_cycles"] + tot["nee_cycles"] + tot["lite_cycles"]
     spread, span, drain = (sum(x) for x in zip(*(_launch_spans(c) for c in counted)))
@@ -459,6 +472,73 @@ def classic_split_line(sp: dict) -> str:
     )
 
 
+def march_split(counted) -> dict:
+    """The fog march's split from the counting build's dicts of its
+    launches (the fog kernel's, or the classic instance's march kernel's):
+    the lane cycles of each stage as shares of the launches' (the primary
+    hit, the noise with its sinf, light sampling, the shadow tests, the
+    march's warp tail, the classic march kernel's state advance and camera
+    ray, and the rest: jitter, camera ray, steps, transmittance, sums,
+    stores); the share of the lanes present at a light's shadow test that
+    run it, and of the lanes of the warp iterations that run one; the share
+    of tests that come back blocked, the objects and triangles and the BVH
+    nodes a test visits; the share of sinf arguments past 105,615; the
+    launch tail; the hash rounds and both bounds."""
+    tot = {k: sum(c[k] for c in counted)
+           for k in _COUNT_NAMES + _MARCH_NAMES + ("advance_cycles", "camera_cycles")}
+    cyc = max(tot["cycles"], 1)
+    tests = max(tot["shadow_active"], 1)
+    staged = (tot["march_hit_cycles"] + tot["march_noise_cycles"] + tot["march_light_cycles"]
+              + tot["march_tail_cycles"] + tot["advance_cycles"] + tot["camera_cycles"])
+    spread, span, drain = (sum(x) for x in zip(*(_launch_spans(c) for c in counted)))
+    slots = tot["ops"] + HASH_ROUND_SLOTS * tot["rng_rounds"]
+    return {
+        "launches": sum(c.get("launches", 1) for c in counted),
+        "share_hit": tot["march_hit_cycles"] / cyc,
+        "share_noise": tot["march_noise_cycles"] / cyc,
+        "share_light": (tot["march_light_cycles"] - tot["march_shadow_cycles"]) / cyc,
+        "share_shadow": tot["march_shadow_cycles"] / cyc,
+        "share_tail": tot["march_tail_cycles"] / cyc,
+        "share_advance_camera": (tot["advance_cycles"] + tot["camera_cycles"]) / cyc,
+        "share_rest": (cyc - staged) / cyc,
+        "shadow_tests": tot["shadow_active"],
+        "shadow_lane_share": tot["shadow_active"] / max(tot["shadow_lanes"], 1),
+        "shadow_warp_share": tot["shadow_active"] / max(32 * tot["shadow_entries"], 1),
+        "shadow_blocked_share": tot["shadow_blocked"] / tests,
+        "prims_per_test": tot["shadow_prims"] / tests,
+        "nodes_per_test": tot["shadow_nodes"] / tests,
+        "sin_calls": tot["sin_calls"],
+        "sin_large_share": tot["sin_large"] / max(tot["sin_calls"], 1),
+        "launch_tail_ns": spread,
+        "launch_drain_ns": drain,
+        "launch_span_ns": span,
+        "launch_tail_share": spread / max(span, 1),
+        "rng_rounds": tot["rng_rounds"],
+        "ops": tot["ops"],
+        "bound_ops_ms": tot["ops"] / PEAK_F32_FLOPS * 1e3,
+        "bound_slots_ms": slots / UNFUSED_SLOTS * 1e3,
+        "ffma_slots": slots,
+    }
+
+
+def march_split_line(sp: dict) -> str:
+    """One line of :func:`march_split`'s numbers."""
+    return (
+        f"lane cycles: primary hit {sp['share_hit']:.2%}, noise {sp['share_noise']:.2%}, light sampling "
+        f"{sp['share_light']:.2%}, shadow tests {sp['share_shadow']:.2%}, march warp tail {sp['share_tail']:.2%}, "
+        f"state advance + camera {sp['share_advance_camera']:.2%}, rest {sp['share_rest']:.2%}; "
+        f"{sp['shadow_tests']:.6g} shadow tests: {sp['shadow_lane_share']:.2%} of the lanes present at a light's "
+        f"test run it, {sp['shadow_warp_share']:.2%} of the lanes of the warp iterations that run one, "
+        f"{sp['shadow_blocked_share']:.2%} come back blocked, {sp['prims_per_test']:.2f} objects and triangles and "
+        f"{sp['nodes_per_test']:.2f} BVH nodes visited a test; {sp['sin_calls']:.6g} sinf calls, "
+        f"{sp['sin_large_share']:.4%} past |x| = 105,615; block ends spread over {sp['launch_tail_ns'] / 1e6:.3f} ms "
+        f"of the launches' {sp['launch_span_ns'] / 1e6:.3f} ms ({sp['launch_tail_share']:.2%}, {sp['launches']} "
+        f"launches), {sp['launch_drain_ns'] / 1e6:.3f} ms from the last block start to the last end; "
+        f"{sp['rng_rounds']:.6g} hash rounds; bound {sp['bound_ops_ms']:.4f} ms (f32 operations at 67 TFLOP/s), "
+        f"{sp['bound_slots_ms']:.4f} ms (operations and hash rounds as FFMA slots at 32.79 Tslots/s)"
+    )
+
+
 def _regen(tcfg) -> bool:
     from ..integrator import regen_enabled
 
@@ -530,15 +610,15 @@ def fog_pass(pack: ScenePack, frame_seed: int, px, py, *, tcfg, width: int, heig
 
 
 def fog_count_ops(pack: ScenePack, frame_seed: int, px, py, **kw) -> dict:
-    """The counting build of the fog kernel alone on the same lanes:
-    ``ops`` (f32 operations), ``rng_rounds`` and ``cycles`` (its lanes'
-    clock cycles).  Not a launch of the render path: ``FOG_LAUNCHES`` does
-    not change."""
+    """The counting build of the fog kernel alone on the same lanes: its
+    tallies as :func:`count_ops_split` names them (``ops``, ``rng_rounds``,
+    ``cycles``, ``fog_cycles`` for the terms' own, and the march's split,
+    :func:`march_split`).  Not a launch of the render path:
+    ``FOG_LAUNCHES`` does not change."""
     counters = torch.zeros(N_COUNTERS, dtype=torch.int64, device=px.device)
     args = {k: kw[k] for k in ("tcfg", "width", "height", "samples", "has_aperture")}
     _launch_fog(True, pack, frame_seed, px, py, n_passes=kw.get("n_passes", 1), counters=counters, **args)
-    c = counters.cpu()
-    return {"ops": int(c[1]), "rng_rounds": int(c[13]), "cycles": int(c[5])}
+    return _count_dict(counters)
 
 
 def _launch_fog(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, samples, has_aperture,
@@ -575,8 +655,10 @@ def _classic_accum(px, n_passes, fog_terms):
 
 def _launch(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, n_strata, samples,
             has_aperture, normalize_pass, n_passes=1, fog_terms=None):
-    """The regeneration instance.  Returns (col V3, the counters, launches
-    of the fog kernel)."""
+    """The regeneration instance.  Returns (col V3, the counters, the fog
+    kernel's counters where it launched, else None).  The counting build's
+    fog kernel tallies into counters of its own, whose operations, hash
+    rounds and fog-stage cycles are also added into B1's."""
     dev = _check_device("render_pass_cuda", pack, px, py)
     px = px.to(torch.int32).contiguous()
     py = py.to(torch.int32).contiguous()
@@ -592,16 +674,20 @@ def _launch(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, n_
     terms = fog_terms
     if terms is not None and tuple(terms.shape) != (n_passes, 3, n):
         raise ValueError(f"render_pass_cuda: fog_terms must be f32[{n_passes}, 3, {n}]")
+    fog_counters = None
     if terms is None and flags & FLAG_FOG_ONCE:
+        fog_counters = torch.zeros(N_COUNTERS, dtype=torch.int64, device=dev) if counting else counters
         terms = _launch_fog(counting, pack, frame_seed, px, py, tcfg=tcfg, width=width, height=height,
-                            samples=samples, has_aperture=has_aperture, n_passes=n_passes, counters=counters)
+                            samples=samples, has_aperture=has_aperture, n_passes=n_passes, counters=fog_counters)
+        if counting:
+            counters[[1, 5, 13]] += fog_counters[[1, 5, 13]]
     err = lib.pt_render_pass(
         *scene, px.data_ptr(), py.data_ptr(), n, seed, width, height, n_strata, samples, n_passes,
         tcfg.max_depth, tcfg.rr_threshold, flags, None if terms is None else terms.data_ptr(),
         out.data_ptr(), counters.data_ptr(), stream,
     )
     raise_on(err, lib, "render_pass")
-    return V3(out[0], out[1], out[2]), counters, int(terms is not None and fog_terms is None)
+    return V3(out[0], out[1], out[2]), counters, fog_counters
 
 
 # ---------------------------------------------------------------------------

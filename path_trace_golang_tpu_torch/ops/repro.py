@@ -44,7 +44,7 @@ from ._launch import check, on_device, raise_on, stream
 __all__ = [
     "LANE", "WINDOW", "INNER", "STAGES", "LAYOUTS", "REPRO_LAUNCHES", "REPRO_PLAIN_CALLS",
     "window_slice", "window_slice_plain", "window_slice_cuda", "window_base",
-    "cond_chain", "cond_chain_plain", "cond_chain_cuda",
+    "cond_chain", "cond_chain_plain", "cond_chain_cuda", "cond_chain_split",
     "reshape_stage", "reshape_stage_plain", "reshape_stage_cuda",
     "group_rows", "group_rows_plain", "group_rows_cuda",
 ]
@@ -184,6 +184,34 @@ def cond_chain_cuda(flag: torch.Tensor, a: torch.Tensor, b: torch.Tensor, rounds
     raise_on(err, lib, "cond_chain")
     REPRO_LAUNCHES["cond_chain"] += 1
     return out
+
+
+def cond_chain_split(flag: torch.Tensor, a: torch.Tensor, b: torch.Tensor, rounds: int, control: bool = False):
+    """T6's step split: the counting build of its kernel (``-DPT_COUNT_OPS``)
+    on the same inputs, its clock cycles summed over threads and taken a
+    step and thread: ``products`` (the step's shared-memory reads, products
+    and sums), ``barrier`` (the write and the barrier wait), ``rest`` (the
+    rest of the chain: loads of a and b, loop control, the output), and
+    ``steps``.  Not a launch of the repro's path: ``REPRO_LAUNCHES`` does
+    not change."""
+    check("cond_chain", (a, _F32), (b, _F32), (flag, torch.int32))
+    if _square("cond_chain", a, b) != LANE or rounds < 0:
+        raise ValueError(f"cond_chain_split: the kernel takes f32[{LANE}, {LANE}] and rounds >= 0")
+    lib = cuda_trace._lib(True, "repro")
+    _bind(lib)
+    lib.pt_t6_clocks.argtypes, lib.pt_t6_clocks.restype = [ctypes.c_void_p], ctypes.c_int
+    clocks = (ctypes.c_ulonglong * 4)()
+    raise_on(lib.pt_t6_clocks(clocks), lib, "cond_chain_split")  # zero what earlier launches left
+    out = torch.empty_like(b)
+    err = lib.pt_cond_chain(int(control), flag.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), int(rounds),
+                            INNER, stream(a))
+    raise_on(err, lib, "cond_chain_split")
+    torch.cuda.synchronize(a.device)
+    raise_on(lib.pt_t6_clocks(clocks), lib, "cond_chain_split")
+    prod, bar, whole, steps = (int(c) for c in clocks)
+    per = max(steps, 1)
+    return {"products": prod / per, "barrier": bar / per, "rest": (whole - prod - bar) / per, "steps": steps,
+            "threads": LANE * LANE}
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,7 @@ import os
 import subprocess
 import sys
 import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -262,8 +263,89 @@ def test_gpu_contract_is_independent_of_the_chunk(chunk, monkeypatch, lanes_in_o
     assert stats.ray_segments == segs and stats.passes == 2
 
 
-def _card_case(name, w, h, depth=6):
-    sc = getattr(TB, name)()
+def _fog_scene(case):
+    """The fog scenes of the fog march's card tests: the showcase; the
+    showcase with a noise scale that takes sinf past |x| = 105,615 (its slow
+    reduction); twelve lights, one an emissive box that the estimator lists
+    but cannot sample, over a floor with spheres that block shadow rays; the
+    same with 20 more spheres (35 objects: the march culls nothing above
+    31); and a scene some 10^3 from the origin whose far, small lights cast
+    shadow rays of 10^3 past small spheres, where the plain sphere test
+    reports hits well outside a sphere (the cull's margin grows with the
+    rays' length: common.cuh, shadow_cull)."""
+    from path_trace_golang_tpu_torch.scene.model import Color, Fog, Material, Object, Scene, Sky, Vec3
+    from path_trace_golang_tpu_torch.scene.model import Camera as Cam
+
+    if case in ("showcase", "partial_warp"):
+        return TB.demo_showcase()
+    if case == "loud_noise":
+        sc = TB.demo_showcase()
+        sc.fog.noise_scale = 200.0
+        return sc
+    if case == "far":
+        return _far_scene()
+    mats = [Material(id="floor", type="lambert", albedo=Color(0.8, 0.8, 0.8)),
+            Material(id="matte", type="lambert", albedo=Color(0.7, 0.3, 0.2)),
+            Material(id="steel", type="metal", albedo=Color(0.8, 0.8, 0.85), smoothness=0.6)]
+    objs = [Object(id="p", type="plane", position=Vec3(0, 0, 0), size=Vec3(0, 0, 0), material_id="floor"),
+            Object(id="a", type="sphere", position=Vec3(-1.2, 1, 0), size=Vec3(1, 0, 0), material_id="matte"),
+            Object(id="b", type="sphere", position=Vec3(1.2, 1, 0), size=Vec3(1, 0, 0), material_id="steel")]
+    for i in range(12):
+        mats.append(Material(id=f"L{i}", type="emissive", emit=Color(1, 1, 1), power=2.0 + i * 0.1))
+        kind, size = ("box", Vec3(0.4, 0.4, 0.4)) if i == 5 else ("sphere_light", Vec3(0.3, 0, 0))
+        objs.append(Object(id=f"l{i}", type=kind, position=Vec3(i - 5.5, 4, -2), size=size, material_id=f"L{i}"))
+    if case == "many_objects":
+        for i in range(20):
+            objs.append(Object(id=f"s{i}", type="sphere", position=Vec3(i % 5 - 2.0, 2.5 + i // 5 * 0.4, -1),
+                               size=Vec3(0.15, 0, 0), material_id="matte"))
+    return Scene(name=case, camera=Cam(position=Vec3(0, 1, 5), target=Vec3(0, 1, 0), up=Vec3(0, 1, 0), fov=60),
+                 sky=Sky(type="solid", color=Color(0, 0, 0)), materials=mats, objects=objs,
+                 fog=Fog(sigma_s=0.02, sigma_a=0.01, g=0.3, color=Color(1, 1, 1), scatter=1.0, density=0.01,
+                         gpu_volumetric=True, hetero_strength=0.5, noise_scale=3.0, noise_octaves=4))
+
+
+def _far_scene():
+    """The ``far`` fog scene: the world moved to (300, 100, -700), one near
+    sphere light and two lights of radius 1 some 1,000 away, an
+    icosahedron mesh, and 24 spheres of radius 0.01-0.05 strewn 0.2-1.5 off
+    the lines to the far lights, 300 to 900 along them."""
+    from path_trace_golang_tpu_torch.scene.model import Color, Fog, Material, Object, Scene, Sky, Vec3
+    from path_trace_golang_tpu_torch.scene.model import Camera as Cam
+
+    rng = np.random.default_rng(11)
+    org = np.array([300.0, 100.0, -700.0])
+
+    def at(*v):
+        return Vec3(*(float(x) for x in org + np.asarray(v, dtype=np.float64)))
+
+    mats = [Material(id="floor", type="lambert", albedo=Color(0.8, 0.8, 0.8)),
+            Material(id="matte", type="lambert", albedo=Color(0.7, 0.3, 0.2)),
+            Material(id="L", type="emissive", emit=Color(1, 1, 1), power=3.0),
+            Material(id="far", type="emissive", emit=Color(1, 0.9, 0.8), power=4e5)]
+    objs = [Object(id="p", type="plane", position=at(0, 0, 0), size=Vec3(0, 0, 0), material_id="floor"),
+            Object(id="a", type="sphere", position=at(-1.2, 1, 0), size=Vec3(1, 0, 0), material_id="matte"),
+            Object(id="l0", type="sphere_light", position=at(0, 4, -1), size=Vec3(0.4, 0, 0), material_id="L"),
+            TB._icosahedron("ico", "matte", pos=tuple(float(x) for x in org + (1.5, 1.2, -0.5)), scale=0.5)]
+    far = [np.array([600.0, 700.0, -400.0]), np.array([-500.0, 800.0, -300.0])]
+    for i, lc in enumerate(far):
+        objs.append(Object(id=f"l{i + 1}", type="sphere_light", position=at(*lc), size=Vec3(1, 0, 0),
+                           material_id="far"))
+    for i in range(24):
+        lc = far[i % 2]
+        axis = lc / np.linalg.norm(lc)
+        side = np.cross(axis, rng.normal(size=3))
+        side /= np.linalg.norm(side)
+        c = np.array([0.0, 1.5, 0.0]) + axis * rng.uniform(300, 900) + side * rng.uniform(0.2, 1.5)
+        objs.append(Object(id=f"s{i}", type="sphere", position=at(*c), size=Vec3(float(rng.uniform(0.01, 0.05)), 0, 0),
+                           material_id="matte"))
+    return Scene(name="far", camera=Cam(position=at(0, 1.5, 6), target=at(0, 1.5, 0), up=Vec3(0, 1, 0), fov=60),
+                 sky=Sky(type="solid", color=Color(0, 0, 0)), materials=mats, objects=objs,
+                 fog=Fog(sigma_s=0.02, sigma_a=0.01, g=0.3, color=Color(1, 1, 1), scatter=1.0, density=0.01,
+                         gpu_volumetric=True, hetero_strength=0.5, noise_scale=3.0, noise_octaves=3))
+
+
+def _card_case(name, w, h, depth=6, scene=None):
+    sc = scene if scene is not None else getattr(TB, name)()
     pack = tpt.pack_scene(sc, w, h, device="cuda")
     tcfg = TI.trace_config_for_scene(pack, sc, depth, "gpu")
     idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
@@ -272,23 +354,74 @@ def _card_case(name, w, h, depth=6):
     return pack, idx % w, torch.div(idx, w, rounding_mode="floor"), kw
 
 
+FOG_CASES = [("showcase", 1), ("showcase", 8), ("loud_noise", 2), ("twelve_lights", 2), ("many_objects", 1),
+             ("partial_warp", 2), ("far", 2)]
+
+
+def _fog_lanes(case, w, h):
+    """The card case of a fog scene: on ``partial_warp`` 1,041 lanes strided
+    over the frame (a part-full last warp), else every lane."""
+    pack, px, py, kw = _card_case(None, w, h, scene=_fog_scene(case))
+    if case == "partial_warp":
+        sub = torch.arange(1041, device="cuda") * 8
+        px, py = px[sub], py[sub]
+    return pack, px, py, kw
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_passes", [1, 8])
-def test_fog_kernel_matches_plain_on_card(n_passes):
+@pytest.mark.parametrize("case,n_passes", FOG_CASES)
+def test_fog_kernel_matches_plain_on_card(case, n_passes):
     """The fog kernel's terms against the plain fog prepass of
-    pass_body_grid (render.fog_pass_terms), bit for bit."""
+    pass_body_grid (render.fog_pass_terms), bit for bit, on scenes that
+    reach every part of the march's design (the counting build shows that
+    they do): blocked shadow tests, a light it cannot sample, sinf past
+    its fast reduction, more objects than the shadow cull takes, a part-full
+    warp, shadow rays of 10^3 that pass small spheres."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
-    pack, px, py, kw = _card_case("demo_showcase", 256, 144)
+    w, h = (256, 144) if case == "showcase" else (128, 72)
+    pack, px, py, kw = _fog_lanes(case, w, h)
     launches = cuda_trace.FOG_LAUNCHES
     got = cuda_trace.fog_pass(pack, 3, px, py, n_passes=n_passes, **kw)
     assert cuda_trace.FOG_LAUNCHES == launches + 1
-    want = TR.fog_pass_terms(pack, 3, px, py, width=256, height=144, samples=16, has_aperture=kw["has_aperture"],
+    want = TR.fog_pass_terms(pack, 3, px, py, width=w, height=h, samples=16, has_aperture=kw["has_aperture"],
                              n_passes=n_passes)
     want = torch.stack([torch.stack([t.x, t.y, t.z]) for t in want])
     torch.cuda.synchronize()
-    assert got.shape == (n_passes, 3, 256 * 144)
+    assert got.shape == (n_passes, 3, px.numel())
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    counted = cuda_trace.fog_count_ops(pack, 3, px, py, n_passes=n_passes, **kw)
+    assert counted["shadow_blocked"] > 0 and float(want.sum()) > 0
+    if case == "loud_noise":
+        assert counted["sin_large"] > counted["sin_calls"] // 2
+    if case == "twelve_lights":  # 11 sphere lights tested, the box light never
+        assert counted["shadow_lanes"] == 11 * 24 * n_passes * px.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted({c for c, _ in FOG_CASES}))
+def test_classic_march_matches_plain_on_card(case):
+    """Faithful fog's march kernel (with the sample kernel after it) on the
+    fog march's card scenes against the plain version, bit for bit, segments
+    equal: one pass of 16 samples in 3 chunks, the last padded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
+    sc = _fog_scene(case)
+    w, h = 48, 27
+    pack = tpt.pack_scene(sc, w, h, device="cuda")
+    tcfg = TI.trace_config_for_scene(pack, sc, 4, "gpu", faithful_fog=True)
+    chunk = 347 if case == "partial_warp" else -(-w * h // 3) + 3  # 1,041 lanes: a part-full last warp
+    idx = torch.arange(3 * chunk, dtype=torch.int32, device="cuda")
+    kw = dict(tcfg=tcfg, width=w, height=h, n_strata=4, samples=16, has_aperture=sc.camera.aperture > 0,
+              normalize_pass=False)
+    got = torch.zeros((idx.numel(), 3), dtype=torch.float32, device="cuda")
+    want = got.clone()
+    marches = cuda_trace.MARCH_LAUNCHES
+    sk = cuda_trace.classic_render(got, pack, 5, idx % w, idx // w, chunk=chunk, **kw)
+    assert cuda_trace.MARCH_LAUNCHES == marches + 16
+    sp = cuda_trace.classic_render_plain(want, pack, 5, idx % w, idx // w, chunk=chunk, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)) and int(sk) == int(sp)
 
 
 @pytest.mark.cuda
@@ -349,3 +482,93 @@ def test_b1_split_arithmetic():
     assert sp["rng_rounds_per_segment"] == 20 and sp["bound_slots_ms"] == pytest.approx(
         (4000 + 16 * 400) / cuda_trace.UNFUSED_SLOTS * 1e3)
     assert "NEE active-lane share 50.00%" in cuda_trace.split_line(sp)
+
+
+def test_march_split_arithmetic():
+    """The fog march's split follows from the counting build's tallies of
+    its launches: stage shares of the launches' lane cycles (the light
+    stage without its shadow tests), the lanes that run a shadow test, the
+    blocked share, visits a test and the sinf arguments past 105,615."""
+    launch = dict(segments=0, ops=3000, cycles=1000, rng_rounds=100, march_hit_cycles=50, march_noise_cycles=150,
+                  march_light_cycles=600, march_shadow_cycles=450, march_tail_cycles=20, advance_cycles=10,
+                  camera_cycles=30, shadow_lanes=96, shadow_active=40, shadow_entries=2, shadow_blocked=10,
+                  shadow_prims=600, shadow_nodes=80, sin_calls=400, sin_large=4, first_start_ns=0, first_end_ns=60,
+                  last_end_ns=100, last_start_ns=40)
+    launch.update(dict.fromkeys(("walk_ops", "walk_cycles", "fog_cycles", "isect_cycles", "nee_cycles",
+                                 "lite_cycles", "loop_cycles", "nee_active", "nee_entries", "warp_tail_cycles"), 0))
+    sp = cuda_trace.march_split([launch, launch])
+    assert sp["share_light"] == pytest.approx(0.15) and sp["share_shadow"] == pytest.approx(0.45)
+    assert sp["share_rest"] == pytest.approx((1000 - 50 - 150 - 600 - 20 - 40) / 1000)
+    assert sp["shadow_lane_share"] == pytest.approx(40 / 96) and sp["shadow_warp_share"] == pytest.approx(40 / 64)
+    assert sp["shadow_blocked_share"] == 0.25 and sp["prims_per_test"] == 15 and sp["nodes_per_test"] == 2
+    assert sp["sin_large_share"] == 0.01 and sp["launch_tail_share"] == pytest.approx(0.4) and sp["launches"] == 2
+    assert sp["bound_slots_ms"] == pytest.approx((6000 + 16 * 200) / cuda_trace.UNFUSED_SLOTS * 1e3)
+    assert "shadow tests 45.00%" in cuda_trace.march_split_line(sp)
+
+
+def test_counter_slots_match_common_cuh():
+    """The counters of a launch name every slot of csrc/common.cuh: the
+    march's split after the classic loop's, the lane cursor last."""
+    src = (Path(cuda_trace.__file__).resolve().parent.parent / "csrc" / "common.cuh").read_text()
+    assert f"N_COUNTERS = {cuda_trace.N_COUNTERS}, CURSOR = {cuda_trace.N_COUNTERS - 1}" in src
+    vals = torch.arange(cuda_trace.N_COUNTERS, dtype=torch.int64)
+    c = cuda_trace._count_dict(vals)
+    assert c["march_hit_cycles"] == 21 and c["march_tail_cycles"] == 33 and c["warp_segments"] == 20
+
+
+
+@pytest.mark.parametrize("dist,radius", [(10.0, 0.01), (100.0, 0.01), (1000.0, 0.01), (5000.0, 0.15)])
+def test_shadow_cull_sphere_margin_covers_rounding(dist, radius):
+    """The fog march's shadow cull keeps a sphere within
+    sqrt(r^2 + CULL_SPHERE_ERR (D^2 + r^2)) of the hull of the warp's rays
+    (csrc/common.cuh, shadow_cull), D a bound on the distance from a ray's
+    origin to the centre: the plain sphere test (the kernel's float32
+    arithmetic, bit for bit) reports hits only that close.  Shadow rays from
+    origins D away that pass just by a sphere, as the march makes them (the
+    direction to the light's point times 1 / dist, t_max = dist - 0.002):
+    every hit the test reports lies well inside that radius, while at
+    D >= 1,000 some lie farther outside the sphere than a margin of
+    1e-2 + 1e-4 D would reach."""
+    import re
+
+    from path_trace_golang_tpu_torch.ops import geometry as G
+    from path_trace_golang_tpu_torch.scene.model import Color, Material, Object, Scene, Vec3
+    from path_trace_golang_tpu_torch.scene.model import Camera as Cam
+
+    src = (Path(cuda_trace.__file__).resolve().parent.parent / "csrc" / "common.cuh").read_text()
+    err = float(re.search(r"constexpr float CULL_SPHERE_ERR = ([0-9.e+-]+)f;", src).group(1))
+    assert err == 2.0 ** -16
+    rng = np.random.default_rng(int(dist))
+    n = 40000
+    c = rng.uniform(-100, 100, 3)
+    sc = Scene(name="one", camera=Cam(position=Vec3(0, 0, 5), target=Vec3(0, 0, 0), up=Vec3(0, 1, 0), fov=60),
+               materials=[Material(id="m", type="lambert", albedo=Color(0.5, 0.5, 0.5))],
+               objects=[Object(id="s", type="sphere", position=Vec3(*(float(x) for x in c)),
+                               size=Vec3(radius, 0, 0), material_id="m")])
+    pack = tpt.pack_scene(sc, 8, 8, device="cpu")
+    c = pack.host("obj")[0, 4:7].astype(np.float64)
+    r = float(pack.host("obj")[0, 8])
+    u = rng.normal(size=(n, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    side = rng.normal(size=(n, 3))
+    side -= (side * u).sum(1, keepdims=True) * u
+    side /= np.linalg.norm(side, axis=1, keepdims=True)
+    o = (c + dist * u).astype(np.float32)
+    miss = rng.uniform(0.0, r + 3e-3 * dist + 0.05, n)  # the exact line's distance from the centre, about
+    lp = (c + side * miss[:, None] - u * dist * rng.uniform(0.2, 1.5, n)[:, None]).astype(np.float32)
+    ot, lt = torch.from_numpy(o), torch.from_numpy(lp)
+    to_l = V3(lt[:, 0] - ot[:, 0], lt[:, 1] - ot[:, 1], lt[:, 2] - ot[:, 2])
+    dist_l = torch.sqrt(to_l.dot(to_l))
+    d = to_l * (1.0 / dist_l)
+    orig = V3(ot[:, 0], ot[:, 1], ot[:, 2])
+    (_m, t, ok), = list(G._object_candidates(orig, d, pack, 0.001))
+    ok = (ok & (t <= dist_l - 0.002)).numpy()
+    assert ok.sum() > 100
+    dd = np.stack([d.x.numpy(), d.y.numpy(), d.z.numpy()], 1).astype(np.float64)
+    p = o.astype(np.float64) + t.numpy().astype(np.float64)[:, None] * dd
+    big_d2 = ((o - c) ** 2).sum(1)
+    over = (((p - c) ** 2).sum(1) - r * r) / (big_d2 + r * r)
+    assert over[ok].max() <= err / 16
+    line = np.linalg.norm(np.cross(c - o, dd / np.linalg.norm(dd, axis=1, keepdims=True)), axis=1)
+    if dist >= 1000:
+        assert (line[ok] - r).max() > 1e-2 + 1e-4 * dist

@@ -405,12 +405,22 @@ def test_window_slice_kernel_matches_plain_on_card():
 
 @pytest.mark.cuda
 def test_cond_chain_kernel_matches_plain_on_card():
+    """T6's kernel (its threads sharing each row of a) against the plain
+    version: bit for bit on the tool's a, with its ones and with a random b;
+    on a dense random a within the rounding of the sums' order (128 terms,
+    the chain's 64 products: at most 1e-4 of the largest entry)."""
     _need_card()
     a, ones = t6.make_inputs("cuda")
     for b in (ones, torch.from_numpy(_random_b()).cuda()):
         for name, (flag, control) in T6_RUNS.items():
             f = torch.tensor([flag], dtype=torch.int32, device="cuda")
             assert _same(repro.cond_chain(f, a, b, 2, control), repro.cond_chain_plain(f, a, b, 2, control)), name
+    rng = np.random.RandomState(7)
+    dense = torch.from_numpy((rng.uniform(-1, 1, (t6.N, t6.N)) / t6.N ** 0.5).astype(np.float32)).cuda()
+    b = torch.from_numpy(_random_b()).cuda()
+    f = torch.ones(1, dtype=torch.int32, device="cuda")
+    k, p = repro.cond_chain(f, dense, b, 2), repro.cond_chain_plain(f, dense, b, 2)
+    assert not _same(k, b) and float((k - p).abs().max()) <= 1e-4 * float(p.abs().max())
 
 
 @pytest.mark.cuda
