@@ -79,7 +79,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     plain version, bit for bit on radiance, state and segments: 16,384
     camera and random rays on demo_showcase, demo_cornell and bench_mesh,
     cpu contract (depth 80), gpu contract and gpu contract with the in-trace
-    fog march (depth 12), and a batch with an active mask;
+    fog march (depth 12), and a batch with an active mask; then bench_mesh
+    at the mesh path's depth 8 on 2,048 rays an SM and 17 more (270,353 on
+    an H100): more rays than any persistent grid of B3's bounces has
+    threads, so every thread takes several;
 15. the classic instance of the whole-pass kernel against its plain version
     at 256x144, depth 12, bit for bit with segments equal: the cpu contract
     on demo_showcase and demo_cornell, faithful fog on demo_showcase, the
@@ -103,7 +106,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     march split, as phase 6 prints the fog kernel's); drive trace() (B3) on the
     262,144 primary rays of the cpu frame's first chunk, each contract,
     time it and its plain version, count its operations and derive its
-    bound;
+    bound, and take the call apart (pt_trace_grid alone, the longest path's
+    ray alone: the call's latency floor);
 19. hold the classic instance against its plain version at those paths' own
     arguments, bit for bit with segments equal: 8,192 lanes strided over
     the cpu frame's window of 8 passes that phase 18 timed (frame seeds 1-8,
@@ -143,8 +147,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     true >> false, and half the rounds about half the time; the library
     call torch.matmul a step beside it; the split of a step by clock64
     (counting build: the products, the write and barrier wait, the rest);
-26. T7 (the staged relayout): stages 1-5 at G = 1, 2, 4, 8 bit for bit;
-    then tools/repro/mosaic_reshape_repro.py at each G;
+26. T7 (the staged relayout): stages 1-5 at G = 1, 2, 4, 8 bit for bit,
+    and stage 5 at each G on the tool's inputs with special values (w with
+    +-0, +-inf, NaN and a bf16 overflow, x with a NaN and negative
+    entries); then tools/repro/mosaic_reshape_repro.py at each G;
 27. T8 (the grouped rows): G = 1, 2, 4, 8 bit for bit; then
     tools/repro/group_rows_relayout.py at each G.
 
@@ -186,12 +192,17 @@ calls of a render as the Renderer makes them (events around each call,
 summed a render: under the gpu contract the fog kernel and B1 of a window,
 else the classic instance's launches), kernel B3 through trace() on the
 first chunk's primary rays and, where the scene carries pages, the paged
-walk alone on the frame's primary rays (closest hit and any hit).
+walk alone on the frame's primary rays (closest hit and any hit); where
+the tree has ``cuda_trace.trace_split``, B3's call taken apart on those
+rays: pt_trace_grid alone, the longest path's ray alone, the launches of
+trace() besides B3's own, and B3's ptxas.
 ``--split`` adds the split from the counting build on the render's own
 calls: B1's under the gpu contract, the classic instance's with
 ``--contract cpu`` or ``--faithful-fog`` (lane cycles by stage, the segments
 the warps ran for, block ends, hash rounds, both bounds), and the fog
-march's (the fog kernel's, or the march kernel's under faithful fog).
+march's (the fog kernel's, or the march kernel's under faithful fog); and
+B3's on the first chunk's primary rays (the same, with the state
+advance's hash rounds apart, and its in-trace fog march's split).
 ``--kernels`` also reports each render kernel's own device time in a render
 (torch.profiler, median of 3 renders).  It imports the package that lies
 beside the script, so a copy of this file in the root of another commit's
@@ -637,6 +648,21 @@ def render_split(pt, cuda_trace, name, w, h, passes, depth, contract="gpu", fait
     return (cuda_trace.b1_split(counted) if regen else cuda_trace.classic_split(counted)), march
 
 
+def frame_trace_split(pt, cuda_trace, name, w, h, depth, contract, faithful):
+    """B3's split (``cuda_trace.trace_split``) on the first chunk's primary
+    rays of the frame, from the counting build, and its in-trace fog
+    march's (None where the trace marches no fog)."""
+    _sc, pack, kw = scene_setup(pt, name, w, h, depth, contract, faithful)
+    from path_trace_golang_tpu_torch.ops.vec import V3
+
+    ro, rd, rst = primary_rays(pack, kw, 1, 0, min(pt.render.env_config.get_chunk_size(), w * h))
+    counted = cuda_trace.trace_count_ops(V3(ro[:, 0], ro[:, 1], ro[:, 2]), V3(rd[:, 0], rd[:, 1], rd[:, 2]), rst,
+                                         pack, kw["tcfg"])
+    march = counted.get("march", counted)
+    fog = march is not None and march["shadow_lanes"] + march["march_hit_cycles"] > 0
+    return cuda_trace.trace_split([counted]), (cuda_trace.march_split([march]) if fog else None)
+
+
 def frame_kernel_times(pt, cuda_trace, name, w, h, passes, depth, contract, faithful):
     """``--render-only ... --kernels``: the frame's kernels alone, median
     milliseconds of CUDA events (see the module docstring)."""
@@ -658,12 +684,65 @@ def frame_kernel_times(pt, cuda_trace, name, w, h, passes, depth, contract, fait
                                if all(r[k] is not None for r in per_render)}
     out["trace_ms"] = cuda_time_ms(lambda: integrator.trace(ro, rd, rst, pack, kw["tcfg"]), 5)
     out["trace_rays"] = chunk
+    if hasattr(cuda_trace, "trace_split"):
+        out.update(trace_parts(cuda_trace, integrator, pack, kw["tcfg"], ro, rd, rst))
     if pack.paged is not None:
         wo, wd = walk_rays(pack, w, h, n, 0, seed=0)
         far = torch.full((n,), 1e20, device=DEVICE)
         out["walk_closest_ms"] = cuda_time_ms(lambda: cuda_trace.paged_traverse(wo, wd, pack, 0.001, far), 5)
         out["walk_any_ms"] = cuda_time_ms(lambda: cuda_trace.paged_occluded(wo, wd, pack, 0.001, far, far < 0), 5)
     return out
+
+
+def trace_parts(cuda_trace, integrator, pack, cfg, ro, rd, rst):
+    """B3's call taken apart, on the rays that ``--kernels`` times trace() on
+    (CUDA events, median of 5): pt_trace_grid alone on inputs made once
+    (``trace_kernel_ms``), the launches that one call of trace() makes
+    besides B3's own kernels, by name (torch.profiler), and the longest
+    path's ray traced alone (``trace_longest_ms``: the least time the call
+    can take, since no ray's path runs faster than alone on the card), with
+    its length and the number of rays that share it."""
+    import torch
+    from path_trace_golang_tpu_torch.ops.vec import V3
+
+    o3, d3 = V3(ro[:, 0], ro[:, 1], ro[:, 2]), V3(rd[:, 0], rd[:, 1], rd[:, 2])
+    lib, args, keep = cuda_trace._trace_call(False, o3, d3, rst, pack, cfg, None)
+    if lib.pt_trace_grid(*args) != 0:
+        raise RuntimeError("pt_trace_grid refused the call")
+    kernel_ms = cuda_time_ms(lambda: lib.pt_trace_grid(*args), 5)
+    lengths = keep[2]
+    at = int(torch.argmax(lengths))
+    one = lambda v: V3(v.x[at:at + 1].clone(), v.y[at:at + 1].clone(), v.z[at:at + 1].clone())  # noqa: E731
+    lib1, args1, _keep1 = cuda_trace._trace_call(False, one(o3), one(d3), rst[at:at + 1].clone(), pack, cfg, None)
+    longest_ms = cuda_time_ms(lambda: lib1.pt_trace_grid(*args1), 5)
+    own = ("trace_grid_kernel", "trace_march_kernel", "trace_bounce_kernel", "advance_kernel")
+    return {
+        "trace_kernel_ms": kernel_ms,
+        "trace_wrapper_launches": {k: v for k, v in device_launches(
+            lambda: integrator.trace(ro, rd, rst, pack, cfg)).items() if not any(x in k for x in own)},
+        "trace_longest_ms": longest_ms,
+        "trace_longest_path": int(lengths[at]),
+        "trace_rays_at_longest": int((lengths == lengths[at]).sum()),
+        "trace_ptxas": {**ptxas_of(cuda_trace, "classic", "trace_"), **ptxas_of(cuda_trace, "classic", "advance_")},
+    }
+
+
+def device_launches(fn):
+    """{name: count} of the device work (kernels, memsets, copies) that one
+    call of ``fn`` launches, from torch.profiler's trace ({} where the
+    profiler fails)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:
+        print(f"    torch.profiler failed: {e}", flush=True)
+        return {}
+    cuda = torch.autograd.DeviceType.CUDA
+    return {e.key: e.count for e in prof.key_averages() if getattr(e, "device_type", None) == cuda}
 
 
 def walk_rays(pack, w, h, n_cam, n_rand, seed):
@@ -1347,23 +1426,34 @@ def repro_phases(card):
                 fail("26", f"T7 stage {stage} at G={g} disagrees with its plain version")
                 return None
         print(f"[26] T7 G={g}: stages 1-5 bit-identical to the plain version", flush=True)
+    # stage 5 on w with +-0, +-inf, NaN and a bf16 overflow, x with a NaN and negative entries (where the tree's
+    # tool has them)
+    for case, (xs, ws) in (t7.special_inputs(DEVICE) if hasattr(t7, "special_inputs") else {}).items():
+        for g in REPRO_GROUPS:
+            k, p = repro.reshape_stage(xs, ws, 5, g), repro.reshape_stage_plain(xs, ws, 5, g)
+            t7_err = max(t7_err, err(k, p))
+            if not same(k, p):
+                fail("26", f"T7 stage 5 at G={g} disagrees with its plain version on the {case} inputs")
+                return None
+        print(f"[26] T7 stage 5, {case} inputs, G = 1, 2, 4, 8: bit-identical to the plain version "
+              f"({int(torch.isnan(p).sum())} NaN lanes)", flush=True)
     t7_plain_ms = cuda_time_ms(lambda: repro.reshape_stage_plain(x7, w7, 5, 4), 3)
     t7_res, t7_launches = drive("26", "reshape_stage", lambda: {g: t7.run(g, DEVICE) for g in REPRO_GROUPS},
                                   len(REPRO_GROUPS) * len(repro.STAGES))
     if t7_launches is None or not all(r["ok"] for res in t7_res.values() for r in res.values()):
         fail("26", "T7's path did not run on its kernel alone, or a stage disagreed")
         return None
-    # stage 5's least work: x, the output and the columns of w that the pops reach (each converted to bf16 and
-    # reduced to its minimum), and acc + contrib * row for each lane a trip; the one-hot contraction over all 128
-    # rows is what the kernel executes
+    # stage 5's least work: x, all of w (a non-finite entry anywhere in a row makes that row's answer NaN for
+    # every other column, so every entry can change the output) and the output; the columns the pops reach,
+    # each converted to bf16 and reduced to its minimum over the rows, and acc + contrib * row for each lane a
+    # trip.  The launch floor beside it: stage 1's time, a launch that copies x
     n7, words, t7_cols = x7.numel(), repro.STAGE45_WORDS, set()
     for _ in range(repro.TRIPS):
         if words:
             t7_cols.add((words & -words).bit_length() - 1)
             words &= words - 1
-    t7_bytes = (2 * n7 + len(t7_cols) * repro.LANE) * 4
+    t7_bytes = (2 * n7 + repro.LANE * repro.LANE) * 4
     t7_ops = 2 * repro.TRIPS * n7 + len(t7_cols) * (2 * repro.LANE - 1)
-    t7_ops_executed = 2 * repro.TRIPS * n7 * repro.LANE * repro.LANE
     t7_bound = max(t7_bytes / PEAK_BYTES, t7_ops / PEAK_F32_FLOPS) * 1e3
 
     # ---- 27. T8, the grouped rows: every G against the plain version; then the tool at every G
@@ -1438,20 +1528,25 @@ def repro_phases(card):
         "route": "cuda",
         "source": REPRO_SOURCE,
         "replaces": "tools/repro/mosaic_reshape_repro.py:129",
+        "kernels": ["reshape_stage_kernel<1..4> (stages 1-4)",
+                    "reshape_stage5_kernel (stage 5: each block's table of the contraction's 129 answers)"],
         "launches": t7_launches,
         "launches_are": "launches of pt_reshape_stage by the T7 tool (mosaic_reshape_repro.run) at G = 1, 2, 4, "
                         "8: 5 stages, a check against the plain version, a warm-up and 20 timed launches each",
         "max_abs_err": t7_err,
-        "max_abs_err_over": "stages 1-5 at G = 1, 2, 4, 8, bit for bit",
+        "max_abs_err_over": "stages 1-5 at G = 1, 2, 4, 8 on the tool's x and w, and stage 5 at each G on "
+                            "w with +-0, +-inf, NaN and a bf16 overflow and x with a NaN and negative entries; "
+                            "bit for bit",
         "ms": t7_res[4][5]["ms"],
         "plain_ms": t7_plain_ms,
         "bound_ms": t7_bound,
         "bound_by": "operations" if t7_ops / PEAK_F32_FLOPS >= t7_bytes / PEAK_BYTES else "bytes",
         "bound_bytes": t7_bytes,
         "bound_ops": t7_ops,
-        "bound_are": f"x, the output and the {len(t7_cols)} columns of w that the pops reach; acc + contrib * row a "
-                     f"lane a trip and those columns' conversions and minima",
-        "ops_executed": t7_ops_executed,
+        "bound_are": f"x, all of w and the output (a non-finite entry anywhere in a row changes that row's answer); "
+                     f"acc + contrib * row a lane a trip and the {len(t7_cols)} columns' conversions and minima",
+        "launch_floor_ms": t7_res[4][1]["ms"],
+        "launch_floor_is": "stage 1 at G=4 (a launch that copies x)",
         "library_ms": None,
         "shape": "stage 5 at G=4, x f32[8,128], w f32[128,128]",
         "ms_by_g_and_stage": {f"{g}:{s}": round(r["ms"], 6) for g, res in t7_res.items() for s, r in res.items()},
@@ -1521,6 +1616,14 @@ def main(argv) -> int:
             if times["march_split"] is not None:
                 print(f"[render] the fog march's split ({'the fog kernel' if b1 else 'classic_march_kernel'}) "
                       f"{what}: {cuda_trace.march_split_line(times['march_split'])} | card {card}", flush=True)
+            if hasattr(cuda_trace, "trace_split"):
+                times["trace_split"], times["trace_march_split"] = frame_trace_split(
+                    pt, cuda_trace, name, w, h, depth, contract, faithful)
+                print(f"[render] B3's split through trace() on the first chunk's primary rays {what}: "
+                      f"{cuda_trace.trace_split_line(times['trace_split'])} | card {card}", flush=True)
+                if times["trace_march_split"] is not None:
+                    print(f"[render] B3's in-trace fog march's split {what}: "
+                          f"{cuda_trace.march_split_line(times['trace_march_split'])} | card {card}", flush=True)
         print(json.dumps({
             "scene": name, "width": w, "height": h, "passes": passes, "depth": depth, "renders": renders,
             "contract": contract, "faithful_fog": faithful, "card": card, "tree": HERE,
@@ -1872,6 +1975,17 @@ def main(argv) -> int:
     if not same:
         print("[14] FAIL: kernel B3 disagrees with its plain version under an active mask", file=sys.stderr)
         return 1
+    # threads that take several rays: more rays than any persistent grid of B3's bounces has threads (2,048 an
+    # SM at most), on the paged instance at the mesh path's depth
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_refill = 2048 * sms + 17
+    same, err, _s = hold_trace(pt, cuda_trace, "14", "bench_mesh", "gpu", False, 8, n_refill - n_refill // 2,
+                               n_refill // 2, seed=35)
+    trace_err = max(trace_err, err)
+    if not same:
+        print("[14] FAIL: kernel B3 disagrees with its plain version where its threads take several rays",
+              file=sys.stderr)
+        return 1
 
     # ---- 15. the classic instance against its plain version at 256x144, depth 12, bit for bit
     for name, contract, faithful in (("demo_showcase", "cpu", False), ("demo_cornell", "cpu", False),
@@ -1991,7 +2105,7 @@ def main(argv) -> int:
 
     from path_trace_golang_tpu_torch import integrator
 
-    trace_ms, trace_plain_ms, trace_bound, trace_launches = {}, {}, {}, 0
+    trace_ms, trace_plain_ms, trace_bound, trace_launches, trace_part = {}, {}, {}, 0, {}
     for label, (tpack, tkw) in setups.items():
         cfg = tkw["tcfg"]
         ro, rd, rst = primary_rays(tpack, tkw, 1, 0, chunk)
@@ -2018,18 +2132,23 @@ def main(argv) -> int:
             print("[18] FAIL: B3 disagrees with its plain version on the frame's primary rays, or the counting "
                   "build traced other paths", file=sys.stderr)
             return 1
-        # bytes: 6 floats and a state in, 3 floats and a state out, per ray
-        by_ops, by_bytes = counted["ops"] / PEAK_F32_FLOPS * 1e3, chunk * 44 / PEAK_BYTES * 1e3
+        # bytes: 6 floats and an int64 state in, 3 floats and an int64 state out, per ray
+        by_ops, by_bytes = counted["ops"] / PEAK_F32_FLOPS * 1e3, chunk * 52 / PEAK_BYTES * 1e3
         trace_bound[label] = (max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes", counted["ops"])
         print(
             f"[18] B3 through trace(), {chunk} primary rays of the first chunk, {label} contract, depth "
             f"{cfg.max_depth}{', in-trace fog' if cfg.fog_in_trace and cfg.enable_fog_march else ''}: "
             f"{trace_ms[label]:.3f} ms, plain version {trace_plain_ms[label]:.1f} ms, bit-identical on every ray; "
             f"{int(kseg)} segments, {counted['ops']:.6g} f32 operations ({by_ops:.4f} ms at peak), "
-            f"{chunk * 44} bytes ({by_bytes:.4f} ms at peak): bound {trace_bound[label][0]:.4f} ms; "
+            f"{chunk * 52} bytes ({by_bytes:.4f} ms at peak): bound {trace_bound[label][0]:.4f} ms; "
             f"launches {cuda_trace.TRACE_LAUNCHES} | card {card}",
             flush=True,
         )
+        part = trace_part[label] = trace_parts(cuda_trace, integrator, tpack, cfg, ro, rd, rst)
+        print(f"[18] B3 taken apart, {label} contract: pt_trace_grid alone {part['trace_kernel_ms']:.4f} ms, the "
+              f"longest path ({part['trace_longest_path']} bounces) traced alone {part['trace_longest_ms']:.4f} ms "
+              f"(the call's latency floor), launches besides B3's own {part['trace_wrapper_launches']} | card {card}",
+              flush=True)
 
     # ---- 19. the classic instance against its plain version at the paths' own arguments, bit for bit: on
     # strided lanes the cpu frame's 8-pass window that phase 18 timed (the main path's launch, frame seeds
@@ -2199,6 +2318,9 @@ def main(argv) -> int:
         "route": "cuda",
         "source": "path_trace_golang_tpu_torch/csrc/classic.cu",
         "replaces": "path_trace_golang_tpu/ops/pallas_trace.py:240",
+        "kernels": ["trace_march_kernel (the in-trace fog march, where the call has one)",
+                    "trace_bounce_kernel (the bounces; paged: persistent blocks)",
+                    "advance_kernel (the states advanced by the call's other trips)"],
         "launches": trace_launches,
         "launches_are": "calls of trace() that launched pt_trace_grid (and its state advance) in phase 18, "
                         "timing included",
@@ -2215,9 +2337,15 @@ def main(argv) -> int:
         "fog_plain_ms": trace_plain_ms["gpu"],
         "fog_bound_ms": trace_bound["gpu"][0],
         "fog_shape": "the same rays, gpu contract with the in-trace fog march, depth 12",
+        "kernel_alone_ms": {k: v["trace_kernel_ms"] for k, v in trace_part.items()},
+        "latency_floor_ms": {k: v["trace_longest_ms"] for k, v in trace_part.items()},
+        "latency_floor_is": "the longest path's ray traced alone (pt_trace_grid on one ray): no call ends sooner",
+        "ptxas": trace_part["cpu"]["trace_ptxas"],
         "max_abs_err_over": "2,048 and 16,384 camera and random rays on demo_showcase, demo_cornell and "
                             "bench_mesh, cpu contract d80, gpu contract d12, in-trace fog d12, a batch with "
-                            "an active mask; the timed primary rays; radiance, state and segments bit for bit",
+                            "an active mask; 2,048 rays an SM and 17 more on bench_mesh d8, several rays a "
+                            "thread of the persistent bounces; the timed primary rays; radiance, state and "
+                            "segments bit for bit",
     }, {
         "name": "paged_walk",
         "route": "cuda",

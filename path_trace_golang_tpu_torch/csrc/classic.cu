@@ -12,9 +12,13 @@
 //
 // What bounds it on an H100: f32 arithmetic outside the tensor cores (67
 // TFLOP/s at 700 W; half of that for multiply-adds built with --fmad=false)
-// and the hash rounds of the RNG, not bytes: B3 reads 28 bytes a ray and
-// writes 20.  A lane's whole path lives in registers, the scene tables sit
-// in shared memory, and meshes of any size go through intersect<PAGED> and
+// and the hash rounds of the RNG, not bytes: B3 reads 32 bytes a ray and
+// writes 20.  On a call of a few hundred thousand rays B3 also waits on its
+// longest path: no launch ends before its slowest ray, and the state
+// advance cannot start before every path has ended (PERF.md: the longest
+// path traced alone takes 70-97% of the call on the cpu contract).  A
+// lane's whole path lives in registers, the scene tables sit in shared
+// memory, and meshes of any size go through intersect<PAGED> and
 // occluded<PAGED> as in the regeneration kernel.
 //
 // What differs from the regeneration loop, and why the state needs care:
@@ -25,13 +29,19 @@
 // trips of the call (for the Renderer: of the lane's chunk), is the longest
 // path among its lanes.  A thread stops at its own path's end, writes L and
 // raises T with atomicMax; since T is known only when every block has
-// finished, the rest is done by a second launch: for B3 pt_trace_grid's
+// finished, the rest is done by a later launch: for B3 pt_trace_grid's
 // advance_kernel, for the whole-pass instance the next sample's launch,
 // which begins with that advance.  Draws per trip: the gpu contract's shade
 // draws + 1, the cpu contract's 9.  The fog march of faithful fog draws 2
 // per light and step first.
 //
 // What the design does about it:
+// - B3 (pt_trace_grid) runs the in-trace fog march, where the call has one,
+//   as a launch of its own at the march's register budget
+//   (trace_march_kernel), then the bounces (trace_bounce_kernel: with pages
+//   in persistent blocks whose threads take the next ray as soon as their
+//   path ends), then advance_kernel; it reads the rays in place and writes
+//   the states as int64, so that trace() launches nothing but these;
 // - with one sample a pass (the cpu contract) no lane waits on another's
 //   path: classic_window_kernel runs a window of passes over all of a
 //   frame's lanes in one launch of persistent blocks, one bounce an
@@ -68,6 +78,11 @@ namespace {
 // registers, and keeps ptxas' choice (72, 95 with pages); the paged march
 // and bounces, which no measured cell runs, keep ptxas' choice (a minimum of 1)
 constexpr int MARCH_MIN_BLOCKS = 8, SAMPLE_MIN_BLOCKS = 8;
+// kernel B3's bounces, page-free and paged (PERF.md, the occupancy A/B): the
+// page-free instances keep ptxas' count (122 registers gpu, 72 cpu; 5 and 6
+// blocks, 96 and 80 registers, spill and move nothing); the paged gpu
+// instance gains 3% from 128 registers (143 by ptxas' count)
+constexpr int TRACE_MIN_BLOCKS = 1, TRACE_PAGED_MIN_BLOCKS = 4;
 
 constexpr int CPU_DRAWS = 9;  // 2 + 3 Lambert, 2 metal lobe, 1 Fresnel, 1 russian roulette
 
@@ -278,27 +293,82 @@ __device__ __forceinline__ V trace_bounces(const Scene& S, const Params& P, cons
   return col;
 }
 
-// one lane of the classic loop for a given ray (integrator.py::_trace_gpu /
-// _trace_cpu): the fog march first under faithful fog, then the bounces.
-// Returns the radiance.
-template <bool PAGED, bool CPU>
-__device__ __forceinline__ V trace_lane(const Scene& S, const Params& P, const Shading& D, V orig, V dir,
-                                        uint32_t& st, bool active, int& len OPS_PARAM) {
-  V col = mk(0.0f, 0.0f, 0.0f);
-  if (!CPU && (P.flags & FLAG_FOG_TRACE)) col = trace_march<PAGED>(S, orig, dir, st, active OPS_ARG);
-  return trace_bounces<PAGED, CPU>(S, P, D, orig, dir, col, st, active, len OPS_ARG);
+// kernel B3's rays, states and outputs for n lanes: the origin and direction
+// components (o[k][lane * o_stride], d[k][lane * d_stride]), the uint32
+// states in the low bits of st_in, an optional active mask, the radiance
+// (out[k * out_comp + lane * out_lane]: component planes or [n][3] rows),
+// the states (st: after the march, then after the lane's own bounces, then
+// advanced by the call's other trips), each lane's path length and the
+// call's trips
+struct TraceIO {
+  const float *ox, *oy, *oz, *dx, *dy, *dz;
+  int o_stride, d_stride;
+  const long long* st_in;
+  const unsigned char* active;
+  float* out;
+  int out_comp, out_lane;
+  long long* st;
+  int* len;
+  int* trips;
+};
+
+__device__ __forceinline__ V trace_origin(const TraceIO& io, size_t lane) {
+  const size_t at = lane * io.o_stride;
+  return mk(io.ox[at], io.oy[at], io.oz[at]);
+}
+__device__ __forceinline__ V trace_dir(const TraceIO& io, size_t lane) {
+  const size_t at = lane * io.d_stride;
+  return mk(io.dx[at], io.dy[at], io.dz[at]);
+}
+__device__ __forceinline__ bool trace_active(const TraceIO& io, size_t lane) {
+  return io.active == nullptr || io.active[lane] != 0;
 }
 
-// kernel B3: rays[6][n] (origin, direction), states and an optional active
-// mask in; radiance[3][n], the states after the lane's own path, its path
-// length, and the call's trips (atomicMax) and segments out
+// kernel B3, first launch under the in-trace fog march (the gpu contract with
+// FLAG_FOG_TRACE): one thread a ray marches it on the trace's own stream
+// (integrator.py::_trace_gpu's fog_prepass_grid, an inactive lane drawing
+// the march's quota all the same) and leaves the gated radiance in out and
+// the state in st for the bounces.  The march is a fixed number of steps a
+// ray, most of such a trace's work (PERF.md: 90% of the lane cycles), and
+// runs here at the register budget that faithful fog's march kernel won.
+template <bool PAGED>
+__global__ void __launch_bounds__(BLOCK, PAGED ? 1 : MARCH_MIN_BLOCKS)
+    trace_march_kernel(Tables T, Params P, TraceIO io, unsigned long long* __restrict__ counters) {
+  extern __shared__ float smem[];
+  __shared__ unsigned long long s_segs;
+  if (threadIdx.x == 0) s_segs = 0ull;
+  const Scene S = load_scene(T, P, smem);
+  OPS_DECL;
+  const size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane < (size_t)P.n_lanes) {
+    uint32_t st = (uint32_t)io.st_in[lane];
+    const V m = trace_march<PAGED>(S, trace_origin(io, lane), trace_dir(io, lane), st, trace_active(io, lane) OPS_ARG);
+    io.out[lane * io.out_lane] = m.x;
+    io.out[io.out_comp + lane * io.out_lane] = m.y;
+    io.out[2 * (size_t)io.out_comp + lane * io.out_lane] = m.z;
+    io.st[lane] = (long long)st;
+  }
+#ifdef PT_COUNT_OPS
+  add_counters(0ull, &s_segs, counters OPS_ARG);
+#else
+  (void)counters;
+#endif
+}
+
+// kernel B3's bounces (integrator.py::_trace_cpu / _trace_gpu's loop): one
+// flat loop of one bounce an iteration.  With pages, persistent blocks whose
+// thread takes the next ray from counters[CURSOR] (zero on entry) as soon as
+// its path ends, so that no thread waits for its warp's longest path while
+// rays are left (9% off bench_mesh's gpu trace, PERF.md); page-free, one
+// thread a ray (persistent blocks lost 4% on the cpu contract's trace, which
+// its longest path bounds, and moved the in-trace fog's by nothing).  A
+// ray starts from the march's radiance and state where the call marched
+// (marched), else from zero and st_in; it writes its radiance, its state
+// after its own L bounces, and L, and raises trips[0] to the longest L (a
+// shared maximum a block, one atomic a block).
 template <bool PAGED, bool CPU>
-__global__ void __launch_bounds__(BLOCK) trace_grid_kernel(Tables T, Params P, const float* __restrict__ rays,
-                                                           const uint32_t* __restrict__ st_in,
-                                                           const unsigned char* __restrict__ active,
-                                                           float* __restrict__ out, uint32_t* __restrict__ st_out,
-                                                           int* __restrict__ len_out, int* __restrict__ trips,
-                                                           unsigned long long* __restrict__ segs_out) {
+__global__ void __launch_bounds__(BLOCK, PAGED ? TRACE_PAGED_MIN_BLOCKS : TRACE_MIN_BLOCKS)
+    trace_bounce_kernel(Tables T, Params P, TraceIO io, int marched, unsigned long long* __restrict__ counters) {
   extern __shared__ float smem[];
   __shared__ unsigned long long s_segs;
   __shared__ int s_trips;
@@ -307,43 +377,79 @@ __global__ void __launch_bounds__(BLOCK) trace_grid_kernel(Tables T, Params P, c
   const Shading D = make_shading(S, P);
   unsigned long long segs = 0ull;
   OPS_DECL;
-  const int n = P.n_lanes;
-  int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < n) {
-    V o = mk(rays[lane], rays[n + lane], rays[2 * n + lane]);
-    V d = mk(rays[3 * n + lane], rays[4 * n + lane], rays[5 * n + lane]);
-    uint32_t st = st_in[lane];
-    int len;
-    V rad = trace_lane<PAGED, CPU>(S, P, D, o, d, st, active == nullptr || active[lane] != 0, len OPS_ARG);
-    out[lane] = rad.x;
-    out[n + lane] = rad.y;
-    out[2 * n + lane] = rad.z;
-    st_out[lane] = st;
-    len_out[lane] = len;
-    segs = (unsigned long long)len;
-    if (len) atomicMax(&s_trips, len);
+  const size_t oc = (size_t)io.out_comp;
+  int lane = PAGED ? (int)atomicAdd(counters + CURSOR, 1ull) : (int)(blockIdx.x * blockDim.x + threadIdx.x);
+  int dep = 0, most = 0, glass_obj = -1;
+  float glass_dist = 0.0f;
+  bool tracing = false, alive = false;
+  uint32_t st = 0;
+  V orig = mk(0.0f, 0.0f, 0.0f), dir = orig, thr = orig, col = orig;
+  STAGE_BEGIN(loop_t0);
+  while (lane < P.n_lanes) {
+    const size_t at = (size_t)lane;
+    if (!tracing) {
+      orig = trace_origin(io, at);
+      dir = trace_dir(io, at);
+      alive = trace_active(io, at);
+      if (marched) {
+        st = (uint32_t)io.st[at];
+        col = mk(io.out[at * io.out_lane], io.out[oc + at * io.out_lane], io.out[2 * oc + at * io.out_lane]);
+      } else {
+        st = (uint32_t)io.st_in[at];
+        col = mk(0.0f, 0.0f, 0.0f);
+      }
+      thr = mk(1.0f, 1.0f, 1.0f);
+      dep = 0;
+      glass_obj = -1;
+      glass_dist = 0.0f;
+      tracing = true;
+    }
+    if (alive && dep < P.max_depth) {
+      segs += 1;
+      if constexpr (CPU)
+        alive = cpu_bounce<PAGED>(S, P, dep, orig, dir, thr, col, st OPS_ARG);
+      else
+        alive = gpu_bounce<PAGED>(S, P, D, dep, orig, dir, thr, col, st, glass_obj, glass_dist OPS_ARG);
+      dep += 1;
+      LANE_DONE();
+    }
+    if (!(alive && dep < P.max_depth)) {  // the path ended: its results, then the next ray
+      io.out[at * io.out_lane] = col.x;
+      io.out[oc + at * io.out_lane] = col.y;
+      io.out[2 * oc + at * io.out_lane] = col.z;
+      io.st[at] = (long long)st;
+      io.len[at] = dep;
+      most = max(most, dep);
+      tracing = false;
+      lane = PAGED ? (int)atomicAdd(counters + CURSOR, 1ull) : P.n_lanes;
+    }
   }
-  add_counters(segs, &s_segs, segs_out OPS_ARG);
-  if (threadIdx.x == 0 && s_trips) atomicMax(trips, s_trips);
+  STAGE_END(loop_t0, STAGE_LOOP);
+  if (most) atomicMax(&s_trips, most);
+  add_counters(segs, &s_segs, counters OPS_ARG);
+  if (threadIdx.x == 0 && s_trips) atomicMax(io.trips, s_trips);
 }
 
 // the draws that the call's other trips take: (T - L) quotas for each lane
-// (the counting build adds their hash rounds into counters[13])
-__global__ void __launch_bounds__(BLOCK) advance_kernel(uint32_t* __restrict__ st, const int* __restrict__ len,
-                                                        const int* __restrict__ trips, int n, int draws,
+// (the counting build adds their hash rounds into counters[13] and, apart,
+// into counters[ADVANCE_ROUNDS])
+__global__ void __launch_bounds__(BLOCK) advance_kernel(TraceIO io, int n, int draws,
                                                         unsigned long long* __restrict__ counters) {
-  int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   int skip = 0;
   if (lane < n) {
-    uint32_t s = st[lane];
-    skip = (*trips - len[lane]) * draws;
+    uint32_t s = (uint32_t)io.st[lane];
+    skip = (*io.trips - io.len[lane]) * draws;
     skip_u(s, skip);
-    st[lane] = s;
+    io.st[lane] = (long long)s;
   }
 #ifdef PT_COUNT_OPS
   unsigned long long rounds = (unsigned long long)skip;
   for (int off = 16; off > 0; off >>= 1) rounds += __shfl_down_sync(0xffffffffu, rounds, off);
-  if ((threadIdx.x & 31) == 0 && rounds) atomicAdd(counters + 13, rounds);
+  if ((threadIdx.x & 31) == 0 && rounds) {
+    atomicAdd(counters + 13, rounds);
+    atomicAdd(counters + ADVANCE_ROUNDS, rounds);
+  }
 #else
   (void)counters;
 #endif
@@ -600,26 +706,54 @@ cudaError_t launch_samples(const Tables& T, const Params& P, size_t smem, cudaSt
 
 }  // namespace
 
-// B3 for n rays: trace_grid_kernel, then advance_kernel once every block has
-// raised trips[0] (the same stream orders the two).  ``active`` may be null.
-extern "C" int pt_trace_grid(PT_SCENE_PARAMS, const float* rays, const unsigned int* st_in,
+// B3 for n rays: under the in-trace fog march trace_march_kernel, then
+// trace_bounce_kernel (with pages in persistent blocks, as many as fit), then
+// advance_kernel once every block has raised trips[0] (one stream orders
+// the three).  The call zeroes counters (and march_counters, which the
+// march's launch tallies into where it is not counters) and trips[0].
+// ``active`` may be null.
+extern "C" int pt_trace_grid(PT_SCENE_PARAMS, const float* ox, const float* oy, const float* oz, int o_stride,
+                             const float* dx, const float* dy, const float* dz, int d_stride, const long long* st_in,
                              const unsigned char* active, int n, int max_depth, int rr_threshold, int flags,
-                             float* out, unsigned int* st_out, int* len, int* trips, unsigned long long* segs,
-                             void* stream) {
+                             float* out, int out_comp, int out_lane, long long* st, int* len, int* trips,
+                             unsigned long long* counters, unsigned long long* march_counters, void* stream) {
   if (n <= 0) return 0;
   PT_SCENE_UNPACK(T, P);
   P.n_lanes = n; P.max_depth = max_depth; P.rr_threshold = rr_threshold; P.flags = flags;
+  const TraceIO io = {ox, oy, oz, dx, dy, dz, o_stride, d_stride, st_in, active, out, out_comp, out_lane, st, len,
+                      trips};
   const size_t smem = scene_smem_bytes(P);
-  const bool cpu = flags & FLAG_CPU;
-  auto kernel = n_pages > 0 ? (cpu ? trace_grid_kernel<true, true> : trace_grid_kernel<true, false>)
-                            : (cpu ? trace_grid_kernel<false, true> : trace_grid_kernel<false, false>);
-  cudaError_t e = prepare_launch(kernel, smem);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool cpu = flags & FLAG_CPU, march = !cpu && (flags & FLAG_FOG_TRACE);
+  const bool paged = n_pages > 0;
+  auto bounce = paged ? (cpu ? trace_bounce_kernel<true, true> : trace_bounce_kernel<true, false>)
+                      : (cpu ? trace_bounce_kernel<false, true> : trace_bounce_kernel<false, false>);
+  cudaError_t e = prepare_launch(bounce, smem);
+  if (e == cudaSuccess) e = cudaMemsetAsync(counters, 0, sizeof(unsigned long long) * N_COUNTERS, s);
+  if (e == cudaSuccess) e = cudaMemsetAsync(trips, 0, sizeof(int), s);
   if (e != cudaSuccess) return (int)e;
   const int grid = (n + BLOCK - 1) / BLOCK;
-  kernel<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(T, P, rays, st_in, active, out, st_out, len, trips, segs);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  advance_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(st_out, len, trips, n, trip_draws(flags, n_lights), segs);
+  if (march) {
+    auto kernel = paged ? trace_march_kernel<true> : trace_march_kernel<false>;
+    if ((e = prepare_launch(kernel, smem)) != cudaSuccess) return (int)e;
+    if (march_counters != counters &&
+        (e = cudaMemsetAsync(march_counters, 0, sizeof(unsigned long long) * N_COUNTERS, s)) != cudaSuccess)
+      return (int)e;
+    kernel<<<grid, BLOCK, smem, s>>>(T, P, io, march_counters);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  int bounce_grid = grid;
+  if (paged) {  // persistent: the blocks that fit on the card
+    int per_sm = 0, dev = 0, sms = 0;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bounce, BLOCK, smem)) != cudaSuccess)
+      return (int)e;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)e;
+    bounce_grid = std::min(grid, std::max(per_sm, 1) * sms);
+  }
+  bounce<<<bounce_grid, BLOCK, smem, s>>>(T, P, io, march ? 1 : 0, counters);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  advance_kernel<<<grid, BLOCK, 0, s>>>(io, n, trip_draws(flags, n_lights), counters);
   return (int)cudaGetLastError();
 }
 

@@ -50,8 +50,9 @@
 // nodes that the tests visit before they return (the paged walk's not
 // counted), [31] the noise's sinf calls and [32] those whose argument lies
 // past 105,615 in magnitude (CUDA's slow Payne-Hanek reduction), [33] the
-// march's warp tail (MARCH_DONE).  counters[CURSOR] is the next lane of a
-// launch whose blocks take lanes as they go.
+// march's warp tail (MARCH_DONE), [34] the part of [13] that kernel B3's
+// state advance runs (classic.cu, advance_kernel).  counters[CURSOR] is the
+// next lane of a launch whose blocks take lanes as they go.
 
 #pragma once
 
@@ -65,7 +66,7 @@
 // loop's state advance and camera ray)
 constexpr int STAGE_FOG = 0, STAGE_ISECT = 1, STAGE_NEE = 2, STAGE_LITE = 3, STAGE_LOOP = 4, STAGE_ADVANCE = 5,
               STAGE_CAMERA = 6, STAGE_MHIT = 7, STAGE_MNOISE = 8, STAGE_MLIGHT = 9, STAGE_MSHADOW = 10, N_STAGES = 11;
-constexpr int N_COUNTERS = 35, CURSOR = 34;
+constexpr int N_COUNTERS = 36, CURSOR = 35, ADVANCE_ROUNDS = 34;
 
 #ifdef PT_COUNT_OPS
 __device__ __forceinline__ unsigned long long global_ns() {

@@ -25,8 +25,7 @@ namespace {
 constexpr int LANE = 128;
 constexpr int TRIPS = 3;               // T7's and T8's loop trips
 constexpr int STAGE45_WORDS = 0b10110;  // T7 stages 4/5: each lane's mask word before the first pop
-constexpr int P_GROUPS = 32;           // T7 stage 5: thread groups that split the minimum over w's rows
-constexpr int STAGE5_LANES = 32;       // T7 stage 5: lanes a block
+constexpr int STAGE5_THREADS = 1024;   // T7 stage 5: threads (and lanes) a block, 32 warps of 4 rows of w each
 
 __device__ __forceinline__ float nan_min(float a, float b) { return (a < b || a != a) ? a : b; }
 
@@ -281,14 +280,35 @@ __global__ void __launch_bounds__(T6_THREADS)
 // Design: the regrouping is an index map.  Thread e of the grid owns lane
 // j = e mod G*128 of wide row s = e div G*128, which is element s*G*128 + j
 // of x and of the output, so the reshape and its inverse cost nothing.
-// Stages 1-4: 128 lanes a block.  Stage 5: 32 lanes a block, each lane
-// served by P_GROUPS warps-worth of threads; the block stages bf16(w) (RNE)
-// in shared memory, each group takes 128/P_GROUPS of w's rows, runs the
-// one-hot contraction over w's 128 columns (8 columns a 16-byte read, one
-// product and one sum a column, one nonzero term: exact) and their minimum,
-// and the first group folds the groups' minima in order.  What bounds it:
-// stages 1-4 launch; stage 5 the 2*128*128 operations a lane and trip, on
-// rows*128/32 blocks.
+// Stages 1-4: 128 lanes a block; what bounds them is the launch.  Stage 5
+// (reshape_stage5_kernel): 1,024 lanes a block.  The contraction's result
+// for a pop p depends on p alone, so each block first builds the 129
+// answers, table[p] for p = 0..128, from one coalesced read of w (each warp
+// four rows, a 16-byte load a lane and row), and every lane then runs its 3
+// pops and reads contrib = table[p].  What bounds it: the 73,728 bytes of
+// x, w and the output (every entry of w can change the answer), and the
+// launch.
+//
+// Why the table gives the contraction's bits for every w.  Write b(r,q) for
+// bf16(w[r,q]) (RNE; a finite w past bf16's range becomes inf) and
+// gth(r,p) = sum over q of b(r,q) * onehot_p(q), the sum begun at +0 and
+// taken term by term (the plain version's sum begins at +0 too).  The terms
+// with q != p are b(r,q) * 0: +-0 where b(r,q) is finite, NaN where it is
+// inf or NaN.  The term q = p (p < 128) is b(r,p) * 1 = b(r,p).  So
+//   - gth(r,p) is NaN where b(r,q) is not finite for some q != p, or where
+//     b(r,p) is NaN;
+//   - else gth(r,p) = +0 + b(r,p) added to +-0 terms: b(r,p) itself where
+//     it is not zero (inf included), and +0 where it is +-0 (+0 + -0 is
+//     +0 in round-to-nearest);
+//   - p = 128 (an empty word) matches no column: gth(r,128) is NaN where
+//     row r holds a non-finite b, else +0.
+// With `others` the non-finite entries of row r other than column p, the
+// kernel forms exactly this: others > 0 ? NaN : 0.0f + b(r,p).  No gth is
+// -0, and the minimum propagates NaN, so the minimum over the rows is the
+// same value whatever order takes it: NaN if any gth(., p) is NaN, else the
+// least, with no +0/-0 pair to choose between.  A NaN's payload may differ
+// from the contraction's; acc + contrib * row then gives the card's one
+// canonical NaN either way.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ int pop_lane(int& words) {
@@ -301,8 +321,9 @@ __device__ __forceinline__ int pop_lane(int& words) {
 }
 
 template <int STAGE>
-__global__ void __launch_bounds__(1024) reshape_stage_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                                                             float* __restrict__ out, int g) {
+__global__ void __launch_bounds__(1024) reshape_stage_kernel(const float* __restrict__ x, float* __restrict__ out,
+                                                             int g) {
+  static_assert(STAGE >= 1 && STAGE <= 4, "stage 5 is reshape_stage5_kernel");
   const int gl = g * LANE;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   const int s = e / gl, j = e - s * gl;  // wide row, lane of it
@@ -316,7 +337,7 @@ __global__ void __launch_bounds__(1024) reshape_stage_kernel(const float* __rest
     float acc = row * 0.0f;
     for (int i = 0; i < TRIPS; ++i) acc = acc * 0.5f + row;
     out[at] = acc;
-  } else if constexpr (STAGE == 4) {
+  } else {
     float acc = row * 0.0f;
     int words = (int)(row * 0.0f) | STAGE45_WORDS;
     for (int i = 0; i < TRIPS; ++i) {
@@ -324,47 +345,61 @@ __global__ void __launch_bounds__(1024) reshape_stage_kernel(const float* __rest
       acc = acc + (float)p * row;
     }
     out[at] = acc;
-  } else {
-    __shared__ __align__(16) __nv_bfloat16 wb[LANE * LANE];
-    __shared__ float part[P_GROUPS][STAGE5_LANES];
-    const int t = threadIdx.x, pg = threadIdx.y;
-    for (int k = pg * STAGE5_LANES + t; k < LANE * LANE; k += P_GROUPS * STAGE5_LANES)
-      wb[k] = __float2bfloat16_rn(w[k]);
-    __syncthreads();
-    float acc = row * 0.0f;
-    int words = (int)(row * 0.0f) | STAGE45_WORDS;
-    constexpr int ROWS_PER_GROUP = LANE / P_GROUPS;
-    for (int i = 0; i < TRIPS; ++i) {
-      const int p = pop_lane(words);
-      float m = __int_as_float(0x7f800000);  // +inf
-      for (int r = pg * ROWS_PER_GROUP; r < (pg + 1) * ROWS_PER_GROUP; ++r) {
-        const uint4* wr = reinterpret_cast<const uint4*>(wb + r * LANE);
-        float gth = 0.0f;
-#pragma unroll 4
-        for (int q8 = 0; q8 < LANE / 8; ++q8) {
-          const uint4 u = wr[q8];
-          const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float2 f = __bfloat1622float2(h[k]);
-            const int q = q8 * 8 + 2 * k;
-            gth = gth + f.x * (q == p ? 1.0f : 0.0f);
-            gth = gth + f.y * (q + 1 == p ? 1.0f : 0.0f);
-          }
-        }
-        m = nan_min(m, gth);
-      }
-      part[pg][t] = m;
-      __syncthreads();
-      if (pg == 0) {
-        float contrib = part[0][t];
-        for (int k = 1; k < P_GROUPS; ++k) contrib = nan_min(contrib, part[k][t]);
-        acc = acc + contrib * row;
-      }
-      __syncthreads();
-    }
-    if (pg == 0) out[at] = acc;
   }
+}
+
+__device__ __forceinline__ bool not_finite(float v) { return !(fabsf(v) <= 3.402823466e38f); }
+
+// stage 5 for `lanes` lanes (a multiple of 128), STAGE5_THREADS a block
+__global__ void __launch_bounds__(STAGE5_THREADS) reshape_stage5_kernel(const float* __restrict__ x,
+                                                                        const float* __restrict__ w,
+                                                                        float* __restrict__ out, int g, int lanes) {
+  constexpr int WARPS = STAGE5_THREADS / 32, ROWS = LANE / WARPS;
+  __shared__ float part[WARPS][LANE];  // each warp's column minima over its rows
+  __shared__ float table[LANE + 1];    // the contraction's minimum for each pop p = 0..128
+  const int t = threadIdx.x, warp = t >> 5, l = t & 31;
+  float4 v[ROWS];
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i)  // row warp + WARPS*i, columns 4l..4l+3: one row a warp's load
+    v[i] = reinterpret_cast<const float4*>(w)[(warp + WARPS * i) * (LANE / 4) + l];
+  float m[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
+  bool row_bad = false;
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const float b[4] = {__bfloat162float(__float2bfloat16_rn(v[i].x)), __bfloat162float(__float2bfloat16_rn(v[i].y)),
+                        __bfloat162float(__float2bfloat16_rn(v[i].z)), __bfloat162float(__float2bfloat16_rn(v[i].w))};
+    int mine = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) mine += not_finite(b[k]);
+    const int bad = __reduce_add_sync(0xffffffffu, mine);  // the row's non-finite entries
+    row_bad = row_bad || bad > 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int others = bad - (not_finite(b[k]) ? 1 : 0);
+      m[k] = nan_min(m[k], others > 0 ? __int_as_float(0x7fffffff) : 0.0f + b[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) part[warp][4 * l + k] = m[k];
+  const int any_bad = __syncthreads_or(row_bad);
+  if (t < LANE) {
+    float c = part[0][t];
+    for (int k = 1; k < WARPS; ++k) c = nan_min(c, part[k][t]);
+    table[t] = c;
+  } else if (t == LANE) {
+    table[LANE] = any_bad ? __int_as_float(0x7fffffff) : 0.0f;
+  }
+  __syncthreads();
+  const int e = blockIdx.x * STAGE5_THREADS + t;
+  if (e >= lanes) return;
+  const int gl = g * LANE;
+  const int s = e / gl, j = e - s * gl;
+  const size_t at = (size_t)s * gl + j;
+  const float row = x[at];
+  float acc = row * 0.0f;
+  int words = (int)(row * 0.0f) | STAGE45_WORDS;
+  for (int i = 0; i < TRIPS; ++i) acc = acc + table[pop_lane(words)] * row;
+  out[at] = acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -406,8 +441,11 @@ int launch_window_slice(const __nv_bfloat16* table, int R, int P, int W, const i
 template <int STAGE>
 int launch_reshape_stage(const float* x, const float* w, float* out, int grows, int g, cudaStream_t s) {
   const int lanes = grows * g * LANE;
-  const dim3 block = STAGE == 5 ? dim3(STAGE5_LANES, P_GROUPS) : dim3(LANE, 1);
-  reshape_stage_kernel<STAGE><<<lanes / block.x, block, 0, s>>>(x, w, out, g);
+  if constexpr (STAGE == 5)
+    reshape_stage5_kernel<<<(lanes + STAGE5_THREADS - 1) / STAGE5_THREADS, STAGE5_THREADS, 0, s>>>(x, w, out, g,
+                                                                                                  lanes);
+  else
+    reshape_stage_kernel<STAGE><<<lanes / LANE, LANE, 0, s>>>(x, out, g);
   return (int)cudaGetLastError();
 }
 
@@ -441,11 +479,11 @@ extern "C" int pt_cond_chain(int control, const int* flag, const float* a, const
   return (int)cudaGetLastError();
 }
 
-// T7: stage 1-5; x and out f32[grows*g, 128]; w f32[128, 128].
+// T7: stage 1-5; x and out f32[grows*g, 128]; w f32[128, 128], 16-byte aligned.
 extern "C" int pt_reshape_stage(int stage, const float* x, const float* w, float* out, int grows, int g,
                                 void* stream) {
   if (grows <= 0) return 0;
-  if (g < 1 || stage < 1 || stage > 5) return (int)cudaErrorInvalidValue;
+  if (g < 1 || stage < 1 || stage > 5 || (uintptr_t)w % 16) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (stage) {
     case 1: return launch_reshape_stage<1>(x, w, out, grows, g, s);

@@ -633,5 +633,4 @@ def trace(orig, dirv, state, pack: ScenePack, cfg: TraceConfig):
     Returns (radiance f32[N,3], state int64[N], segments)."""
     o = V3(orig[:, 0], orig[:, 1], orig[:, 2])
     d = V3(dirv[:, 0], dirv[:, 1], dirv[:, 2])
-    rad, st, segments = trace_grid(o, d, state, pack, cfg)
-    return rad.to_rows(), st, segments
+    return cuda_trace.trace_grid(o, d, state, pack, cfg, rows=True)

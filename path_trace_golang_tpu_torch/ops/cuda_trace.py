@@ -74,7 +74,8 @@ from .vec import V3
 
 __all__ = [
     "render_pass", "render_pass_plain", "render_pass_cuda", "count_ops", "count_ops_split", "build",
-    "fog_pass", "fog_count_ops", "b1_split", "split_line", "classic_split", "classic_split_line", "march_split",
+    "fog_pass", "fog_count_ops", "b1_split", "split_line", "classic_split", "classic_split_line", "trace_split",
+    "trace_split_line", "march_split",
     "march_split_line", "N_COUNTERS",
     "classic_render", "classic_render_plain", "classic_render_cuda", "classic_count_split",
     "trace_grid", "trace_grid_plain", "trace_grid_cuda", "trace_count_ops",
@@ -170,7 +171,8 @@ def _lib(count_ops: bool = False, source: str = "render_pass"):
             lib.pt_paged_walk.argtypes = [p, p, i, i, p, p, p, i, ctypes.c_float, i, p, p, p, p, p]
             lib.pt_paged_walk.restype = i
         elif source == "classic":
-            lib.pt_trace_grid.argtypes = _SCENE_ARGTYPES + [p, p, p, i, i, i, i, p, p, p, p, p, p]
+            lib.pt_trace_grid.argtypes = _SCENE_ARGTYPES + [p, p, p, i, p, p, p, i, p, p, i, i, i, i, p, i, i,
+                                                            p, p, p, p, p, p]
             lib.pt_trace_grid.restype = i
             lib.pt_classic_window.argtypes = _SCENE_ARGTYPES + [p, p, i, u, i, i, i, i, i, i, i, p, p, p]
             lib.pt_classic_window.restype = i
@@ -275,7 +277,7 @@ def count_ops(pack: ScenePack, frame_seed: int, px, py, **kw):
 
 # the counters of a launch (csrc/common.cuh): [0] segments, the counting
 # build's tallies after it, the lane cursor last
-N_COUNTERS = 35
+N_COUNTERS = 36
 _COUNT_NAMES = (
     "segments", "ops", "walk_ops", "walk_cycles", "cycles",
     "fog_cycles", "isect_cycles", "nee_cycles", "lite_cycles", "loop_cycles",
@@ -298,6 +300,7 @@ def _count_dict(counters) -> dict:
     out["last_start_ns"] = vals[17]
     out["advance_cycles"], out["camera_cycles"], out["warp_segments"] = vals[18], vals[19], vals[20]
     out.update(zip(_MARCH_NAMES, vals[21:34]))
+    out["advance_rounds"] = vals[34]
     return out
 
 
@@ -472,6 +475,39 @@ def classic_split_line(sp: dict) -> str:
     )
 
 
+def trace_split(counted) -> dict:
+    """Kernel B3's split from :func:`trace_count_ops`'s dicts of its calls:
+    :func:`classic_split`'s numbers, with the lane time taken as the
+    threads' cycles and their warp tail, and the rest of shading as the
+    loop less closest hit and NEE (B3's bounces run in persistent blocks: a
+    thread waits for its warp after its last ray, outside its loop and
+    after its cycles were read); the march launch's cycles under
+    ``share_march``; and the hash rounds of the state advance
+    (``advance_kernel``: the quotas of the call's other trips) apart from
+    the trace's own."""
+    sp = classic_split(counted)
+    tot = {k: sum(c[k] for c in counted) for k in ("cycles", "fog_cycles", "isect_cycles", "nee_cycles",
+                                                  "lite_cycles", "loop_cycles", "warp_tail_cycles")}
+    lane = max(tot["cycles"] + tot["warp_tail_cycles"], 1)
+    inner = tot["isect_cycles"] + tot["nee_cycles"] + tot["lite_cycles"]
+    sp.update(share_advance=0.0, share_camera=0.0, share_march=tot["fog_cycles"] / lane,
+              share_isect=tot["isect_cycles"] / lane, share_nee=tot["nee_cycles"] / lane,
+              share_lite=tot["lite_cycles"] / lane, share_rest=(tot["loop_cycles"] - inner) / lane,
+              share_warp_tail=tot["warp_tail_cycles"] / lane,
+              share_outside=(tot["cycles"] - tot["fog_cycles"] - tot["loop_cycles"]) / lane)
+    adv = sum(c["advance_rounds"] for c in counted)
+    sp["rng_rounds_advance"] = adv
+    sp["rng_rounds_trace"] = sp["rng_rounds"] - adv
+    sp["advance_round_share"] = adv / max(sp["rng_rounds"], 1)
+    return sp
+
+
+def trace_split_line(sp: dict) -> str:
+    """One line of :func:`trace_split`'s numbers."""
+    return (f"{classic_split_line(sp)}; of the hash rounds {sp['rng_rounds_trace']:.6g} in the trace, "
+            f"{sp['rng_rounds_advance']:.6g} in the state advance ({sp['advance_round_share']:.2%})")
+
+
 def march_split(counted) -> dict:
     """The fog march's split from the counting build's dicts of its
     launches (the fog kernel's, or the classic instance's march kernel's):
@@ -551,9 +587,12 @@ def _check_device(what: str, pack: ScenePack, *tensors):
         raise ValueError(f"{what}: the kernel needs CUDA tensors, got {dev}")
     if pack.device != dev or any(t.device != dev for t in tensors):
         raise ValueError(f"{what}: the pack and every tensor must be on one device")
-    tables = [pack.mat, pack.obj, pack.sky, pack.fog, pack.tri, pack.bvh_bounds, pack.page_tiles, pack.page_boxes]
-    if any(t.dtype != torch.float32 or not t.is_contiguous() for t in tables):
-        raise ValueError(f"{what}: scene tables must be contiguous float32")
+    if "_tables_checked" not in pack._host:  # once a pack: its tables do not change
+        tables = [pack.mat, pack.obj, pack.sky, pack.fog, pack.tri, pack.bvh_bounds, pack.page_tiles,
+                  pack.page_boxes]
+        if any(t.dtype != torch.float32 or not t.is_contiguous() for t in tables):
+            raise ValueError(f"{what}: scene tables must be contiguous float32")
+        pack._host["_tables_checked"] = True
     return dev
 
 
@@ -825,14 +864,16 @@ def _launch_classic(counting: bool, accum, pack, frame_seed, px, py, *, chunk, n
 # ---------------------------------------------------------------------------
 
 
-def trace_grid(orig: V3, dirv: V3, state, pack: ScenePack, cfg, active=None):
+def trace_grid(orig: V3, dirv: V3, state, pack: ScenePack, cfg, active=None, rows=False):
     """Trace given rays on flat lanes; arguments and result as
-    ``integrator.trace_grid``.  CUDA tensors go to kernel B3, CPU tensors
-    to the plain version; nothing falls back."""
+    ``integrator.trace_grid`` (with ``rows``, the radiance as f32[N, 3]
+    rows, ``trace()``'s layout, instead of a V3).  CUDA tensors go to
+    kernel B3, CPU tensors to the plain version; nothing falls back."""
     if orig.x.is_cuda:
-        return trace_grid_cuda(orig, dirv, state, pack, cfg, active)
+        return trace_grid_cuda(orig, dirv, state, pack, cfg, active, rows)
     if orig.x.device.type == "cpu":
-        return trace_grid_plain(orig, dirv, state, pack, cfg, active)
+        rad, st, segments = trace_grid_plain(orig, dirv, state, pack, cfg, active)
+        return (rad.to_rows() if rows else rad), st, segments
     raise NotImplementedError(f"trace_grid: no kernel for device {orig.x.device}")
 
 
@@ -847,47 +888,101 @@ def trace_grid_plain(orig: V3, dirv: V3, state, pack: ScenePack, cfg, active=Non
     return trace(orig, dirv, state.to(torch.int64) & MASK32, pack, cfg, active)
 
 
-def trace_grid_cuda(orig: V3, dirv: V3, state, pack: ScenePack, cfg, active=None):
-    """Launch kernel B3 (and the launch that advances each lane's state by
-    the call's other trips) on the current stream."""
+def trace_grid_cuda(orig: V3, dirv: V3, state, pack: ScenePack, cfg, active=None, rows=False):
+    """Launch kernel B3 on the current stream: under the in-trace fog march
+    the march, then the bounces, then the launch that advances each lane's
+    state by the call's other trips."""
     global TRACE_LAUNCHES
-    rad, st, counters = _launch_trace(False, orig, dirv, state, pack, cfg, active)
+    rad, st, counters, _len = _launch_trace(False, orig, dirv, state, pack, cfg, active, rows)
     TRACE_LAUNCHES += 1
     return rad, st, counters[0]
 
 
 def trace_count_ops(orig: V3, dirv: V3, state, pack: ScenePack, cfg, active=None) -> dict:
-    """The counting build of kernel B3 on the same rays: ``segments``,
-    ``ops``, ``walk_ops``, ``walk_cycles``, ``cycles`` as in
-    :func:`count_ops_split`.  Not a launch of the trace path:
-    ``TRACE_LAUNCHES`` does not change."""
-    _rad, _st, counters = _launch_trace(True, orig, dirv, state, pack, cfg, active)
-    return _count_dict(counters)
+    """The counting build of kernel B3 on the same rays: its launches'
+    tallies merged as in :func:`count_ops_split` (``segments``, ``ops``,
+    ``walk_ops``, ``walk_cycles``, ``cycles``, the lane cycles by stage, the
+    hash rounds, ``advance_rounds`` those of the state advance), and under
+    ``"march"`` the march launch's own (None where the call marched no fog).
+    Not a launch of the trace path: ``TRACE_LAUNCHES`` does not change."""
+    lib, args, (_out, _st, _len, counters, keep) = _trace_call(True, orig, dirv, state, pack, cfg, active)
+    raise_on(lib.pt_trace_grid(*args), lib, "trace_grid")
+    bounce = _count_dict(counters)
+    march = _count_dict(keep[0]) if cfg.contract != "cpu" and _flags(pack, cfg) & FLAG_FOG_TRACE else None
+    out = _merge_counts([bounce] + ([march] if march else []))
+    out["march"] = march
+    return out
 
 
-def _launch_trace(counting: bool, orig: V3, dirv: V3, state, pack, cfg, active):
+def _components(v: V3, n: int):
+    """The three f32 components of ``v`` as flat lanes and their common
+    stride in elements: views where they share one (the columns of an
+    [N, 3] row tensor, or contiguous planes), else contiguous copies."""
+    cs = [(c if c.dim() == 1 else c.reshape(-1)) for c in v]
+    cs = [c if c.dtype == torch.float32 else c.to(torch.float32) for c in cs]
+    stride = cs[0].stride(0) if n > 1 else 1
+    if any(c.numel() != n or (n > 1 and c.stride(0) != stride) or stride < 1 for c in cs):
+        cs, stride = [c.contiguous() for c in cs], 1
+    return cs, stride
+
+
+def _trace_call(counting: bool, orig: V3, dirv: V3, state, pack, cfg, active, rows=False):
+    """The inputs and outputs of one call of pt_trace_grid: (library,
+    arguments, (radiance: f32[3, n] planes, or [n, 3] rows with ``rows``;
+    states int64; path lengths int32; counters; what the pointers need kept
+    alive, the march's counters first)).  Made without a launch: the rays
+    are read in place (their components' stride), the states as int64 (the
+    low 32 bits) and written as int64 values below 2^32, and the call zeroes
+    its counters itself."""
     dev = _check_device("trace_grid_cuda", pack, orig.x, dirv.x, state, *(() if active is None else (active,)))
-    shape = orig.x.shape
     n = orig.x.numel()
-    rays = torch.stack([c.reshape(-1) for c in (*orig, *dirv)]).to(torch.float32).contiguous()
-    st = state.reshape(-1).to(torch.int64) & MASK32
-    st_in = torch.where(st >= 2**31, st - 2**32, st).to(torch.int32).contiguous()
-    act = None if active is None else active.reshape(-1).to(torch.uint8).contiguous()
-    out = torch.empty((3, n), dtype=torch.float32, device=dev)
-    st_out = torch.empty(n, dtype=torch.int32, device=dev)
-    lengths = torch.empty(n, dtype=torch.int32, device=dev)
-    trips = torch.zeros(1, dtype=torch.int32, device=dev)
-    counters = torch.zeros(N_COUNTERS, dtype=torch.int64, device=dev)
-    basis = torch.zeros(19, dtype=torch.float32, device=dev)  # the trace makes no camera rays
+    o, o_stride = _components(orig, n)
+    d, d_stride = _components(dirv, n)
+    st_in = state if state.dim() == 1 else state.reshape(-1)
+    st_in = (st_in if st_in.dtype == torch.int64 else st_in.to(torch.int64)).contiguous()
+    act = None
+    if active is not None:
+        act = active.reshape(-1)
+        act = (act.view(torch.uint8) if act.dtype == torch.bool else act.to(torch.uint8)).contiguous()
+    out = torch.empty((n, 3) if rows else (3, n), dtype=torch.float32, device=dev)
+    out_comp, out_lane = (1, 3) if rows else (n, 1)
+    st = torch.empty(n, dtype=torch.int64, device=dev)
+    # the counters, the march's counters (the counting build's own), trips and the path lengths in one buffer
+    scratch = torch.empty(2 * N_COUNTERS + 1 + (n + 1) // 2, dtype=torch.int64, device=dev)
+    counters = scratch[:N_COUNTERS]
+    march = scratch[N_COUNTERS:2 * N_COUNTERS] if counting else counters
+    lengths = scratch[2 * N_COUNTERS + 1:].view(torch.int32)[:n]
     lib = _lib(counting, "classic")
-    err = lib.pt_trace_grid(
-        *_scene_args(pack, basis), rays.data_ptr(), st_in.data_ptr(), 0 if act is None else act.data_ptr(), n,
-        cfg.max_depth, cfg.rr_threshold, _flags(pack, cfg), out.data_ptr(), st_out.data_ptr(),
-        lengths.data_ptr(), trips.data_ptr(), counters.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    args = (
+        *_trace_scene_args(pack), *(c.data_ptr() for c in o), o_stride, *(c.data_ptr() for c in d), d_stride,
+        st_in.data_ptr(), 0 if act is None else act.data_ptr(), n, cfg.max_depth, cfg.rr_threshold,
+        _flags(pack, cfg), out.data_ptr(), out_comp, out_lane, st.data_ptr(), lengths.data_ptr(),
+        scratch[2 * N_COUNTERS].data_ptr(), counters.data_ptr(), march.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
-    raise_on(err, lib, "trace_grid")
-    rad = V3(out[0].reshape(shape), out[1].reshape(shape), out[2].reshape(shape))
-    return rad, (st_out.to(torch.int64) & MASK32).reshape(shape), counters
+    return lib, args, (out, st, lengths, counters, (march, o, d, st_in, act, scratch))
+
+
+def _trace_scene_args(pack: ScenePack):
+    """The scene arguments of a trace (it makes no camera rays: a zero
+    basis), made once a pack."""
+    key = "_trace_args"
+    if key not in pack._host:
+        basis = torch.zeros(19, dtype=torch.float32, device=pack.device)
+        pack._host[key] = (basis, _scene_args(pack, basis))
+    return pack._host[key][1]
+
+
+def _launch_trace(counting: bool, orig: V3, dirv: V3, state, pack, cfg, active, rows=False):
+    """Returns (radiance: V3, or [n, 3] rows with ``rows``; state; counters;
+    each lane's path length)."""
+    lib, args, (out, st, lengths, counters, _keep) = _trace_call(counting, orig, dirv, state, pack, cfg, active, rows)
+    raise_on(lib.pt_trace_grid(*args), lib, "trace_grid")
+    shape = orig.x.shape
+    if len(shape) == 1:
+        return (out if rows else V3(out[0], out[1], out[2])), st, counters, lengths
+    rad = out if rows else V3(out[0].reshape(shape), out[1].reshape(shape), out[2].reshape(shape))
+    return rad, st.reshape(shape), counters, lengths
 
 
 # ---------------------------------------------------------------------------

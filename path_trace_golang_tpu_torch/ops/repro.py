@@ -283,7 +283,8 @@ def reshape_stage(x: torch.Tensor, w: torch.Tensor, stage: int, g: int) -> torch
 
 
 def reshape_stage_cuda(x: torch.Tensor, w: torch.Tensor, stage: int, g: int) -> torch.Tensor:
-    """Launch T7's kernel (csrc/repro.cu, reshape_stage_kernel<stage>) on the current stream."""
+    """Launch T7's kernel on the current stream (csrc/repro.cu: reshape_stage_kernel<stage>, stage 5
+    reshape_stage5_kernel, which looks each pop's contraction up in a table that each block builds from w)."""
     check("reshape_stage", (x, _F32), (w, _F32))
     if stage not in STAGES:
         raise ValueError(f"reshape_stage: unknown stage {stage}")

@@ -132,8 +132,11 @@ class ScenePack:
     def tri_any_emissive(self) -> bool:
         """Whether any mesh triangle carries an emissive material.  When
         none does, a ``lite`` mesh query can only find the mesh as an
-        occluder of the object sweep's winner (ops/geometry.py)."""
-        return any(self.mat_types[mi] == MAT_EMISSIVE for mi in set(self.tri_mats))
+        occluder of the object sweep's winner (ops/geometry.py).  Found once
+        a pack: a mesh's triangles are many, and every launch asks."""
+        if "tri_any_emissive" not in self._host:
+            self._host["tri_any_emissive"] = any(self.mat_types[mi] == MAT_EMISSIVE for mi in set(self.tri_mats))
+        return self._host["tri_any_emissive"]
 
     def host(self, name: str) -> np.ndarray:
         """A NumPy copy of one table, read once: the plain versions take

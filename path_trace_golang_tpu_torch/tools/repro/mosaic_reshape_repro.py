@@ -40,6 +40,35 @@ def make_inputs(device="cuda"):
     return torch.from_numpy(x).to(device), torch.from_numpy(w).to(device)
 
 
+def special_inputs(device="cuda") -> dict:
+    """Stage 5's inputs with special values, {case: (x, w)}: the tool's x
+    with a NaN and a run of negative entries (where acc starts at -0, so the
+    sign of a zero contribution shows), and the tool's w with, by case:
+    ``zeros`` -0, +0 and -0 as the least entries of the pops' columns 1, 2
+    and 4 (their other entries made positive; the -0 of column 4 in a row
+    of negative entries); ``inf at a pop`` that and a -inf at column 4, its
+    row's only non-finite entry;
+    ``inf off the pops`` a +inf at column 100; ``nan`` a NaN at column 2;
+    ``bf16 overflow`` a finite entry that rounds to inf in bf16."""
+    x, w0 = make_inputs("cpu")
+    x = x.clone()
+    x[0, 5] = float("nan")
+    x[1, :16] = -x[1, :16]
+    zeros = w0.clone()
+    zeros[3] = -zeros[3].abs()
+    for c in (1, 2, 4):
+        zeros[:, c] = zeros[:, c].abs()
+    zeros[40, 1], zeros[41, 2], zeros[3, 4] = -0.0, 0.0, -0.0
+    cases = {"zeros": zeros}
+    cases["inf at a pop"] = zeros.clone()
+    cases["inf at a pop"][9, 4] = -float("inf")
+    for case, (r, c, v) in {"inf off the pops": (9, 100, float("inf")), "nan": (11, 2, float("nan")),
+                            "bf16 overflow": (13, 4, 3.4e38)}.items():
+        cases[case] = w0.clone()
+        cases[case][r, c] = v
+    return {case: (x.to(device), w.to(device)) for case, w in cases.items()}
+
+
 def run(g: int = 4, device: str = "cuda", n: int = 20) -> dict:
     """Every stage against its plain version; returns {stage: {"ok", "max_abs_diff", "ms"}}."""
     dev = timing.resolve(device)

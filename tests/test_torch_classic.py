@@ -35,6 +35,7 @@ test.  The fog scene's noise strength is 0 because XLA's CPU backend fuses
 
 import json
 import os
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -498,6 +499,74 @@ def test_classic_split_arithmetic():
     assert sp["rng_rounds_per_segment"] == 20 and sp["bound_slots_ms"] == pytest.approx(
         (6000 + 16 * 600) / cuda_trace.UNFUSED_SLOTS * 1e3)
     assert "warps ran for 25.00%" in cuda_trace.classic_split_line(sp)
+
+
+def test_trace_split_arithmetic():
+    """B3's split follows from the counting build's tallies of its launches
+    (the march launch merged with the bounces'): the stages' shares of the
+    lane time (the threads' cycles and the warp tail that follows their
+    last ray), and the state advance's hash rounds apart from the trace's."""
+    common = dict(segments=0, ops=1000, walk_ops=0, walk_cycles=0, fog_cycles=0, isect_cycles=0, nee_cycles=0,
+                  lite_cycles=0, loop_cycles=0, nee_active=0, nee_entries=0, warp_tail_cycles=0, advance_cycles=0,
+                  camera_cycles=0, warp_segments=0, first_start_ns=0, first_end_ns=50, last_end_ns=100,
+                  last_start_ns=20)
+    march = dict(common, cycles=1000, fog_cycles=800, rng_rounds=100, advance_rounds=0)
+    bounce = dict(common, segments=20, cycles=1000, isect_cycles=300, nee_cycles=100, loop_cycles=900,
+                  warp_tail_cycles=200, warp_segments=40, rng_rounds=400, advance_rounds=300)
+    sp = cuda_trace.trace_split([cuda_trace._merge_counts([bounce, march])])
+    lane = 2000 + 200  # the threads' cycles and their wait for the warp after the last ray
+    assert sp["launches"] == 2 and sp["share_march"] == pytest.approx(800 / lane)
+    assert sp["share_isect"] == pytest.approx(300 / lane) and sp["share_warp_tail"] == pytest.approx(200 / lane)
+    assert sp["share_rest"] == pytest.approx((900 - 300 - 100) / lane)
+    assert sp["share_outside"] == pytest.approx((2000 - 800 - 900) / lane)
+    assert sp["simt"] == 0.5 and sp["launch_tail_share"] == pytest.approx(0.5)
+    assert sp["rng_rounds_advance"] == 300 and sp["rng_rounds_trace"] == 200 and sp["advance_round_share"] == 0.6
+    assert "in the state advance (60.00%)" in cuda_trace.trace_split_line(sp)
+
+
+def test_trace_counter_slots_match_classic_cu():
+    """B3's counters name the slots that csrc/common.cuh and csrc/classic.cu
+    write: the state advance's hash rounds in ADVANCE_ROUNDS besides the
+    total (slot 13), and the paged bounces' ray cursor last."""
+    csrc = Path(cuda_trace.__file__).resolve().parent.parent / "csrc"
+    common, classic = (csrc / "common.cuh").read_text(), (csrc / "classic.cu").read_text()
+    n = cuda_trace.N_COUNTERS
+    assert f"N_COUNTERS = {n}, CURSOR = {n - 1}, ADVANCE_ROUNDS = {n - 2};" in common
+    assert "atomicAdd(counters + 13, rounds);" in classic and "atomicAdd(counters + ADVANCE_ROUNDS, rounds);" in classic
+    assert "lane = PAGED ? (int)atomicAdd(counters + CURSOR, 1ull)" in classic
+    c = cuda_trace._count_dict(torch.arange(n, dtype=torch.int64))
+    assert c["advance_rounds"] == n - 2 and c["rng_rounds"] == 13 and c["march_tail_cycles"] == 33
+
+
+def test_trace_reads_rays_in_place():
+    """B3's wrapper hands the kernel the rays where they lie: the columns of
+    trace()'s [N, 3] rows as views of stride 3, contiguous planes at stride
+    1, and copies only where the components' strides differ."""
+    rows = torch.arange(30, dtype=torch.float32).reshape(10, 3)
+    cols, stride = cuda_trace._components(TV3(rows[:, 0], rows[:, 1], rows[:, 2]), 10)
+    assert stride == 3 and [c.data_ptr() for c in cols] == [rows.data_ptr() + 4 * k for k in range(3)]
+    planes = TV3(*(torch.rand(2, 5) for _ in range(3)))
+    cols, stride = cuda_trace._components(planes, 10)
+    assert stride == 1 and cols[1].data_ptr() == planes.y.data_ptr()
+    mixed, stride = cuda_trace._components(TV3(rows[:, 0], planes.y.reshape(-1), rows[:, 2]), 10)
+    assert stride == 1 and all(c.is_contiguous() for c in mixed) and torch.equal(mixed[2], rows[:, 2])
+    one, stride = cuda_trace._components(TV3(rows[:1, 0], rows[:1, 1], rows[:1, 2]), 1)
+    assert stride == 1 and float(one[2]) == 2.0
+
+
+def test_trace_rows_equal_trace_grid():
+    """trace() returns trace_grid's radiance as rows and its state and
+    segments as they are (the plain version on the CPU; on a card the
+    kernel writes the rows itself)."""
+    scene, contract, faithful, o, d, state, active = _trace_case("cpu")
+    sc = scene(TS)
+    tp = tsoa.pack_scene(sc, 64, 64, device="cpu")
+    cfg = TI.trace_config_for_scene(tp, sc, 6, contract, faithful_fog=faithful)
+    st = torch.from_numpy(state.astype(np.int64))
+    rows, st_r, seg_r = TI.trace(torch.from_numpy(o), torch.from_numpy(d), st, tp, cfg)
+    rad, st_g, seg_g = TI.trace_grid(_tv(o), _tv(d), st, tp, cfg)
+    assert rows.shape == (N, 3) and torch.equal(rows, rad.to_rows())
+    assert torch.equal(st_r, st_g) and int(seg_r) == int(seg_g) > 0
 
 
 def _stats(img):

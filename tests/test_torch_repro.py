@@ -282,6 +282,74 @@ def test_reshape_stages_ignore_g():
         assert all(torch.equal(o, outs[0]) for o in outs), stage
 
 
+def _stage5_table(w):
+    """Stage 5's 129 answers by the column-minimum identity that
+    reshape_stage5_kernel builds its table by (csrc/repro.cu): for pop p,
+    the NaN-propagating minimum over the rows of NaN where the row's other
+    entries hold a non-finite bf16, else +0 + bf16(w[r, p]); for p = 128
+    (an empty word) NaN where any row holds a non-finite bf16, else +0."""
+    b = w.to(torch.bfloat16).float()
+    bad = ~torch.isfinite(b)
+    others = bad.sum(1, keepdim=True) - bad.to(torch.int64)
+    gth = torch.where(others > 0, torch.full_like(b, float("nan")), b + 0.0)
+    empty = torch.full((1,), float("nan") if bool(bad.any()) else 0.0)
+    return torch.cat([gth.amin(0), empty])
+
+
+def _stage5_by_table(x, w):
+    """Stage 5's lanes with each pop's contraction read from the table."""
+    table = _stage5_table(w)
+    acc = x * 0.0
+    words = (x * 0.0).to(torch.int32) | repro.STAGE45_WORDS
+    for _ in range(repro.TRIPS):
+        p, words = repro._pop(words)
+        acc = acc + table[p.to(torch.int64)] * x
+    return acc
+
+
+def _same_or_both_nan(a, b):
+    """Bit for bit where either is a number, NaN where either is NaN (the
+    payload of a NaN is the CPU's choice, not the algorithm's)."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+def _t7_cases():
+    x, w = t7.make_inputs("cpu")
+    return {"tool": (x, w), **t7.special_inputs("cpu")}
+
+
+@pytest.mark.parametrize("case", ["tool", "zeros", "inf at a pop", "inf off the pops", "nan", "bf16 overflow"])
+def test_stage5_table_equals_the_contraction(case):
+    """For every pop p = 0..128 the identity's entry equals the minimum of
+    the plain version's contraction bf16(w) @ onehot(p), bit for bit (NaN
+    where it is NaN), on the tool's w and on w with special values."""
+    _x, w = _t7_cases()[case]
+    wb = w.to(torch.bfloat16).float()
+    onehot = (torch.arange(repro.LANE)[:, None] == torch.arange(repro.LANE + 1)[None, :]).to(torch.bfloat16).float()
+    want = (wb[:, :, None] * onehot[None, :, :]).sum(1).amin(0)
+    got = _stage5_table(w)
+    assert _same_or_both_nan(got, want)
+    assert not bool((got == 0).logical_and(torch.signbit(got)).any())  # no -0 in the table
+    if case == "tool":
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("g", GROUPS)
+@pytest.mark.parametrize("case", ["tool", "zeros", "inf at a pop", "inf off the pops", "nan", "bf16 overflow"])
+def test_stage5_by_table_equals_plain(case, g):
+    """The lanes run on the table equal reshape_stage_plain's stage 5 at
+    every G: bit for bit on the tool's x and w, and on the special-value
+    inputs (a NaN and negative entries in x) bit for bit where a number."""
+    x, w = _t7_cases()[case]
+    got, want = _stage5_by_table(x, w), repro.reshape_stage_plain(x, w, 5, g)
+    assert _same_or_both_nan(got, want)
+    if case == "tool":
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if case == "zeros":  # the lanes of negative x end at -0: a zero's sign in the table shows
+        assert bool(torch.signbit(want[1, :16]).all()) and bool((want[1, :16] == 0).all())
+
+
 @pytest.mark.parametrize("g", GROUPS)
 def test_group_rows_matches_jax(jax_repro, g):
     gr = jax_repro("group_rows_relayout")
@@ -430,6 +498,9 @@ def test_reshape_stage_kernel_matches_plain_on_card():
     for g in GROUPS:
         for stage in repro.STAGES:
             assert _same(repro.reshape_stage(x, w, stage, g), repro.reshape_stage_plain(x, w, stage, g)), (stage, g)
+    for case, (xs, ws) in t7.special_inputs("cuda").items():
+        for g in GROUPS:
+            assert _same(repro.reshape_stage(xs, ws, 5, g), repro.reshape_stage_plain(xs, ws, 5, g)), (case, g)
 
 
 @pytest.mark.cuda
