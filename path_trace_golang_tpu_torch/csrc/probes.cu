@@ -227,15 +227,44 @@ __global__ void __launch_bounds__(128) paged_probe_kernel(Pages G, const float* 
 //
 // Here a tile moves whole into shared memory, as a redesigned walk would
 // stage it: layouts a (P,128,32), b (P,32,128) and c (P*32,128) are the same
-// 16 KB of contiguous bytes, d (P*8,128) 4 KB.  Each block copies every tile
-// in turn with 16-byte cp.async (coalesced, and opaque to the compiler, so
-// the copy cannot shrink to the two loads used), waits, then every thread
-// reads the two elements and adds them to the sum in page order, so the
-// result is bit-identical with the TPU probe's.  What bounds it: with 16
-// blocks, the latency of P dependent copies; on a full card, L2 bandwidth
-// (the 1.3 MB table stays in the 50 MB L2).
+// 16 KB of contiguous bytes, d (P*8,128) 4 KB.  What bounds it: every block
+// stages every tile, so a block's P tiles pass through its SM's port from
+// L2 (the 1.3 MB table stays in the 50 MB L2); on the TPU grid of 16 blocks
+// each SM holds one block, and the block's P x 16 KB at the rate one SM
+// takes bytes in (~145 GB/s, the slope of the full-card grid's time against
+// P: PERF.md) is ~9 us beside the launch.  A first design waited on each
+// tile's copy before it issued the next: P dependent round trips of ~0.4 us.
+//
+// Design: a ring of TILE_STAGES = 3 tiles in shared memory, each stage with
+// its own mbarrier.  Thread 0 keeps three tiles in flight: it issues each
+// whole tile as one bulk copy (cp.async.bulk, the TMA's one-dimensional
+// form: the hardware moves the bytes and reports them to the stage's
+// mbarrier), waits on the stages in page order, adds the tile's (first +
+// last) to acc and issues the tile three pages on into the stage it has
+// read.  The same ring serves all four layouts (one tile a stage, 16 KB or
+// 4 KB).  acc runs over the pages in order from 0.0f, one rounding a page
+// as in the plain version, so the result is bit-identical at every p (p = 0
+// included: x + 0.0f).  The other threads wait at one barrier and then
+// write x + acc, as before.
+//
+// What the 16-block grid reads: ~0.11 us a tile for every layout, 16 KB or
+// 4 KB.  Layout a runs at the SM's ingest rate; d, whose 4 KB would take a
+// quarter of that, reads how fast one block's bulk copies come back.  Thread
+// 0's loop (split by clock64 in the counting build: the tile's reads, the
+// fence, the issue and the wait) takes about that long a tile; with the loop
+// split over a producer lane and a consumer thread (an "empty" mbarrier a
+// stage beside the "full" one) both threads wait and the tiles still come
+// one per ~0.11 us a block, at 3 or 4 stages; a ring of 12 tiles of d,
+// 16-byte cp.async by every thread, and a warp issuing in rounds did no
+// better or lost (PERF.md).  So on 16 blocks the comparison between layouts
+// measures this issue loop, not the layouts' bytes; the full-card grid,
+// several blocks an SM, still tells d from a.  At 3 stages a block of a
+// takes 48 KB, so the full-card grid keeps 4 of its 8 blocks an SM
+// resident, with 12 tiles in flight an SM where the first design had 8; at
+// 4 stages (3 blocks) it ran slower.
 // ---------------------------------------------------------------------------
 
+// 16-byte cp.async (T4 stages its slabs so)
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
@@ -246,24 +275,118 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 constexpr int PROBE_ROWS = 32, PROBE_LANE = 128, PROBE_BLOCK = 256;
+constexpr int TILE_STAGES = 3;  // T3's ring: whole tiles in flight a block (ops/probes.py mirrors it)
 
-__global__ void __launch_bounds__(PROBE_BLOCK) tile_fetch_kernel(const float* __restrict__ table, int tile_elems,
+__device__ __forceinline__ unsigned smem_u32(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
+
+// the stage's copy: one arrival that expects `bytes`, then the bulk copy that delivers them
+__device__ __forceinline__ void stage_tile(unsigned long long* bar, float* dst, const float* src, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
+
+// wait until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void stage_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+#ifdef PT_COUNT_OPS
+// T3's split in the counting build (-DPT_COUNT_OPS): thread 0's clock
+// cycles in the ring's loop by step (the wait for the tile, its two reads
+// and the add, the proxy fence, the next tile's issue) and over the whole
+// loop, each block's sums added here, then the blocks (ops/probes.py,
+// tile_fetch_split, reads and resets them).
+constexpr int T3_SLOTS = 5;
+__device__ unsigned long long g_t3_clocks[T3_SLOTS + 1];
+#define T3_CLOCK(v) const long long v = clock64()
+#define T3_ADD(slot, a, b) t3_sum[slot] += (unsigned long long)((b) - (a))
+#else
+#define T3_CLOCK(v)
+#define T3_ADD(slot, a, b)
+#endif
+
+template <int ELEMS>
+__global__ void __launch_bounds__(PROBE_BLOCK) tile_fetch_kernel(const float* __restrict__ table,
                                                                  const float* __restrict__ x, float* __restrict__ out,
                                                                  int p) {
-  extern __shared__ float4 s_tile[];
-  const float* s = reinterpret_cast<const float*>(s_tile);
-  const float4* t4 = reinterpret_cast<const float4*>(table);
-  const int n4 = tile_elems / 4;
-  float acc = 0.0f;
-  for (int q = 0; q < p; ++q) {
-    for (int k = threadIdx.x; k < n4; k += PROBE_BLOCK) cp_async16(&s_tile[k], &t4[(size_t)q * n4 + k]);
-    cp_async_wait_all();
-    __syncthreads();
-    acc = acc + (s[0] + s[tile_elems - 1]);
-    __syncthreads();
+  extern __shared__ __align__(128) float s_ring[];  // TILE_STAGES x ELEMS
+  __shared__ __align__(8) unsigned long long s_full[TILE_STAGES];
+  __shared__ float s_acc;
+  if (threadIdx.x == 0) {
+#ifdef PT_COUNT_OPS
+    unsigned long long t3_sum[T3_SLOTS] = {};
+#endif
+    T3_CLOCK(l0);
+    constexpr unsigned bytes = ELEMS * 4u;
+    const int first = min(p, TILE_STAGES);
+    for (int k = 0; k < first; ++k)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(&s_full[k])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int q = 0; q < first; ++q) stage_tile(&s_full[q], s_ring + q * ELEMS, table + (size_t)q * ELEMS, bytes);
+    float acc = 0.0f;
+    unsigned parity = 0;
+    for (int q = 0, k = 0; q < p; ++q) {
+      T3_CLOCK(c0);
+      stage_wait(&s_full[k], parity);
+      T3_CLOCK(c1);
+      const float* s = s_ring + k * ELEMS;
+      acc = acc + (s[0] + s[ELEMS - 1]);
+      T3_CLOCK(c2);
+      T3_ADD(0, c0, c1);
+      T3_ADD(1, c1, c2);
+      if (q + TILE_STAGES < p) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the reads above before the copy over them
+        T3_CLOCK(c3);
+        stage_tile(&s_full[k], s_ring + k * ELEMS, table + (size_t)(q + TILE_STAGES) * ELEMS, bytes);
+        T3_CLOCK(c4);
+        T3_ADD(2, c2, c3);
+        T3_ADD(3, c3, c4);
+      }
+      if (++k == TILE_STAGES) k = 0, parity ^= 1u;
+    }
+    s_acc = acc;
+#ifdef PT_COUNT_OPS
+    T3_CLOCK(l1);
+    T3_ADD(4, l0, l1);
+    for (int k = 0; k < T3_SLOTS; ++k) atomicAdd(&g_t3_clocks[k], t3_sum[k]);
+    atomicAdd(&g_t3_clocks[T3_SLOTS], 1ull);
+#endif
   }
+  __syncthreads();
+  const float acc = s_acc;
   const size_t base = (size_t)blockIdx.x * PROBE_ROWS * PROBE_LANE;
   for (int k = threadIdx.x; k < PROBE_ROWS * PROBE_LANE; k += PROBE_BLOCK) out[base + k] = x[base + k] + acc;
+}
+
+// T3's launch for a tile of ELEMS floats: its ring of TILE_STAGES tiles is allowed once a device (a, b and c
+// take 48 KB, above what a launch may take without asking)
+template <int ELEMS>
+int launch_tile_fetch(const float* table, const float* x, float* out, int p, int blocks, cudaStream_t s) {
+  constexpr int RING = TILE_STAGES * ELEMS * (int)sizeof(float);
+  constexpr int MAX_DEVICES = 64;
+  static bool ring_allowed[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!ring_allowed[dev]) {
+    e = cudaFuncSetAttribute(tile_fetch_kernel<ELEMS>, cudaFuncAttributeMaxDynamicSharedMemorySize, RING);
+    if (e != cudaSuccess) return (int)e;
+    ring_allowed[dev] = true;
+  }
+  tile_fetch_kernel<ELEMS><<<blocks, PROBE_BLOCK, RING, s>>>(table, x, out, p);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -455,16 +578,25 @@ extern "C" int pt_paged_probe(int variant, const float* tiles, const float* boxe
 }
 
 // T3: layout 0-3 = a, b, c (16 KB tiles), d (4 KB); x and out
-// f32[32*blocks, 128]; the table holds at least p tiles.
+// f32[32*blocks, 128]; the table holds at least p tiles and is 16-byte
+// aligned (the bulk copies need it).
 extern "C" int pt_tile_fetch(int layout, const float* table, const float* x, float* out, int p, int blocks,
                              void* stream) {
   if (blocks <= 0) return 0;
-  if (layout < 0 || layout > 3 || p < 0) return (int)cudaErrorInvalidValue;
-  const int tile_elems = layout == 3 ? 8 * PROBE_LANE : PROBE_ROWS * PROBE_LANE;
-  tile_fetch_kernel<<<blocks, PROBE_BLOCK, tile_elems * sizeof(float), (cudaStream_t)stream>>>(table, tile_elems, x,
-                                                                                              out, p);
-  return (int)cudaGetLastError();
+  if (layout < 0 || layout > 3 || p < 0 || (uintptr_t)table % 16) return (int)cudaErrorInvalidValue;
+  if (layout == 3) return launch_tile_fetch<8 * PROBE_LANE>(table, x, out, p, blocks, (cudaStream_t)stream);
+  return launch_tile_fetch<PROBE_ROWS * PROBE_LANE>(table, x, out, p, blocks, (cudaStream_t)stream);
 }
+
+#ifdef PT_COUNT_OPS
+// T3's split of the launches since the last call (counting build): out[T3_SLOTS + 1] as g_t3_clocks; reset
+extern "C" int pt_t3_clocks(unsigned long long* out) {
+  const unsigned long long zero[T3_SLOTS + 1] = {};
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_t3_clocks, sizeof(g_t3_clocks));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_t3_clocks, zero, sizeof(zero));
+  return (int)e;
+}
+#endif
 
 // T4: variant indexes FetchVariant (static_vec needs p == 80); table
 // f32[>=32*p, 128]; x and out f32[32*blocks, 128].

@@ -28,6 +28,7 @@ constexpr int STAGE45_WORDS = 0b10110;  // T7 stages 4/5: each lane's mask word 
 constexpr int STAGE5_THREADS = 1024;   // T7 stage 5: threads (and lanes) a block, 32 warps of 4 rows of w each
 
 __device__ __forceinline__ float nan_min(float a, float b) { return (a < b || a != a) ? a : b; }
+__device__ __forceinline__ bool not_finite(float v) { return !(fabsf(v) <= 3.402823466e38f); }
 
 // the block-wide minimum of v over all threads (blockDim a multiple of 32);
 // every thread gets it.  `scratch` holds 33 floats of shared memory.
@@ -57,69 +58,142 @@ __device__ float block_min(float v, float* scratch) {
 // per lane through a one-hot MXU product over a W-page window at a
 // data-dependent base.
 //
-// Design: every block computes the base itself (a block minimum over the
-// live lanes, floored to 128 and clamped), then stages the whole window,
-// R x W bf16 (48 KB at R 96, W 256), into shared memory with 16-byte loads:
-// layout A as R runs of W*2 bytes, one per table row (a strided window),
-// layout B as one contiguous run of W*R*2 bytes.  The layouts differ only in
-// that copy, which is the probe's question.  Then each thread owns one
-// output element (a warp spans 32 lanes of one row, so every shared read is
-// a broadcast) and runs the contraction over the window in f32: one product
-// and one sum a page, a one-hot weight of 1 or 0.  With one nonzero term a
-// sum the result is exact in any order.  What bounds it: launch and the
-// window's copy; the 2*R*N*W operations are a few microseconds of one SM,
-// spread over R/32 x N/32 blocks.
+// The probe asks what staging the window costs in layout A (R strided runs
+// of W*2 bytes, one per table row) against layout B (one run of W*R*2
+// bytes).  Design: block b owns table rows 8b .. 8b + 7 and stages only
+// those rows of the window, 8 x W bf16 (4 KB at W 256), so the grid's copies
+// are the whole window, each byte read once.  Every block first finds the
+// base itself (a block minimum over the live lanes, floored to 128 and
+// clamped: n int32 of reading).  The copy is one scheme for both layouts:
+// each thread moves 16-byte chunks, chunk k of the block's rows into
+// shared-memory chunk k; in A a chunk is 8 pages of one row (the rows' runs
+// of W*2 bytes), in B the block's 8 rows at one page (16 bytes out of each
+// 192-byte table row: how that slice reads is layout B's finding, PERF.md).
+// Then warp j counts row j's non-finite entries in the window, and thread i
+// writes lane i's outputs in the block's 8 rows (its page read once, for the
+// base), each the contraction's closed form below: a shared read, a compare
+// and a select.  What bounds it: the launch, the base's read of the pages
+// and the copy, three dependent steps; a few hundred operations a block.
+//
+// Why the closed form gives the contraction's bits.  The plain version sums
+// out[r, i] = sum over w < W of t(r, w) * onehot(w, i) in f32 from +0, where
+// t(r, w) = bf16 table[r, base + w] (exact in f32) and onehot(w, i) is 1
+// where base + w == page_i, else 0: at most one w, `sel`, has weight 1.
+//   - A term with weight 0 is t * 0: +-0 where t is finite, NaN where t is
+//     +-inf or NaN.  The term at sel is t(r, sel) * 1 = t(r, sel) exactly.
+//   - So if row r holds a non-finite t at any w other than sel, a term is
+//     NaN and the sum is NaN (a NaN stays NaN through every add).
+//   - Else every term but sel's is +-0, and the sum starts at +0:
+//     +0 + (+-0) = +0 in round-to-nearest, and x + (+-0) = x for x != 0, so
+//     in any order the sum is t(r, sel) + 0.0f where sel exists (a nonzero
+//     value or +-inf itself, +0 for either zero, NaN for NaN), and +0 where
+//     it does not (a dead lane, page < 0, or a page outside the window).
+// With bad(r) the row's non-finite entries in the window and
+// others = bad(r) - [sel exists and t(r, sel) is not finite], the kernel
+// writes exactly this: others > 0 ? NaN : (sel exists ? t(r, sel) + 0.0f :
+// 0.0f).  A NaN's payload may differ from the plain version's sum.
 // ---------------------------------------------------------------------------
 
-template <int LAYOUT>  // 0: A, table[R][P]; 1: B, table[P][R]
-__global__ void __launch_bounds__(1024) window_slice_kernel(const __nv_bfloat16* __restrict__ table, int R, int P,
-                                                            int W, const int* __restrict__ p_l, int n,
-                                                            float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* win = reinterpret_cast<__nv_bfloat16*>(smem);  // A: [R][W], B: [W][R]
-  __shared__ int s_min[33];
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
+constexpr int T5_ROWS = 8;                // table rows a block: one 16-byte chunk of a layout B row
+constexpr int T5_THREADS = 32 * T5_ROWS;  // warp j counts row j
+constexpr int T5_SMEM_MAX = 48 * 1024;    // the window's rows stay within what a launch takes without asking
 
-  int m = P;  // a dead lane (page < 0) counts as P
-  for (int i = tid; i < n; i += nthreads) {
+#ifdef PT_COUNT_OPS
+// T5's split in the counting build (-DPT_COUNT_OPS), each block timed by its
+// thread 0 and summed over blocks: [0] the base (block minimum), [1] the
+// window's copy, [2] the rows' non-finite counts (the contraction's work),
+// [3] the outputs' selects and stores, [4] the wait for the block's last
+// thread, [5] the blocks; [6] the earliest block start, [7] the earliest and
+// [8] the latest block end, in ns of %globaltimer.  Read and reset by
+// pt_t5_clocks()
+__device__ unsigned long long g_t5_clocks[9] = {0ull, 0ull, 0ull, 0ull, 0ull, 0ull, ~0ull, ~0ull, 0ull};
+__device__ __forceinline__ unsigned long long t5_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define T5_CLOCK(v) const long long v = clock64()
+#else
+#define T5_CLOCK(v)
+#endif
+
+template <int LAYOUT>  // 0: A, table[R][P]; 1: B, table[P][R]
+__global__ void __launch_bounds__(T5_THREADS) window_slice_kernel(const __nv_bfloat16* __restrict__ table, int R,
+                                                                  int P, int W, const int* __restrict__ p_l, int n,
+                                                                  float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* win = reinterpret_cast<__nv_bfloat16*>(smem);  // A: [T5_ROWS][W], B: [W][T5_ROWS]
+  __shared__ int s_min[T5_THREADS / 32 + 1];
+  __shared__ int s_bad[T5_ROWS];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r0 = blockIdx.x * T5_ROWS;
+#ifdef PT_COUNT_OPS
+  const unsigned long long ns0 = t5_ns();
+#endif
+  T5_CLOCK(c0);
+
+  const int my_page = tid < n ? p_l[tid] : -1;  // lane tid's page, kept for its outputs
+  int m = my_page >= 0 ? my_page : P;          // a dead lane (page < 0) counts as P
+  for (int i = tid + T5_THREADS; i < n; i += T5_THREADS) {
     const int v = p_l[i];
     m = min(m, v >= 0 ? v : P);
   }
   m = __reduce_min_sync(0xffffffffu, m);
-  if ((tid & 31) == 0) s_min[tid >> 5] = m;
+  if (lane == 0) s_min[warp] = m;
   __syncthreads();
   if (tid < 32) {
-    int v = tid < (nthreads >> 5) ? s_min[tid] : P;
+    int v = tid < T5_THREADS / 32 ? s_min[tid] : P;
     v = __reduce_min_sync(0xffffffffu, v);
-    if (tid == 0) s_min[32] = v;
+    if (tid == 0) s_min[T5_THREADS / 32] = v;
   }
   __syncthreads();
-  const int base = max(min((s_min[32] / 128) * 128, P - W), 0);
+  const int base = max(min((s_min[T5_THREADS / 32] / 128) * 128, P - W), 0);
+  T5_CLOCK(c1);
 
-  const int chunks = W / 8;  // 16-byte chunks of one row's window
-  if (LAYOUT == 0) {
-    for (int k = tid; k < R * chunks; k += nthreads) {
-      const int r = k / chunks, c = k - r * chunks;
-      reinterpret_cast<uint4*>(win)[k] = *reinterpret_cast<const uint4*>(table + (size_t)r * P + base + c * 8);
+  const int row_chunks = W / 8;  // 16-byte chunks of one row's window (layout A)
+  for (int k = tid; k < T5_ROWS * row_chunks; k += T5_THREADS) {
+    const __nv_bfloat16* src = LAYOUT == 0 ? table + (size_t)(r0 + k / row_chunks) * P + base + (k % row_chunks) * 8
+                                           : table + (size_t)(base + k) * R + r0;
+    reinterpret_cast<uint4*>(win)[k] = *reinterpret_cast<const uint4*>(src);
+  }
+  __syncthreads();
+  T5_CLOCK(c2);
+
+  auto at = [&](int r, int w) { return __bfloat162float(LAYOUT == 0 ? win[r * W + w] : win[w * T5_ROWS + r]); };
+  int bad = 0;
+  for (int w = lane; w < W; w += 32) bad += not_finite(at(warp, w));
+  bad = __reduce_add_sync(0xffffffffu, bad);
+  if (lane == 0) s_bad[warp] = bad;
+  __syncthreads();
+  T5_CLOCK(c3);
+
+  for (int i = tid; i < n; i += T5_THREADS) {  // lane i's outputs in the block's rows
+    const int page = i == tid ? my_page : p_l[i];
+    const bool sel = page >= base && page - base < W;  // a dead lane's page < 0 <= base lies below the window
+#pragma unroll
+    for (int r = 0; r < T5_ROWS; ++r) {
+      const float t = sel ? at(r, page - base) : 0.0f;
+      const int others = s_bad[r] - (sel && not_finite(t) ? 1 : 0);
+      out[(size_t)(r0 + r) * n + i] = others > 0 ? __int_as_float(0x7fffffff) : (sel ? t + 0.0f : 0.0f);
     }
-  } else {
-    const uint4* src = reinterpret_cast<const uint4*>(table + (size_t)base * R);
-    for (int k = tid; k < R * chunks; k += nthreads) reinterpret_cast<uint4*>(win)[k] = src[k];
   }
+#ifdef PT_COUNT_OPS
+  T5_CLOCK(c4);
   __syncthreads();
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // lane
-  const int r = blockIdx.y * blockDim.y + threadIdx.y;  // table row
-  if (i >= n || r >= R) return;
-  const int page = p_l[i];
-  float acc = 0.0f;
-  for (int w = 0; w < W; ++w) {
-    const float t = __bfloat162float(LAYOUT == 0 ? win[r * W + w] : win[w * R + r]);
-    const float onehot = (base + w == page) ? 1.0f : 0.0f;
-    acc = acc + t * onehot;
+  T5_CLOCK(c5);
+  if (tid == 0) {
+    atomicAdd(&g_t5_clocks[0], (unsigned long long)(c1 - c0));
+    atomicAdd(&g_t5_clocks[1], (unsigned long long)(c2 - c1));
+    atomicAdd(&g_t5_clocks[2], (unsigned long long)(c3 - c2));
+    atomicAdd(&g_t5_clocks[3], (unsigned long long)(c4 - c3));
+    atomicAdd(&g_t5_clocks[4], (unsigned long long)(c5 - c4));
+    atomicAdd(&g_t5_clocks[5], 1ull);
+    const unsigned long long ns1 = t5_ns();
+    atomicMin(&g_t5_clocks[6], ns0);
+    atomicMin(&g_t5_clocks[7], ns1);
+    atomicMax(&g_t5_clocks[8], ns1);
   }
-  out[(size_t)r * n + i] = acc;
+#endif
 }
 
 // ---------------------------------------------------------------------------
@@ -348,8 +422,6 @@ __global__ void __launch_bounds__(1024) reshape_stage_kernel(const float* __rest
   }
 }
 
-__device__ __forceinline__ bool not_finite(float v) { return !(fabsf(v) <= 3.402823466e38f); }
-
 // stage 5 for `lanes` lanes (a multiple of 128), STAGE5_THREADS a block
 __global__ void __launch_bounds__(STAGE5_THREADS) reshape_stage5_kernel(const float* __restrict__ x,
                                                                         const float* __restrict__ w,
@@ -429,12 +501,8 @@ __global__ void __launch_bounds__(1024) group_rows_kernel(const float* __restric
 template <int LAYOUT>
 int launch_window_slice(const __nv_bfloat16* table, int R, int P, int W, const int* p_l, int n, float* out,
                         cudaStream_t s) {
-  const size_t bytes = (size_t)R * W * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(window_slice_kernel<LAYOUT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 block(32, 32), grid((n + 31) / 32, (R + 31) / 32);
-  window_slice_kernel<LAYOUT><<<grid, block, bytes, s>>>(table, R, P, W, p_l, n, out);
+  window_slice_kernel<LAYOUT><<<R / T5_ROWS, T5_THREADS, (size_t)T5_ROWS * W * sizeof(__nv_bfloat16), s>>>(
+      table, R, P, W, p_l, n, out);
   return (int)cudaGetLastError();
 }
 
@@ -452,13 +520,14 @@ int launch_reshape_stage(const float* x, const float* w, float* out, int grows, 
 }  // namespace
 
 // T5: layout 0 (A: table bf16[R, P]) or 1 (B: bf16[P, R]); p_l i32[n]; out
-// f32[R, n].  W <= P; R*W*2 bytes of shared memory (at most 227 KB); the
-// 16-byte copies need P, W and R multiples of 8 and a 16-byte aligned table.
+// f32[R, n].  W <= P; 8*W*2 bytes of shared memory a block (at most 48 KB);
+// the 16-byte copies need P, W and R multiples of 8 and a 16-byte aligned
+// table.
 extern "C" int pt_window_slice(int layout, const void* table, int R, int P, int W, const int* p_l, int n, float* out,
                                void* stream) {
   if (n <= 0 || R <= 0) return 0;
-  if ((layout != 0 && layout != 1) || W <= 0 || W > P || P % 8 || W % 8 || R % 8 || (uintptr_t)table % 16 ||
-      (size_t)R * W * 2 > 232448 - 33 * sizeof(int))
+  if ((layout != 0 && layout != 1) || W <= 0 || W > P || P % 8 || W % 8 || R % T5_ROWS || (uintptr_t)table % 16 ||
+      (size_t)T5_ROWS * W * 2 > T5_SMEM_MAX)
     return (int)cudaErrorInvalidValue;
   const __nv_bfloat16* t = static_cast<const __nv_bfloat16*>(table);
   cudaStream_t s = (cudaStream_t)stream;
@@ -510,6 +579,15 @@ extern "C" int pt_t6_clocks(unsigned long long* out) {
   cudaError_t e = cudaMemcpyFromSymbol(out, g_t6_clocks, sizeof(g_t6_clocks));
   const unsigned long long zero[4] = {0ull, 0ull, 0ull, 0ull};
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_t6_clocks, zero, sizeof(zero));
+  return (int)e;
+}
+
+// T5's split of the launches since the last call (counting build): out[9] as
+// g_t5_clocks; the sums are reset
+extern "C" int pt_t5_clocks(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_t5_clocks, sizeof(g_t5_clocks));
+  const unsigned long long reset[9] = {0ull, 0ull, 0ull, 0ull, 0ull, 0ull, ~0ull, ~0ull, 0ull};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_t5_clocks, reset, sizeof(reset));
   return (int)e;
 }
 #endif

@@ -38,11 +38,12 @@ from .rng import MASK32, hash_u
 from .vec import V3
 
 __all__ = [
-    "OP_KINDS", "OP_INNER", "PAGED_VARIANTS", "TILE_LAYOUTS", "TILE_ELEMS", "FETCH_VARIANTS", "ROWS", "LANE",
+    "OP_KINDS", "OP_INNER", "PAGED_VARIANTS", "TILE_LAYOUTS", "TILE_ELEMS", "TILE_STAGES", "FETCH_VARIANTS", "ROWS",
+    "LANE",
     "PROBE_MAGIC", "PROBE_LAUNCHES", "PROBE_PLAIN_CALLS",
     "op_chain", "op_chain_plain", "op_chain_cuda",
     "paged_probe", "paged_probe_plain", "paged_probe_cuda", "paged_probe_count_ops",
-    "tile_fetch", "tile_fetch_plain", "tile_fetch_cuda",
+    "tile_fetch", "tile_fetch_plain", "tile_fetch_cuda", "tile_fetch_split",
     "fetch_attrib", "fetch_attrib_plain", "fetch_attrib_cuda",
 ]
 
@@ -55,6 +56,9 @@ PROBE_MAGIC = 0x12345678  # a key that chains one traversal to the next (never m
 # T3 layouts: a (P,128,32), b (P,32,128), c (P*32,128), d (P*8,128); floats in one page tile
 TILE_LAYOUTS = ("a", "b", "c", "d")
 TILE_ELEMS = {"a": 4096, "b": 4096, "c": 4096, "d": 1024}
+TILE_STAGES = 3  # T3's ring: whole tiles in flight a block (csrc/probes.cu's TILE_STAGES)
+T3_STEPS = ("wait", "read", "fence", "issue")  # T3's split: thread 0's loop by step (csrc/probes.cu, g_t3_clocks)
+T3_SLOTS = len(T3_STEPS) + 1  # the steps, then the whole loop
 # T4 variants (csrc/probes.cu, in this order)
 FETCH_VARIANTS = ("loop_only", "dyn_row", "dyn_vec", "static_vec", "dyn_scalar")
 ROWS, LANE = 32, 128  # one block of T3/T4: ROWS x LANE outputs, as a TPU block
@@ -318,15 +322,41 @@ def tile_fetch_plain(layout: str, table, x, p: int):
 
 def tile_fetch_cuda(layout: str, table, x, p: int):
     """Launch T3's kernel (csrc/probes.cu, tile_fetch_kernel) on the current stream."""
+    out = _launch_tile_fetch(False, layout, table, x, p)
+    PROBE_LAUNCHES["tile_fetch"] += 1
+    return out
+
+
+def tile_fetch_split(layout: str, table, x, p: int) -> dict:
+    """T3's split: the counting build of its kernel on the same inputs, one
+    launch, thread 0's clock cycles in the ring's loop summed over the
+    blocks: by step (``wait`` for the tile, ``read`` its two elements and
+    the add, the proxy ``fence``, ``issue`` the tile three pages on) and
+    ``loop`` (the whole loop, the first tiles' issue included); and
+    ``blocks``.  Not a launch of the probe: ``PROBE_LAUNCHES`` does not
+    change."""
+    lib = _lib(True)
+    lib.pt_t3_clocks.argtypes, lib.pt_t3_clocks.restype = [ctypes.c_void_p], ctypes.c_int
+    clocks = (ctypes.c_ulonglong * (T3_SLOTS + 1))()
+    raise_on(lib.pt_t3_clocks(clocks), lib, "tile_fetch_split")  # reset what earlier launches left
+    _launch_tile_fetch(True, layout, table, x, p)
+    torch.cuda.synchronize(x.device)
+    raise_on(lib.pt_t3_clocks(clocks), lib, "tile_fetch_split")
+    c = [int(v) for v in clocks]
+    split = dict(zip(T3_STEPS + ("loop",), c[:T3_SLOTS]))
+    split["blocks"] = c[T3_SLOTS]
+    return split
+
+
+def _launch_tile_fetch(counting, layout, table, x, p):
     check("tile_fetch", (x, _F32), (table, _F32))
     blocks = _blocks("tile_fetch", x)
     _pages("tile_fetch", table, TILE_ELEMS[layout], p)
     out = torch.empty_like(x)
-    lib = _lib()
+    lib = _lib(counting)
     err = lib.pt_tile_fetch(TILE_LAYOUTS.index(layout), table.data_ptr(), x.data_ptr(), out.data_ptr(), int(p),
                             blocks, stream(x))
     raise_on(err, lib, "tile_fetch")
-    PROBE_LAUNCHES["tile_fetch"] += 1
     return out
 
 

@@ -24,8 +24,10 @@ renderer's into ``build/torch_kernels/`` (``cuda_trace.build(source=
 "repro")``), with the same ``--fmad=false``: every product and sum below is
 rounded on its own, as in the plain versions' separate tensor ops.
 
-Where the kernels and the plain versions agree bit for bit: T5 always (one
-nonzero term a sum); T6 where each row of ``a`` has at most two nonzero
+Where the kernels and the plain versions agree bit for bit: T5 wherever the
+plain version gives a number, and NaN where it gives NaN (the kernel writes
+the contraction's closed form, proof in ``csrc/repro.cu``; a NaN's payload
+may differ); T6 where each row of ``a`` has at most two nonzero
 entries, as T6's own matrix (the order of a sum of two terms and zeros does
 not change it; for a denser ``a`` the two sum in other orders); T7 and T8
 always (stage 5's contraction has one nonzero term a sum, its minimum and
@@ -43,7 +45,7 @@ from ._launch import check, on_device, raise_on, stream
 
 __all__ = [
     "LANE", "WINDOW", "INNER", "STAGES", "LAYOUTS", "REPRO_LAUNCHES", "REPRO_PLAIN_CALLS",
-    "window_slice", "window_slice_plain", "window_slice_cuda", "window_base",
+    "window_slice", "window_slice_plain", "window_slice_cuda", "window_base", "window_slice_split",
     "cond_chain", "cond_chain_plain", "cond_chain_cuda", "cond_chain_split",
     "reshape_stage", "reshape_stage_plain", "reshape_stage_cuda",
     "group_rows", "group_rows_plain", "group_rows_cuda",
@@ -124,7 +126,8 @@ def window_slice_plain(table: torch.Tensor, p_l: torch.Tensor, layout: str) -> t
 
 
 def window_slice_cuda(table: torch.Tensor, p_l: torch.Tensor, layout: str) -> torch.Tensor:
-    """Launch T5's kernel (csrc/repro.cu, window_slice_kernel<layout>) on the current stream."""
+    """Launch T5's kernel (csrc/repro.cu, window_slice_kernel<layout>: 8 table rows a block, each staging its
+    rows of the window and writing the contraction's closed form) on the current stream."""
     check("window_slice", (table, torch.bfloat16), (p_l, torch.int32))
     r, p = _table_dims("window_slice", table, layout)
     n = p_l.numel()
@@ -135,6 +138,40 @@ def window_slice_cuda(table: torch.Tensor, p_l: torch.Tensor, layout: str) -> to
     raise_on(err, lib, "window_slice")
     REPRO_LAUNCHES["window_slice"] += 1
     return out
+
+
+T5_STAGES = ("base", "copy", "compute", "store", "tail")  # the split's stages, in window_slice_kernel's order
+
+
+def window_slice_split(table: torch.Tensor, p_l: torch.Tensor, layout: str) -> dict:
+    """T5's split: the counting build of its kernel (``-DPT_COUNT_OPS``) on
+    the same inputs, one launch, each block's clock cycles by stage (timed by
+    its thread 0) summed over the blocks: ``base`` (the window's base, a
+    block minimum over the lanes), ``copy`` (the block's rows of the window
+    staged in shared memory), ``compute`` (the rows' non-finite counts; in
+    the first design the one-hot contraction), ``store`` (the outputs'
+    selects and writes) and ``tail`` (the wait for the block's last
+    thread); ``blocks``; and by %globaltimer ``end_spread_us`` (first to
+    last block end) and ``span_us`` (first block start to last end).  Not
+    a launch of the repro's path: ``REPRO_LAUNCHES`` does not change."""
+    check("window_slice", (table, torch.bfloat16), (p_l, torch.int32))
+    r, p = _table_dims("window_slice", table, layout)
+    lib = cuda_trace._lib(True, "repro")
+    _bind(lib)
+    lib.pt_t5_clocks.argtypes, lib.pt_t5_clocks.restype = [ctypes.c_void_p], ctypes.c_int
+    clocks = (ctypes.c_ulonglong * 9)()
+    raise_on(lib.pt_t5_clocks(clocks), lib, "window_slice_split")  # reset what earlier launches left
+    n = p_l.numel()
+    out = torch.empty((r, n), dtype=_F32, device=table.device)
+    err = lib.pt_window_slice(LAYOUTS.index(layout), table.data_ptr(), r, p, WINDOW, p_l.data_ptr(), n,
+                              out.data_ptr(), stream(table))
+    raise_on(err, lib, "window_slice_split")
+    torch.cuda.synchronize(table.device)
+    raise_on(lib.pt_t5_clocks(clocks), lib, "window_slice_split")
+    c = [int(v) for v in clocks]
+    split = dict(zip(T5_STAGES, c[:5]))
+    split.update(blocks=c[5], end_spread_us=(c[8] - c[7]) / 1e3, span_us=(c[8] - c[6]) / 1e3)
+    return split
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,13 @@ would, so the time is the cost of moving one tile by layout:
 * c  (P*32, 128)   2D, a 32-row slice (a, b and c: the same 16 KB a tile)
 * d  (P*8, 128)    2D, an 8-row slice (4 KB a tile)
 
-Two grids: the TPU probe's 16 blocks (the latency of the dependent
-fetches) and one that fills the card (8 blocks an SM: L2 bandwidth).
+Two grids: the TPU probe's 16 blocks (one block an SM, with the kernel's
+ring of three tiles in flight) and one that fills the card (8 blocks an
+SM).  On 16 blocks every layout takes ~0.11 us a tile: a 16 KB tile is the
+rate one SM takes bytes in, and a 4 KB tile (d) the rate at which one
+block's bulk copies come back, so there the comparison between layouts
+reads the kernel's issue loop, not the layouts' bytes (PERF.md).
+The full-card grid still tells d from a.
 
 Usage: python -m path_trace_golang_tpu_torch.tools.perf.fetch_probe
        [--device cpu]

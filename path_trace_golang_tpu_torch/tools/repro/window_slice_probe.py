@@ -47,6 +47,55 @@ def make_inputs(device="cuda"):
     return table.to(device), torch.from_numpy(p_l).to(device), want
 
 
+def special_inputs(device="cuda") -> dict:
+    """The kernel's closed form against special values, {case: (table
+    bf16[R, P], pages int32[1, LANE])}: the tool's table and pages (window
+    [0, 256), pages 100-219, lane 7 dead) with, by case:
+    ``zeros`` -0 and +0 at the pages of lanes 0 and 1 (rows 0-7);
+    ``-0 in a negative row`` row 5 made negative with -0 at lane 0's page,
+    and row 6 negative (every term of a row is then -0 but the selected);
+    ``inf at a page`` +inf at lane 2's page in row 9, its only non-finite
+    entry; ``-inf off the pages`` -inf at column 10 of row 11;
+    ``inf past the window`` +inf at column 256 of row 13 (outside: no
+    effect); ``nan off the pages`` NaN at column 20 of row 15;
+    ``bf16 overflow`` 3.4e38 at lane 3's page in row 17 and at column 30 of
+    row 19, inf once rounded to bf16; ``dead lanes`` lanes 0-3 at page -1;
+    ``pages past the window`` lanes 9-11 at pages 256, 300 and 511."""
+    table, p_l, _want = make_inputs("cpu")
+    t0, pages = table.float(), p_l[0].tolist()
+    inf, nan = float("inf"), float("nan")
+    cases = {}
+
+    def case(name, edits=(), lanes=()):
+        t, p = t0.clone(), p_l.clone()
+        for fn in edits:
+            fn(t)
+        for lane, page in lanes:
+            p[0, lane] = page
+        cases[name] = (t.to(torch.bfloat16), p)
+
+    def negative(row):
+        def fn(t):
+            t[row] = -t[row].abs()
+        return fn
+
+    def put(row, col, v):
+        def fn(t):
+            t[row, col] = v
+        return fn
+
+    case("zeros", [lambda t: t[:8, pages[0]].fill_(-0.0), lambda t: t[:8, pages[1]].fill_(0.0)])
+    case("-0 in a negative row", [negative(5), negative(6), put(5, pages[0], -0.0)])
+    case("inf at a page", [put(9, pages[2], inf)])
+    case("-inf off the pages", [put(11, 10, -inf)])
+    case("inf past the window", [put(13, W, inf)])
+    case("nan off the pages", [put(15, 20, nan)])
+    case("bf16 overflow", [put(17, pages[3], 3.4e38), put(19, 30, 3.4e38)])
+    case("dead lanes", lanes=[(k, -1) for k in range(4)])
+    case("pages past the window", lanes=[(9, W), (10, 300), (11, P - 1)])
+    return {name: (t.to(device), p.to(device)) for name, (t, p) in cases.items()}
+
+
 def layout_table(table: torch.Tensor, layout: str) -> torch.Tensor:
     return table if layout == "A" else table.T.contiguous()
 

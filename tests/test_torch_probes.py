@@ -26,7 +26,8 @@ Tolerances:
   them too.  The JAX probe runs for that in a process of its own whose XLA
   does not contract multiply-adds (``--xla_cpu_max_isa=AVX``, an x86-64
   host): contraction moves its distances in the last bits;
-* T3, all four layouts: bit-equal (a sum in page order on both sides);
+* T3, all four layouts: bit-equal (a sum in page order on both sides),
+  also at page counts around the kernel's ring of stages;
 * T4: ``loop_only``, ``dyn_row`` and ``dyn_scalar`` bit-equal; the column
   sums of ``dyn_vec`` and ``static_vec`` within rel 1e-6 (XLA's reduction
   order over the 32 rows is its own; the port sums rows in order).
@@ -41,6 +42,7 @@ import importlib
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -326,6 +328,40 @@ def test_tile_fetch_matches_jax(jax_probe, monkeypatch, layout):
     assert np.array_equal(_bits(got.numpy()), _bits(want))
 
 
+T3_RING_PAGES = {"1": lambda k: 1, "K-1": lambda k: k - 1, "K": lambda k: k, "K+1": lambda k: k + 1}
+
+
+@pytest.mark.parametrize("at", T3_RING_PAGES)
+@pytest.mark.parametrize("layout", ["a", "d"])
+def test_tile_fetch_matches_jax_around_the_ring(jax_probe, monkeypatch, layout, at):
+    """The plain version against the JAX probe at page counts around the
+    kernel's ring of K tiles (the probe's P set to p): bit-equal."""
+    p = T3_RING_PAGES[at](probes.TILE_STAGES)
+    jf = jax_probe("fetch_probe")
+    monkeypatch.setattr(jf, "N_BLOCKS", 2)
+    monkeypatch.setattr(jf, "P", p)
+    monkeypatch.setattr(tfetch, "SHAPES", {k: (v[0] * p // tfetch.P, *v[1:]) for k, v in tfetch.SHAPES.items()})
+    np.random.seed(T3_SEED)
+    run = jf.make_fn(layout)
+    x = np.random.RandomState(p).uniform(-1, 1, (jf.ROWS * 2, jf.LANE)).astype(np.float32)
+    want = np.asarray(run(x))
+    table = tfetch.make_table(layout, T3_SEED, device="cpu")
+    assert table.numel() == p * probes.TILE_ELEMS[layout]
+    got = probes.tile_fetch(layout, table, torch.from_numpy(x), p)
+    assert np.array_equal(_bits(got.numpy()), _bits(want))
+
+
+def test_tile_fetch_ring_matches_probes_cu():
+    """The ring's depth and the split's clock slots that ops/probes.py uses
+    are csrc/probes.cu's constants."""
+    src = (Path(probes.__file__).resolve().parent.parent / "csrc" / "probes.cu").read_text()
+    assert f"constexpr int TILE_STAGES = {probes.TILE_STAGES};" in src
+    assert f"constexpr int T3_SLOTS = {probes.T3_SLOTS};" in src
+    loop = src[src.index("__global__ void __launch_bounds__(PROBE_BLOCK) tile_fetch_kernel"):]
+    for slot, step in enumerate(probes.T3_STEPS + ("loop",)):
+        assert f"T3_ADD({slot}, " in loop, step
+
+
 @pytest.fixture
 def jax_fetch2(jax_probe):
     """fetch_probe2.py draws its table and runs its benchmark when imported;
@@ -447,6 +483,35 @@ def test_fetch_kernels_match_plain_on_card():
         assert torch.equal(probes.fetch_attrib(variant, table, x, 80),
                            probes.fetch_attrib_plain(variant, table, x, 80)), variant
 
+
+
+@pytest.mark.cuda
+def test_tile_fetch_kernel_around_the_ring_on_card():
+    """T3's ring bit for bit at p = 0, 1, K - 1, K, K + 1 and 80, every
+    layout, on the TPU grid and the full-card grid."""
+    _need_card()
+    k = probes.TILE_STAGES
+    for blocks in (16, ttiming.full_card_blocks(torch.device("cuda"))):
+        x = torch.from_numpy(np.random.RandomState(blocks).uniform(-1, 1, (32 * blocks, 128)).astype(np.float32)).cuda()
+        for layout in probes.TILE_LAYOUTS:
+            table = tfetch.make_table(layout, device="cuda")
+            for p in sorted({0, 1, k - 1, k, k + 1, tfetch.P}):
+                got, want = probes.tile_fetch(layout, table, x, p), probes.tile_fetch_plain(layout, table, x, p)
+                assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (layout, blocks, p)
+
+
+@pytest.mark.cuda
+def test_tile_fetch_misaligned_table_raises_on_card():
+    """A table view offset by one float is not 16-byte aligned: the launch
+    is refused and the wrapper raises; offset by four floats it runs."""
+    _need_card()
+    x = torch.zeros((32 * 16, 128), device="cuda")
+    buf = torch.from_numpy(np.random.RandomState(3).rand(tfetch.P * 4096 + 4).astype(np.float32)).cuda()
+    with pytest.raises(RuntimeError, match="tile_fetch"):
+        probes.tile_fetch("a", buf[1:1 + tfetch.P * 4096], x, tfetch.P)
+        torch.cuda.synchronize()
+    view = buf[4:]
+    assert torch.equal(probes.tile_fetch("a", view, x, tfetch.P), probes.tile_fetch_plain("a", view, x, tfetch.P))
 
 
 @pytest.mark.cuda

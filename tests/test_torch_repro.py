@@ -13,7 +13,10 @@ versions (``ops/repro.py``) get the same inputs.
 
 Tolerances:
 
-* T5: the bf16 table and both layouts' outputs bit-equal;
+* T5: the bf16 table and both layouts' outputs bit-equal; on the special
+  values (``window_slice_probe.special_inputs``) bit-equal where a number
+  and NaN where NaN, as is the CPU mirror of the kernel's closed form
+  against the plain version;
 * T6, 2 rounds (64 products), cond true, cond false and the control, on the
   script's ones: bit-equal (checksum 16384: ``a @ ones == ones``).  On a
   random ``b`` (``RandomState(0)``, uniform in [-1, 1)) the port's plain
@@ -136,6 +139,104 @@ def test_window_slice_matches_jax(jax_repro, layout):
     ttable, tp_l, _ = t5.make_inputs("cpu")
     got = repro.window_slice(t5.layout_table(ttable, layout), tp_l, layout).numpy()
     assert np.array_equal(_bits(got), _bits(want))
+
+
+def _window_pages():
+    """The tool's pages and two sets whose window starts past 0, as
+    chip_smoke.py phase 24 draws them: floored to 128, and clamped to
+    P - W = 256 with pages outside the window; every ninth lane dead."""
+    _table, p_l, _want = t5.make_inputs("cpu")
+    rs = np.random.RandomState(24)
+    sets = {"tool": p_l}
+    for label, lo, hi in (("floored", 130, 450), ("clamped", 300, 512)):
+        p = rs.randint(lo, hi, (1, t5.LANE)).astype(np.int32)
+        p[0, ::9] = -1
+        sets[label] = torch.from_numpy(p)
+    return sets
+
+
+def _window_closed_form(table, p_l, layout):
+    """T5's closed form, as window_slice_kernel computes it (csrc/repro.cu):
+    for each row r of the window, NaN where the row holds a non-finite bf16
+    entry other than lane i's column, else that column's value + 0.0 where
+    lane i's page lies in the window, else +0."""
+    _r, p = repro._table_dims("window_slice", table, layout)
+    lanes = p_l.reshape(-1).to(torch.int64)
+    base = repro.window_base(lanes, p)
+    sl = (table[:, base:base + repro.WINDOW] if layout == "A" else table[base:base + repro.WINDOW, :].T).float()
+    bad = ~torch.isfinite(sl)
+    col = lanes - base
+    sel = (col >= 0) & (col < repro.WINDOW)
+    t = sl[:, col.clamp(0, repro.WINDOW - 1)]  # (R, N)
+    others = bad.sum(1, keepdim=True) - (sel[None, :] & ~torch.isfinite(t)).to(torch.int64)
+    return torch.where(others > 0, torch.full_like(t, float("nan")),
+                       torch.where(sel[None, :], t + 0.0, torch.zeros_like(t)))
+
+
+T5_SPECIAL = ("zeros", "-0 in a negative row", "inf at a page", "-inf off the pages", "inf past the window",
+              "nan off the pages", "bf16 overflow", "dead lanes", "pages past the window")
+
+
+def test_window_special_inputs_are_the_named_cases():
+    """The special inputs hold what their names say, in the plain version's
+    output: a selected -0 in a negative row gives +0, a selected +inf gives
+    +inf beside NaN for every other lane of its row, an inf outside the
+    window changes nothing, a dead lane or a page past the window gives +0."""
+    cases = t5.special_inputs("cpu")
+    assert tuple(cases) == T5_SPECIAL
+    tool_table, tool_pages, want = t5.make_inputs("cpu")
+    out = {c: repro.window_slice_plain(t, p, "A") for c, (t, p) in cases.items()}
+    pages = tool_pages[0].tolist()
+    neg = cases["-0 in a negative row"][0][5].float()
+    win = neg[:repro.WINDOW]
+    assert bool((torch.signbit(win) & ((win < 0) | (win == 0))).all()) and float(neg[pages[0]]) == 0
+    assert out["-0 in a negative row"][5, 0].item() == 0 and not torch.signbit(out["-0 in a negative row"][5, 0])
+    assert not torch.signbit(out["-0 in a negative row"][6, 7])  # the dead lane of an all-negative row: +0
+    assert not bool(torch.signbit(out["zeros"][:8, :2]).any()) and bool((out["zeros"][:8, :2] == 0).all())
+    for c, row, lane in (("inf at a page", 9, 2), ("bf16 overflow", 17, 3)):
+        assert out[c][row, lane].item() == float("inf")
+        others = [i for i in range(t5.LANE) if pages[i] != pages[lane]]
+        assert bool(torch.isnan(out[c][row, others]).all())
+    for c, row in (("-inf off the pages", 11), ("nan off the pages", 15), ("bf16 overflow", 19)):
+        assert bool(torch.isnan(out[c][row]).all()) and int(torch.isnan(out[c]).sum()) >= t5.LANE
+    assert torch.equal(out["inf past the window"], torch.from_numpy(want))
+    assert bool((out["dead lanes"][:, :4] == 0).all()) and bool((out["pages past the window"][:, 9:12] == 0).all())
+
+
+@pytest.mark.parametrize("layout", repro.LAYOUTS)
+@pytest.mark.parametrize("case", ["tool", "floored", "clamped", *T5_SPECIAL])
+def test_window_closed_form_equals_plain(case, layout):
+    """The closed form that the kernel writes equals window_slice_plain's
+    contraction: bit for bit on the tool's table with the tool's, floored
+    and clamped pages, and on the special values bit for bit where a number
+    and NaN where NaN."""
+    if case in T5_SPECIAL:
+        table, pages = t5.special_inputs("cpu")[case]
+    else:
+        table, pages = t5.make_inputs("cpu")[0], _window_pages()[case]
+    tab = t5.layout_table(table, layout)
+    got, want = _window_closed_form(tab, pages, layout), repro.window_slice_plain(tab, pages, layout)
+    assert _same_or_both_nan(got, want)
+    if case not in T5_SPECIAL:
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", T5_SPECIAL)
+def test_window_slice_special_matches_jax(jax_repro, case):
+    """The JAX kernels (_kernel_a, _kernel_b, interpret mode) and the port's
+    plain version agree on the special values in both layouts: bit for bit
+    where a number, NaN where NaN."""
+    ws = jax_repro("window_slice_probe")
+    table, pages = t5.special_inputs("cpu")[case]
+    gt = jnp.asarray(table.float().numpy()).astype(jnp.bfloat16)
+    vm = functools.partial(pl.BlockSpec, memory_space=pltpu.VMEM)
+    for layout in repro.LAYOUTS:
+        kern, jt = (ws._kernel_a, gt) if layout == "A" else (ws._kernel_b, gt.T)
+        want = np.array(pl.pallas_call(kern, in_specs=[vm(), vm()], out_specs=vm(),
+                                       out_shape=jax.ShapeDtypeStruct((t5.R, t5.LANE), jnp.float32))(
+            jt, jnp.asarray(pages.numpy())))
+        got = repro.window_slice(t5.layout_table(table, layout), pages, layout)
+        assert _same_or_both_nan(got, torch.from_numpy(want)), layout
 
 
 def test_window_base_floors_and_clamps():
@@ -469,6 +570,24 @@ def test_window_slice_kernel_matches_plain_on_card():
         k = repro.window_slice(tab, p_l, layout)
         assert _same(k, repro.window_slice_plain(tab, p_l, layout)), layout
         assert np.array_equal(k.cpu().numpy(), want), layout
+
+
+@pytest.mark.cuda
+def test_window_slice_kernel_special_inputs_on_card():
+    """T5's closed form on the card against the plain version on the special
+    values, both layouts: bit for bit where a number, NaN where NaN; and on
+    the floored and clamped pages bit for bit."""
+    _need_card()
+    for case, (table, pages) in t5.special_inputs("cuda").items():
+        for layout in repro.LAYOUTS:
+            tab = t5.layout_table(table, layout)
+            assert _same_or_both_nan(repro.window_slice(tab, pages, layout),
+                                     repro.window_slice_plain(tab, pages, layout)), (case, layout)
+    table = t5.make_inputs("cuda")[0]
+    for label, pages in _window_pages().items():
+        for layout in repro.LAYOUTS:
+            tab, pg = t5.layout_table(table, layout), pages.cuda()
+            assert _same(repro.window_slice(tab, pg, layout), repro.window_slice_plain(tab, pg, layout)), label
 
 
 @pytest.mark.cuda
