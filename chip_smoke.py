@@ -172,6 +172,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     (render.fog_pass_terms) on 65,536 lanes strided over the frame, bit for
     bit.
 
+30. the CLI: ``cli.main`` in this process at the reference's headless final
+    preset (cpu contract, demo_showcase, 1920x1080, 1,000 passes, depth 80)
+    with PATHTRACER_METRICS set and --json-stats: the PNG written, its
+    stats line, classic_window_kernel launched alone (one launch a window,
+    the windows ending at the 20 interval passes), and
+    tools/metrics_report.py on the metrics stream (20 finite intervals);
+    then ``python -m path_trace_golang_tpu_torch -headless`` at the preview
+    preset in a process of its own, which must write its PNG;
+31. checkpoint resume: a render interrupted through cancel about halfway,
+    then resumed from its checkpoint, bit for bit (image and final
+    accumulator) against the uninterrupted render with the same checkpoint
+    settings: the cpu contract at the final preset (also against the
+    render without checkpointing and phase 30's image), the gpu contract
+    (B1 and its fog kernel) and faithful fog (the classic march and sample
+    kernels, also against the render without checkpointing) at the preview
+    preset (400x225, 20 passes, depth 20); the walls with and without
+    checkpointing, the saves' cost;
+32. the interactive session on the card (gpu contract, the preview preset)
+    under the viewer on 127.0.0.1 and an ephemeral port: /frame.png a PNG
+    of the session's size, a /key that moves the camera and a new frame
+    after it, /save writing inside the save directory, and the session's
+    last image bit for bit a direct Renderer.render with the same windows;
+    every launch from the card's kernels.
+
 Phase 15's faithful-fog frame in 4 chunks and phase 19's padded last
 1080p chunk run in a second process (``--classic-holds``) that the main one
 starts after phase 6 and reads before phase 11, beside phases 7-10, which
@@ -186,7 +210,8 @@ second-to-last is the card's name and power limit; the last line is
 {"ok": true, "device": {...}}.  ``--quick`` runs phases 1-3 only, at 64x36
 and depth 4, and a first, small run of B3 and of the classic instance.
 ``--probes`` runs phases 1, 2 (the probes' library only) and 20-23;
-``--repro`` phases 1, 2 (the repros' library only) and 24-27.
+``--repro`` phases 1, 2 (the repros' library only) and 24-27;
+``--front-end`` phases 1, 2 (the render libraries only) and 30-32.
 
 ``--render-only [scene width height passes depth renders]`` (defaults:
 demo_showcase 1920 1080 8 12 5) times the Renderer alone with the code of
@@ -1569,6 +1594,11 @@ def repro_phases(card):
     print(f"[26-27] T7 stage 5 at G=4 {t7_res[4][5]['ms']:.4f} ms (bound {t7_bound:.6f} ms, plain {t7_plain_ms:.3f} "
           f"ms); T8 at G=4 {t8_res[4]['ms']:.4f} ms (bound {t8_bound:.6f} ms, plain {t8_plain_ms:.3f} ms) | card "
           f"{card}", flush=True)
+    # T8 against its launch floor: T7's stage 1 (a launch that copies x) at the same G in the same run
+    t8_floor = {g: t7_res[g][1]["ms"] for g in REPRO_GROUPS}
+    print("[27] T8 against the launch floor (T7 stage 1 at the same G, this run): " + "; ".join(
+        f"G={g} T8 {t8_res[g]['ms'] * 1e3:.2f} µs, floor {t8_floor[g] * 1e3:.2f} µs, floor/T8 "
+        f"{t8_floor[g] / t8_res[g]['ms']:.0%}" for g in REPRO_GROUPS) + f" | card {card}", flush=True)
     print(f"[24-27] the repros in {time.perf_counter() - t_repro:.1f} s | card {card}", flush=True)
 
     return [{
@@ -1665,7 +1695,237 @@ def repro_phases(card):
         "library_ms": None,
         "shape": "G=4, x f32[32,128]",
         "ms_by_g": {g: round(r["ms"], 6) for g, r in t8_res.items()},
+        "launch_floor_ms_by_g": {g: round(v, 6) for g, v in t8_floor.items()},
+        "launch_floor_is": "T7 stage 1 at the same G in the same run: one launch that copies x",
     }]
+
+
+FRONT_END_DIR = os.path.join(HERE, "build", "chip_smoke")  # phases 30-32's files (build/ is not committed)
+FINAL = (1920, 1080, 1000, 80)  # the reference's headless final preset (util.go:25-42)
+PREVIEW = (400, 225, 20, 20)  # its preview preset
+
+
+def png_size(data: bytes):
+    """(width, height) of a PNG from its IHDR, or None if it is not a PNG."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n" or data[12:16] != b"IHDR":
+        return None
+    return int.from_bytes(data[16:20], "big"), int.from_bytes(data[20:24], "big")
+
+
+def front_end_phases(pt, cuda_trace, card):
+    """Phases 30-32: the user's entry points on the card (the CLI at the final
+    preset with its metrics stream, checkpoint resume, the interactive
+    session under the viewer).  Returns the walls they printed, or None on
+    a failure (printed)."""
+    import contextlib
+    import io
+    import shutil
+    import threading
+    import urllib.request
+
+    import numpy as np
+    from path_trace_golang_tpu_torch import cli
+    from path_trace_golang_tpu_torch.interactive import InteractiveSession
+    from path_trace_golang_tpu_torch.io_png import encode_png
+    from path_trace_golang_tpu_torch.scene import builtin
+    from path_trace_golang_tpu_torch.utils import checkpoint as ck
+    from path_trace_golang_tpu_torch.utils import native
+    from path_trace_golang_tpu_torch.viewer import ViewerServer
+
+    def fail(tag, what):
+        print(f"[{tag}] FAIL: {what}", file=sys.stderr)
+
+    def zero():
+        for c in COUNTERS:
+            setattr(cuda_trace, c, 0)
+
+    def counts():
+        out = {c: getattr(cuda_trace, c) for c in COUNTERS}
+        out["plain"] = sum(out[c] for c in PLAIN_COUNTERS)
+        return out
+
+    shutil.rmtree(FRONT_END_DIR, ignore_errors=True)
+    os.makedirs(FRONT_END_DIR)
+    walls = {}
+    print(f"[30] PNG encoder: {'the native tier (csrc/libpt_native.so)' if native.available() else 'zlib writer'}",
+          flush=True)
+
+    # ---- 30. the CLI in process at the final preset, cpu contract (the default backend), with the metrics
+    # stream and --json-stats; then its metrics through tools/metrics_report.py; then one subprocess of the
+    # module's entry point at the preview preset
+    png, jsonl = os.path.join(FRONT_END_DIR, "final.png"), os.path.join(FRONT_END_DIR, "final.jsonl")
+    zero()
+    os.environ["PATHTRACER_METRICS"] = jsonl
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["-scene", "demo_showcase", "-mode", "final", "-headless", "-out", png, "--json-stats"])
+    finally:
+        del os.environ["PATHTRACER_METRICS"]
+    walls["cli_final_s"] = time.perf_counter() - t0
+    got = counts()
+    stats = json.loads(out.getvalue().strip().splitlines()[-1])
+    w, h, passes, depth = FINAL
+    window = max(1, int(os.environ.get("PATHTRACER_PASS_WINDOW", "8")))
+    every = passes // 20
+    want_launches = (passes // every) * -(-every // window)  # windows end at every interval pass
+    print(f"[30] cli.main -scene demo_showcase -mode final -headless --json-stats (cpu contract, {w}x{h}, {passes} "
+          f"passes, depth {depth}): rc {rc}, {walls['cli_final_s']:.3f} s; stats {json.dumps(stats)}; "
+          f"classic_window_kernel launches {got['CLASSIC_LAUNCHES']} (want {want_launches}), all launches "
+          f"{got['LAUNCHES']}, plain calls {got['plain']} | card {card}", flush=True)
+    with open(png, "rb") as f:
+        cli_png = f.read()
+    if rc != 0 or png_size(cli_png) != (w, h) or (stats["width"], stats["height"], stats["passes"]) != (w, h, passes):
+        fail("30", "the CLI did not write the final preset's PNG or stats")
+        return None
+    if got["CLASSIC_LAUNCHES"] != want_launches or got["LAUNCHES"] != want_launches or got["plain"] != 0:
+        fail("30", "the CLI's render did not run on classic_window_kernel alone, one launch a window")
+        return None
+    with open(jsonl) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    report = subprocess.run([sys.executable, os.path.join(HERE, "tools", "metrics_report.py"), jsonl],
+                            capture_output=True, text=True, timeout=120)
+    print(f"[30] tools/metrics_report.py {os.path.relpath(jsonl, HERE)}: rc {report.returncode}\n"
+          + "\n".join(f"    {line}" for line in report.stdout.splitlines()), flush=True)
+    if (report.returncode != 0 or f"{len(records)} intervals, last pass {passes}" not in report.stdout
+            or "accumulator finite in every interval" not in report.stdout or len(records) != 20
+            or [r["pass"] for r in records] != list(range(every, passes + 1, every))
+            or sum(r["segments"] for r in records) != stats["ray_segments"]):
+        fail("30", "the metrics stream is not 20 finite intervals that tools/metrics_report.py reads")
+        return None
+    preview_png = os.path.join(FRONT_END_DIR, "preview.png")
+    t0 = time.perf_counter()
+    sub = subprocess.run([sys.executable, "-m", "path_trace_golang_tpu_torch", "-scene", "demo_showcase", "-headless",
+                          "-out", preview_png], cwd=HERE, capture_output=True, text=True, timeout=600)
+    walls["module_preview_s"] = time.perf_counter() - t0
+    size = None
+    if os.path.exists(preview_png):
+        with open(preview_png, "rb") as f:
+            size = png_size(f.read())
+    print(f"[30] python -m path_trace_golang_tpu_torch -scene demo_showcase -headless (the preview preset, a process "
+          f"of its own): rc {sub.returncode}, PNG {size}, {walls['module_preview_s']:.3f} s of process | card {card}",
+          flush=True)
+    if sub.returncode != 0 or size != PREVIEW[:2]:
+        print(sub.stderr[-4000:], file=sys.stderr)
+        fail("30", "the module's entry point did not write the preview PNG")
+        return None
+
+    # ---- 31. checkpoint resume: a render interrupted through cancel about halfway (just after the save at
+    # the interval past half), then resumed, against the uninterrupted render with the same checkpoint
+    # settings, bit for bit (image and final accumulator); the cpu contract and faithful fog also against the
+    # render without checkpointing (their windows add pass by pass); walls with and without checkpointing
+    sc = builtin.demo_showcase()
+    cases = (("cpu contract, final preset", dict(contract="cpu"), FINAL, True),
+             ("gpu contract, preview preset", dict(contract="gpu"), PREVIEW, False),
+             ("faithful fog, preview preset", dict(contract="gpu", faithful_fog=True), PREVIEW, True))
+    for label, opts, (w, h, passes, depth), same_windows in cases:
+        cfg = pt.RenderConfig(w, h, passes, depth)
+        tag = label.split(",")[0].replace(" ", "_")
+        zero()
+        r0 = pt.Renderer(seed=1, **opts)
+        img0 = r0.render(sc, cfg)
+        pa, pb = (os.path.join(FRONT_END_DIR, f"{tag}_{k}.ckpt") for k in ("a", "b"))
+        ra = pt.Renderer(seed=1, checkpoint_path=pa, **opts)
+        img_a = ra.render(sc, cfg)
+        done = {"p": 0}
+        rb = pt.Renderer(seed=1, checkpoint_path=pb, **opts)
+        rb.render(sc, cfg, progress=lambda p, _im: done.update(p=p), cancel=lambda: done["p"] >= passes // 2)
+        saved = ck.load_checkpoint(pb)
+        rc_ = pt.Renderer(seed=1, checkpoint_path=pb, **opts)
+        img_c = rc_.render(sc, cfg)
+        got = counts()
+        ck_a, ck_c = ck.load_checkpoint(pa), ck.load_checkpoint(pb)
+        same_img = np.array_equal(img_c, img_a)
+        same_acc = ck_a.passes == ck_c.passes == passes and np.array_equal(ck_a.accum.view(np.int32),
+                                                                         ck_c.accum.view(np.int32))
+        plain_same = np.array_equal(img0, img_a) if same_windows else None
+        walls[f"{tag}_without_checkpoint_s"] = r0.stats.wall_seconds
+        walls[f"{tag}_with_checkpoint_s"] = ra.stats.wall_seconds
+        print(f"[31] {label} ({w}x{h}, {passes} passes, depth {depth}): interrupted at pass {rb.stats.passes}, "
+              f"saved {saved.passes if saved else None}, resumed_from {rc_.stats.resumed_from}; resumed image "
+              f"bit-identical {same_img}, final accumulator bit-identical {same_acc}, the render without "
+              f"checkpointing {'bit-identical ' + str(plain_same) if same_windows else 'not compared (other windows)'}"
+              f"; wall without checkpointing {r0.stats.wall_seconds:.3f} s, with {ra.stats.wall_seconds:.3f} s "
+              f"({(passes // (20 if opts['contract'] == 'cpu' else 10))} passes a save), interrupted "
+              f"{rb.stats.wall_seconds:.3f} s + resumed {rc_.stats.wall_seconds:.3f} s; launches {got['LAUNCHES']} "
+              f"(fog kernel {got['FOG_LAUNCHES']}, classic {got['CLASSIC_LAUNCHES']}, march {got['MARCH_LAUNCHES']}), "
+              f"plain calls {got['plain']}, nonfinite {rc_.stats.nonfinite} | card {card}", flush=True)
+        if saved is None or not 0 < saved.passes < passes or rc_.stats.resumed_from != saved.passes:
+            fail("31", f"{label}: the render was not interrupted and resumed from its checkpoint")
+            return None
+        if not (same_img and same_acc and plain_same is not False) or rc_.stats.nonfinite != 0:
+            fail("31", f"{label}: the resumed render is not bit for bit the uninterrupted one")
+            return None
+        want = ("CLASSIC_LAUNCHES",) if opts["contract"] == "cpu" else (
+            ("MARCH_LAUNCHES", "CLASSIC_LAUNCHES") if opts.get("faithful_fog") else ("FOG_LAUNCHES",))
+        if got["plain"] != 0 or got["LAUNCHES"] <= 0 or any(got[k] <= 0 for k in want):
+            fail("31", f"{label}: the renders did not run on the card's kernels alone")
+            return None
+        if opts["contract"] == "cpu" and encode_png(img0) != cli_png:
+            fail("31", "the final preset's image differs from phase 30's CLI image")
+            return None
+    print(f"[31] the cost of the saves at the final preset (cpu contract, 20 saves of a f32[{FINAL[0] * FINAL[1]}, 3] "
+          f"accumulator): {walls['cpu_contract_with_checkpoint_s'] - walls['cpu_contract_without_checkpoint_s']:.3f} "
+          f"s a render | card {card}", flush=True)
+
+    # ---- 32. the interactive session on the card under the viewer (127.0.0.1, an ephemeral port)
+    zero()
+    session = InteractiveSession(builtin.demo_showcase(), mode="preview", renderer=pt.Renderer(contract="gpu", seed=1))
+    session.settings = pt.render_settings_for_mode("preview")
+    srv = ViewerServer(session, host="127.0.0.1", port=0, save_dir=FRONT_END_DIR)
+    srv.start_background()
+
+    def get(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}{path}", timeout=120) as r:
+            return r.status, r.read()
+
+    try:
+        t0 = time.perf_counter()
+        session.render_now(False)
+        walls["session_render_s"] = time.perf_counter() - t0
+        code, frame0 = get("/frame.png")
+        gen0 = json.loads(get("/status")[1])["gen"]
+        z0 = session.scene.camera.position.z
+        code_k, key = get("/key?k=w")
+        moved = session.scene.camera.position.z == z0 - 0.5 and json.loads(key)["ok"]
+        arrived = srv.wait_for_frame(gen0, timeout=120)
+        time.sleep(0.5)  # the debounce has started the render thread by now
+        th = session._render_thread
+        if th is not None:
+            th.join(timeout=300)
+        _c, frame1 = get("/frame.png")
+        code_s, saved = get("/save?path=viewer_final.png")
+        saved_path = json.loads(saved).get("saved", "")
+        with open(os.path.join(FRONT_END_DIR, "viewer_final.png"), "rb") as f:
+            saved_size = png_size(f.read())
+        direct = pt.Renderer(contract="gpu", seed=1).render(session.scene.copy(), pt.RenderConfig(*PREVIEW),
+                                                             cancel=lambda: False)
+        same_direct = session.last_preview is not None and np.array_equal(session.last_preview, direct)
+    finally:
+        srv.shutdown()
+        srv.httpd.server_close()
+    got = counts()
+    print(f"[32] InteractiveSession (gpu contract, {PREVIEW[0]}x{PREVIEW[1]}, {PREVIEW[2]} passes, depth {PREVIEW[3]}) "
+          f"under ViewerServer on 127.0.0.1:{srv.port}: first frame {session.error or 'rendered'} in "
+          f"{walls['session_render_s']:.3f} s, /frame.png {code} {png_size(frame0)}; /key?k=w {code_k} moved "
+          f"{moved}, a new frame {arrived} and it differs {frame1 != frame0}; /save {code_s} -> "
+          f"{os.path.relpath(saved_path, HERE) if saved_path else None} {saved_size}; the session's last image "
+          f"bit-identical to a direct Renderer.render with the same windows {same_direct}; launches {got['LAUNCHES']} "
+          f"(fog kernel {got['FOG_LAUNCHES']}), plain calls {got['plain']}, threads {threading.active_count()} | card "
+          f"{card}", flush=True)
+    if session.error is not None or code != 200 or png_size(frame0) != PREVIEW[:2] or not (moved and arrived):
+        fail("32", "the session's frame or its camera key did not come through the viewer")
+        return None
+    if frame1 == frame0 or code_s != 200 or saved_size != PREVIEW[:2] \
+            or os.path.dirname(saved_path) != os.path.realpath(FRONT_END_DIR) or not same_direct:
+        fail("32", "no new frame after the key, /save did not write inside save_dir, or the session's image differs "
+                   "from the Renderer's")
+        return None
+    if got["LAUNCHES"] <= 0 or got["FOG_LAUNCHES"] <= 0 or got["plain"] != 0:
+        fail("32", "the session's frames did not come from the card's kernels alone")
+        return None
+    return walls
 
 
 def main(argv) -> int:
@@ -1745,8 +2005,9 @@ def main(argv) -> int:
 
     # ---- 2. build: one nvcc for each source and variant, all started together (--probes, --repro: that
     # library only; the repros' counting variant holds T6's step split alone: their bounds come from their shapes)
-    probes_only, repro_only = "--probes" in argv, "--repro" in argv
-    sources = ("probes",) if probes_only else ("repro",) if repro_only else tuple(cuda_trace.SOURCES)
+    probes_only, repro_only, front_only = "--probes" in argv, "--repro" in argv, "--front-end" in argv
+    sources = ("probes",) if probes_only else ("repro",) if repro_only else (
+        ("render_pass", "classic") if front_only else tuple(cuda_trace.SOURCES))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=2 * len(sources)) as pool:
         builds = [pool.submit(cuda_trace.build, count_ops=c, source=src)
@@ -1767,6 +2028,14 @@ def main(argv) -> int:
             return 1
         print(f"[done] phases 1, 2 and 20-23 in {time.perf_counter() - t_start:.1f} s", flush=True)
         print(json.dumps({"kernels": rows}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
+    if front_only:
+        walls = front_end_phases(pt, cuda_trace, card)
+        if walls is None:
+            return 1
+        print(f"[done] phases 1, 2 and 30-32 in {time.perf_counter() - t_start:.1f} s ({json.dumps(walls)})", flush=True)
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
@@ -2314,6 +2583,13 @@ def main(argv) -> int:
     if not fog_same:
         print("[29] FAIL: the fog kernel disagrees with its plain version", file=sys.stderr)
         return 1
+
+    # ---- 30-32. the user's entry points on the card: the CLI, checkpoint resume, the session and the viewer
+    t_front = time.perf_counter()
+    front_walls = front_end_phases(pt, cuda_trace, card)
+    if front_walls is None:
+        return 1
+    print(f"[30-32] in {time.perf_counter() - t_front:.1f} s ({json.dumps(front_walls)}) | card {card}", flush=True)
 
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{

@@ -11,12 +11,17 @@ PyTorch on the CPU, which is what the tests compare with the JAX package.
 
 Public facade (``internal/engine`` parity):
 
-* :class:`Renderer`, :class:`RenderConfig`, :class:`RenderStats`
+* :func:`render_scene` / :func:`render_into` / :class:`Renderer`,
+  :class:`RenderConfig`, :class:`RenderStats` (checkpoint/resume and the
+  metrics log: ``utils/checkpoint.py``, ``utils/metrics.py``)
 * :func:`set_backend` / :func:`get_backend` — physics-contract switch
   ("cpu", the default, or "gpu")
 * :func:`trace` — trace given rays (row vectors) with the classic loop
 * :func:`save_png`, :func:`pack_scene`
 * ``scene`` subpackage — JSON scene model and IO
+* ``python -m path_trace_golang_tpu_torch`` — the reference's CLI
+  (``cli.py``, ``--device cpu`` for the CPU); :mod:`.interactive` and
+  :mod:`.viewer` — the interactive session and its browser viewer
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 This package imports neither JAX nor the JAX package.
@@ -32,6 +37,8 @@ from .render import (
     Renderer,
     RenderStats,
     get_backend,
+    render_into,
+    render_scene,
     render_settings_for_mode,
     set_backend,
 )
@@ -49,6 +56,8 @@ __all__ = [
     "ScenePack",
     "pack_scene",
     "pack_from_numpy",
+    "render_into",
+    "render_scene",
     "render_settings_for_mode",
     "save_png",
     "scene",

@@ -16,8 +16,15 @@ sample over all chunks; on the CPU both go pass by pass and chunk by chunk.
 The renderer runs on the card (``device="cuda"``) unless the caller asks
 for the CPU; with no card it raises instead of falling back.  A failure
 of the gpu contract raises too: the JAX package's fallback to the cpu
-contract is not ported (it would hide a kernel's failure), nor are its
-checkpointing and metrics sink (ROADMAP.md Queue A item 2).
+contract is not ported (it would hide a kernel's failure).
+
+Checkpointing (``checkpoint_path``, ``PATHTRACER_CHECKPOINT``) saves the
+accumulator at every update interval and resumes from it bit for bit
+(``utils/checkpoint.py``); the metrics log (``metrics_sink``,
+``PATHTRACER_METRICS``) records every interval (``utils/metrics.py``).
+Both fall on the JAX Renderer's pass indices: under checkpointing the
+window is capped at the update cadence, and the cpu contract's windows
+end at every interval pass whenever an interval is observed.
 """
 
 from __future__ import annotations
@@ -46,12 +53,16 @@ from .ops.vec import V3
 from .post import box_smooth, finalize_cpu_contract, finalize_gpu_contract
 from .scene.model import RenderSettings, Scene
 from .soa import ScenePack, pack_scene, resolve_device
+from .utils import checkpoint as ckpt_mod
 from .utils import config as env_config
+from .utils import metrics as metrics_mod
 
 __all__ = [
     "RenderConfig",
     "RenderStats",
     "Renderer",
+    "render_into",
+    "render_scene",
     "render_settings_for_mode",
     "pass_body_grid",
     "fog_pass_terms",
@@ -103,6 +114,7 @@ class RenderStats:
     ray_segments: int = 0
     wall_seconds: float = 0.0
     nonfinite: int = 0  # non-finite accumulator entries at the end
+    resumed_from: int = 0  # passes restored from a checkpoint
 
     @property
     def mrays_per_sec(self) -> float:
@@ -264,7 +276,12 @@ class Renderer:
     ``(pass_index, u8_image[H,W,3])`` about every 10% of passes under the
     gpu contract (gpu.go:2209-2212), every 5% under the cpu contract
     (renderer.go:226-235); ``cancel()`` returning True stops after the
-    current pass window.
+    current pass window.  ``checkpoint_path`` (or ``PATHTRACER_CHECKPOINT``)
+    saves the accumulator at those intervals, keeping ``checkpoint_keep``
+    (``PATHTRACER_CHECKPOINT_KEEP``) older generations, and resumes a render
+    of the same scene and settings from it; ``metrics_sink`` receives each
+    interval's :class:`~.utils.metrics.PassRecord`, and ``metrics`` holds the
+    last render's log.
     """
 
     def __init__(
@@ -274,6 +291,9 @@ class Renderer:
         normalize_pass: bool = False,
         seed: int = 1,
         faithful_fog: Optional[bool] = None,
+        checkpoint_path: Optional[str] = None,
+        checkpoint_keep: Optional[int] = None,
+        metrics_sink=None,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -284,6 +304,12 @@ class Renderer:
         if faithful_fog is None:
             faithful_fog = os.environ.get("PATHTRACER_FAITHFUL_FOG", "") in ("1", "true", "on")
         self.faithful_fog = faithful_fog
+        self.checkpoint_path = checkpoint_path or os.environ.get("PATHTRACER_CHECKPOINT", "") or None
+        if checkpoint_keep is None:
+            checkpoint_keep = int(os.environ.get("PATHTRACER_CHECKPOINT_KEEP", "0") or 0)
+        self.checkpoint_keep = checkpoint_keep
+        self.metrics_sink = metrics_sink
+        self.metrics: Optional[metrics_mod.MetricsLog] = None
         self.stats = RenderStats()
 
     def render(
@@ -321,19 +347,44 @@ class Renderer:
         passes = max(1, cfg.samples_per_px)
         update_every = max(1, passes // (10 if gpu else 20))
         regen = regen_enabled(tcfg)
+
+        # checkpoint / exact resume: a checkpoint of this digest and seed, of
+        # this accumulator's shape and short of the passes asked for (JAX
+        # render.py:588-611); else a fresh start.  The digest serializes the
+        # whole scene (a mesh's every triangle), so it is made only here.
+        digest = None
+        start_pass = 0
+        accum = None
+        if self.checkpoint_path:
+            digest = ckpt_mod.scene_digest(sc, cfg, contract, self.normalize_pass, samples)
+            ck = ckpt_mod.load_checkpoint(self.checkpoint_path, keep=self.checkpoint_keep)
+            if (
+                ck is not None
+                and ck.digest == digest
+                and ck.seed == self.seed
+                and ck.accum.shape == (n_pad, 3)
+                and ck.passes < passes
+            ):
+                accum = torch.from_numpy(ck.accum).to(dev)
+                start_pass = ck.passes
+        if accum is None:
+            accum = torch.zeros((n_pad, 3), dtype=torch.float32, device=dev)
+        total_segs = torch.zeros((), dtype=torch.int64, device=dev)
+        metrics = metrics_mod.MetricsLog(sink=self.metrics_sink)
+        # each interval's record costs a read of the card (the non-finite count and the segments); where
+        # nothing observes intervals, the render ends with one record instead (JAX render.py:662-671)
+        observed = metrics.observed or bool(self.checkpoint_path) or progress is not None
+
         # a window of passes: under the regeneration loop as the JAX Renderer's, capped at the update cadence
-        # when a callback is given; under the classic loop with one sample a pass (the cpu contract) the
-        # window ends at every pass where progress is due, and is one pass when cancel is given, as the JAX
-        # Renderer checks it after every classic pass; faithful fog renders one pass at a time
+        # when a callback is given or checkpoints are saved; under the classic loop with one sample a pass (the
+        # cpu contract) the window ends at every interval pass that is observed, and is one pass when cancel is
+        # given, as the JAX Renderer checks it after every classic pass; faithful fog renders one pass at a time
         window = max(1, int(os.environ.get("PATHTRACER_PASS_WINDOW", "8")))
         if regen:
-            if progress is not None or cancel is not None:
+            if progress is not None or cancel is not None or self.checkpoint_path:
                 window = min(window, update_every)
         elif samples > 1 or cancel is not None:
             window = 1
-
-        accum = torch.zeros((n_pad, 3), dtype=torch.float32, device=dev)
-        total_segs = torch.zeros((), dtype=torch.int64, device=dev)
 
         def image(count, denoise):
             flat = accum[:n].reshape(h, w, 3)
@@ -360,10 +411,11 @@ class Renderer:
             idx = torch.arange(n_pad, dtype=torch.int32, device=dev)
             cpx, cpy = idx % w, torch.div(idx, w, rounding_mode="floor")
         launch = n_pad if card and regen else chunk
-        p = 0
+        nonfinite = 0
+        p = start_pass
         while p < passes:
             nw = min(window, passes - p)
-            if not regen and progress is not None:
+            if not regen and observed:
                 nw = min(nw, update_every - p % update_every)
             frame_seed = (self.seed + p) & MASK32
             if card and not regen:
@@ -379,20 +431,60 @@ class Renderer:
                         accum[start:start + launch] += col
                         total_segs = total_segs + segs
             p += nw
-            if progress is not None and ((p % update_every) < nw or p == passes):
-                # progress frames skip denoise/smooth (gpu.go:2291-2293)
-                progress(p, image(p, denoise=False).cpu().numpy())
+            if observed and ((p % update_every) < nw or p == passes):
+                nonfinite = int(metrics_mod.nonfinite_count(accum))  # padding lanes too, as the JAX Renderer's
+                metrics.interval(p, int(total_segs), nonfinite)
+                if self.checkpoint_path:
+                    ckpt_mod.save_checkpoint(
+                        self.checkpoint_path,
+                        ckpt_mod.Checkpoint(accum=accum.cpu().numpy(), passes=p, seed=self.seed, digest=digest,
+                                            width=w, height=h),
+                        keep=self.checkpoint_keep,
+                    )
+                if progress is not None:
+                    # progress frames skip denoise/smooth (gpu.go:2291-2293)
+                    progress(p, image(p, denoise=False).cpu().numpy())
             if cancel is not None and cancel():
                 break
 
         img = image(p, denoise=True).cpu().numpy()
-        nonfinite = int((~torch.isfinite(accum)).sum())  # the padding lanes too, as the JAX Renderer counts
         segs_total = int(total_segs)
+        if not observed:
+            nonfinite = int(metrics_mod.nonfinite_count(accum))
+            metrics.interval(p, segs_total, nonfinite)
         self.stats = RenderStats(
             passes=p,
             samples_per_pixel=p * samples,
             ray_segments=segs_total,
             wall_seconds=time.perf_counter() - t0,
             nonfinite=nonfinite,
+            resumed_from=start_pass,
         )
+        self.metrics = metrics
         return img
+
+
+# ---------------------------------------------------------------------------
+# Facade API (engine/util.go parity)
+# ---------------------------------------------------------------------------
+
+
+def render_into(
+    sc: Scene,
+    cfg: RenderConfig,
+    progress: Optional[Callable[[int, np.ndarray], None]] = None,
+    device="cuda",
+) -> np.ndarray:
+    """RenderInto analog (renderer.go:34-41): honors the backend switch."""
+    return Renderer(device=device).render(sc, cfg, progress=progress)
+
+
+def render_scene(sc: Scene, settings: RenderSettings, device="cuda") -> np.ndarray:
+    """RenderScene analog (util.go:13-22)."""
+    cfg = RenderConfig(
+        width=settings.width,
+        height=settings.height,
+        samples_per_px=settings.samples_per_px,
+        max_depth=settings.max_depth,
+    )
+    return render_into(sc, cfg, device=device)

@@ -130,12 +130,19 @@ def test_finalize_gpu_contract_matches_jax():
 
 
 def test_save_png_matches_jax_writer(tmp_path):
+    """The port's zlib writer gives the JAX package's fallback bytes; save_png
+    (native encoder first, as the JAX package's) writes the same bytes as the
+    JAX package's native encoder where the library loads."""
     from path_trace_golang_tpu import io_png as jpng
+    from path_trace_golang_tpu.utils import native as jnative
+    from path_trace_golang_tpu_torch import io_png as tpng
 
     img = np.random.default_rng(13).integers(0, 256, size=(9, 7, 3)).astype(np.uint8)
-    tpt.save_png(tmp_path / "t.png", img)
     jpng._write_png_fallback(str(tmp_path / "j.png"), img)
-    assert (tmp_path / "t.png").read_bytes() == (tmp_path / "j.png").read_bytes()
+    assert tpng.encode_png_zlib(img) == (tmp_path / "j.png").read_bytes()
+    tpt.save_png(tmp_path / "t.png", img)
+    want = jnative.encode_png(img) if jnative.available() else (tmp_path / "j.png").read_bytes()
+    assert (tmp_path / "t.png").read_bytes() == want
 
 
 def test_port_imports_no_jax():
