@@ -196,6 +196,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     last image bit for bit a direct Renderer.render with the same windows;
     every launch from the card's kernels.
 
+33. the mesh renderer (parallel/mesh.py), its ranks spawned by
+    parallel/launch.run_world after phase 2 has built the kernels (the
+    ranks load them): 33a a world of 1 over NCCL, a 1x1 mesh, demo_showcase
+    1920x1080 d12 x8 (gpu contract); 33b a world of 4 ranks on this card
+    over gloo (NCCL refuses two ranks on one card), meshes 4x1 and 2x2, on
+    that case, the cpu contract at 1080p d80 x16, faithful fog at 1080p
+    d12 x2 and bench_mesh 512x512 d8 x8 (B2 on the path).  Each rank
+    renders once to warm up, then its counts are set to 0, it renders, and
+    they are read: no plain call, and the kernels that the single Renderer
+    launches on that case, no other.  Each render is held against the
+    single Renderer in this process, whose chunk is the mesh's px block
+    (the classic loop's chunks decide its states, PHYSICS.md D7): a px-only
+    mesh bit for bit (accumulator, image), an spp mesh within 1e-5 a
+    accumulator entry; segments equal; every rank the same image; each
+    mesh's wall (its slowest rank's) printed beside the single Renderer's.
+
 Phase 15's faithful-fog frame in 4 chunks and phase 19's padded last
 1080p chunk run in a second process (``--classic-holds``) that the main one
 starts after phase 6 and reads before phase 11, beside phases 7-10, which
@@ -211,7 +227,11 @@ second-to-last is the card's name and power limit; the last line is
 and depth 4, and a first, small run of B3 and of the classic instance.
 ``--probes`` runs phases 1, 2 (the probes' library only) and 20-23;
 ``--repro`` phases 1, 2 (the repros' library only) and 24-27;
-``--front-end`` phases 1, 2 (the render libraries only) and 30-32.
+``--front-end`` phases 1, 2 (the render libraries only) and 30-32;
+``--mesh [4x1 2x2 ...]`` phases 1, 2 (the render libraries only) and 33
+on the meshes given (33b's world holds the largest); ``--mesh
+--across-cards`` phase 33c instead of 33a and 33b: that world over NCCL,
+one card a rank (on a machine with as many cards).
 
 ``--render-only [scene width height passes depth renders]`` (defaults:
 demo_showcase 1920 1080 8 12 5) times the Renderer alone with the code of
@@ -1928,6 +1948,192 @@ def front_end_phases(pt, cuda_trace, card):
     return walls
 
 
+MESH_CASES = (
+    # (label, scene, width, height, passes, depth, contract, faithful fog): phase 33b's renders
+    ("showcase", "demo_showcase", 1920, 1080, 8, 12, "gpu", False),
+    ("cpu", "demo_showcase", 1920, 1080, 16, 80, "cpu", False),
+    ("faithful_fog", "demo_showcase", 1920, 1080, 2, 12, "gpu", True),
+    ("bench_mesh", "bench_mesh", 512, 512, 8, 8, "gpu", False),
+)
+MESH_SHAPES = ((4, 1), (2, 2))  # phase 33b's meshes: a world of 4 ranks sharing the card over gloo
+MESH_RTOL = 1e-5  # an spp mesh's accumulator against the single Renderer's, a entry: |a - b| <= MESH_RTOL |b|
+
+
+def final_accum(module, box):
+    """Wrap ``module.accum_image`` (the post chain that the Renderer and the
+    mesh renderer finish their images with) so that the accumulator of the
+    final image lands in ``box["accum"]`` (f32[n_pad, 3] on the host).
+    Returns the function that restores it."""
+    orig = module.accum_image
+
+    def spy(accum, w, h, count, gpu, denoise):
+        if denoise:
+            box["accum"] = accum.cpu().numpy()
+        return orig(accum, w, h, count, gpu, denoise)
+
+    module.accum_image = spy
+    return lambda: setattr(module, "accum_image", orig)
+
+
+def mesh_rank(cases, shapes, device):
+    """What every rank of phase 33 runs (a spawned process: it imports this
+    file, which imports no JAX).  For each mesh shape, a mesh made by the
+    whole world; for each case, one warm-up render, then every count set to
+    0, the timed render, the counts read.  Returns a record a render: the
+    stats, the counts and the image's digest, and on rank (0, 0) the image
+    and the final accumulator."""
+    import hashlib
+
+    if HERE not in sys.path:
+        sys.path.insert(0, HERE)
+    import path_trace_golang_tpu_torch as pt
+    from path_trace_golang_tpu_torch.ops import cuda_trace
+    from path_trace_golang_tpu_torch.parallel import MeshRenderer, make_mesh
+    from path_trace_golang_tpu_torch.parallel import mesh as mesh_mod
+    from path_trace_golang_tpu_torch.scene import builtin
+
+    if "jax" in sys.modules:
+        raise RuntimeError("a rank imported jax")
+    out = []
+    for shape in shapes:
+        mesh = make_mesh(*shape, device=device)
+        if mesh.get_coordinate() is None:  # a rank beyond the mesh
+            continue
+        lead = mesh.get_coordinate() == (0, 0)
+        for label, name, w, h, passes, depth, contract, faithful in cases:
+            sc, cfg = getattr(builtin, name)(), pt.RenderConfig(w, h, passes, depth)
+            r = MeshRenderer(mesh, contract=contract, seed=1, faithful_fog=faithful, device=device)
+            r.render(sc, cfg)  # warm-up
+            box = {}
+            restore = final_accum(mesh_mod, box)
+            for c in COUNTERS:
+                setattr(cuda_trace, c, 0)
+            try:
+                img = r.render(sc, cfg)
+            finally:
+                restore()
+            out.append({"shape": tuple(shape), "label": label, "stats": dict(vars(r.stats)),
+                        "counts": {c: getattr(cuda_trace, c) for c in COUNTERS},
+                        "img_sha": hashlib.sha256(img.tobytes()).hexdigest(),
+                        "img": img if lead else None, "accum": box["accum"] if lead else None})
+    return out
+
+
+def mesh_phase(pt, cuda_trace, card, shapes, across_cards=False):
+    """Phase 33: the mesh renderer (parallel/mesh.py) on the card, its ranks
+    spawned by parallel/launch.run_world.  33a: a world of 1 over NCCL, a
+    1x1 mesh, the showcase case; 33b: a world of max(n_px * n_spp) ranks on
+    this card over gloo, every case of MESH_CASES on every shape.  With
+    ``across_cards`` (``--mesh --across-cards``, a machine with a card a
+    rank) 33c alone instead: that world over NCCL, one card a rank.  Each
+    render is held against the single Renderer's in this process, whose
+    chunk is the mesh's px block (so that the classic loop cuts the same
+    chunks; the regeneration loop's lanes do not depend on it): a px-only
+    mesh bit for bit, an spp mesh within MESH_RTOL a entry; segments
+    equal, no plain call and no other kernel than the path's in any rank,
+    every rank the same image.  Returns the walls, or None on a failure
+    (printed)."""
+    import numpy as np
+    import torch
+    from path_trace_golang_tpu_torch import render as render_mod
+    from path_trace_golang_tpu_torch.parallel.launch import run_world
+    from path_trace_golang_tpu_torch.scene import builtin
+
+    t0 = time.perf_counter()
+    refs = {}
+
+    def reference(case, n_px):
+        """The single Renderer on a case, with the mesh's block as its chunk:
+        a warm-up, then the timed render (image, final accumulator, stats,
+        the kernels it launched)."""
+        label, name, w, h, passes, depth, contract, faithful = case
+        chunk = -(-w * h // n_px)
+        if (label, chunk) not in refs:
+            sc, cfg = getattr(builtin, name)(), pt.RenderConfig(w, h, passes, depth)
+            r = pt.Renderer(contract=contract, seed=1, faithful_fog=faithful, chunk=chunk, device=DEVICE)
+            r.render(sc, cfg)
+            box = {}
+            restore = final_accum(render_mod, box)
+            for c in COUNTERS:
+                setattr(cuda_trace, c, 0)
+            try:
+                img = r.render(sc, cfg)
+            finally:
+                restore()
+            launched = {c for c in COUNTERS if getattr(cuda_trace, c)}
+            if launched & set(PLAIN_COUNTERS) or not launched:
+                raise RuntimeError(f"[33] the single Renderer on {label} did not run on the kernels alone")
+            refs[(label, chunk)] = (img, box["accum"], r.stats, launched)
+        return refs[(label, chunk)]
+
+    walls = {}
+
+    def hold(tag, world_backend, recs, shape, case):
+        label, name, w, h, passes, depth, contract, faithful = case
+        mine = [r for r in recs if r["label"] == label and r["shape"] == tuple(shape)]
+        img, accum, stats, want = reference(case, shape[0])
+        lead = next(r for r in mine if r["img"] is not None)
+        launched = {c for c in COUNTERS if mine[0]["counts"][c]}
+        plain = sum(r["counts"][c] for r in mine for c in PLAIN_COUNTERS)
+        same_counts = all(r["counts"] == mine[0]["counts"] for r in mine)
+        same_ranks = all(r["img_sha"] == lead["img_sha"] for r in mine) and all(
+            {k: v for k, v in r["stats"].items() if k != "wall_seconds"}
+            == {k: v for k, v in lead["stats"].items() if k != "wall_seconds"} for r in mine)
+        a, b = lead["accum"], accum
+        bits = a.shape == b.shape and np.array_equal(a.view(np.int32), b.view(np.int32))
+        rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), np.finfo(np.float32).tiny))) if a.shape == b.shape \
+            else float("inf")
+        px_only = shape[1] == 1
+        u8_share = float((lead["img"] == img).all(axis=-1).mean())
+        segs_equal = lead["stats"]["ray_segments"] == stats.ray_segments
+        wall = max(r["stats"]["wall_seconds"] for r in mine)
+        walls[f"{tag} {shape[0]}x{shape[1]} {label}"] = {"mesh_s": wall, "single_s": stats.wall_seconds}
+        rank_walls = ", ".join(f"{r['stats']['wall_seconds']:.4f}" for r in mine)
+        print(
+            f"[{tag}] {shape[0]}x{shape[1]} mesh over {world_backend}, {name} {w}x{h} d{depth} x{passes}, "
+            f"{contract} contract{', faithful fog' if faithful else ''}: wall {wall:.4f} s (the ranks' "
+            f"{rank_walls}) against the single Renderer's "
+            f"{stats.wall_seconds:.4f} s (chunk {-(-w * h // shape[0])}); accumulator bit-identical {bits}, max "
+            f"rel {rel:.3g}; u8 pixels equal {u8_share:.6f}; segments {lead['stats']['ray_segments']} / "
+            f"{stats.ray_segments}; passes {lead['stats']['passes']}; nonfinite {lead['stats']['nonfinite']}; a "
+            f"rank's launches { {c: v for c, v in mine[0]['counts'].items() if v} }; plain calls {plain}; every "
+            f"rank the same image {same_ranks} | card {card}",
+            flush=True,
+        )
+        good = (segs_equal and same_ranks and same_counts and plain == 0 and launched == want
+                and lead["stats"]["nonfinite"] == 0 and lead["stats"]["passes"] == stats.passes
+                and lead["img"].shape == (h, w, 3) and (bits and np.array_equal(lead["img"], img) if px_only
+                                                        else rel <= MESH_RTOL))
+        if not good:
+            print(f"[{tag}] FAIL: the {shape[0]}x{shape[1]} mesh on {label} differs from the single Renderer, or "
+                  f"its ranks disagree, or it launched {sorted(launched)} where the single Renderer launched "
+                  f"{sorted(want)}, or called a plain version", file=sys.stderr)
+        return good
+
+    world = max(p * s for p, s in shapes)
+    worlds = [("33c", world, "nccl", shapes, MESH_CASES)] if across_cards else [
+        ("33a", 1, "nccl", [(1, 1)], MESH_CASES[:1]),  # 33a: a world of 1 over NCCL, a 1x1 mesh
+        ("33b", world, "gloo", shapes, MESH_CASES)]  # 33b: ranks sharing this card (NCCL refuses two on one card)
+    for tag, n, backend, tag_shapes, cases in worlds:
+        if backend == "nccl" and n > torch.cuda.device_count():
+            print(f"[{tag}] FAIL: a world of {n} over NCCL needs {n} cards, the machine has "
+                  f"{torch.cuda.device_count()}", file=sys.stderr)
+            return None
+        tw = time.perf_counter()
+        per_rank = run_world(mesh_rank, n, (cases, [tuple(x) for x in tag_shapes], DEVICE), backend=backend,
+                             timeout=600)
+        print(f"[{tag}] a world of {n} over {backend}"
+              f"{', one card a rank' if backend == 'nccl' else ' on one card'} in {time.perf_counter() - tw:.1f} s "
+              f"(spawn and CUDA start-up included)", flush=True)
+        recs = [rec for rank in per_rank for rec in rank]
+        for shape in tag_shapes:
+            for case in cases:
+                if not hold(tag, backend, recs, shape, case):
+                    return None
+    walls["phase_s"] = time.perf_counter() - t0
+    return walls
+
+
 def main(argv) -> int:
     quick = "--quick" in argv
     t_start = time.perf_counter()
@@ -2006,8 +2212,9 @@ def main(argv) -> int:
     # ---- 2. build: one nvcc for each source and variant, all started together (--probes, --repro: that
     # library only; the repros' counting variant holds T6's step split alone: their bounds come from their shapes)
     probes_only, repro_only, front_only = "--probes" in argv, "--repro" in argv, "--front-end" in argv
+    mesh_only = "--mesh" in argv
     sources = ("probes",) if probes_only else ("repro",) if repro_only else (
-        ("render_pass", "classic") if front_only else tuple(cuda_trace.SOURCES))
+        ("render_pass", "classic") if front_only or mesh_only else tuple(cuda_trace.SOURCES))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=2 * len(sources)) as pool:
         builds = [pool.submit(cuda_trace.build, count_ops=c, source=src)
@@ -2036,6 +2243,17 @@ def main(argv) -> int:
         if walls is None:
             return 1
         print(f"[done] phases 1, 2 and 30-32 in {time.perf_counter() - t_start:.1f} s ({json.dumps(walls)})", flush=True)
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
+    if mesh_only:
+        shapes = [tuple(int(x) for x in a.split("x")) for a in argv[argv.index("--mesh") + 1:]
+                  if not a.startswith("--")] or MESH_SHAPES
+        walls = mesh_phase(pt, cuda_trace, card, shapes, across_cards="--across-cards" in argv)
+        if walls is None:
+            return 1
+        print(f"[done] phases 1, 2 and 33{'c' if '--across-cards' in argv else ''} in "
+              f"{time.perf_counter() - t_start:.1f} s ({json.dumps(walls)})", flush=True)
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
@@ -2590,6 +2808,12 @@ def main(argv) -> int:
     if front_walls is None:
         return 1
     print(f"[30-32] in {time.perf_counter() - t_front:.1f} s ({json.dumps(front_walls)}) | card {card}", flush=True)
+
+    # ---- 33. the mesh renderer: a world of 1 over NCCL, then 4 ranks on this card over gloo
+    mesh_walls = mesh_phase(pt, cuda_trace, card, MESH_SHAPES)
+    if mesh_walls is None:
+        return 1
+    print(f"[33] in {mesh_walls['phase_s']:.1f} s | card {card}", flush=True)
 
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{

@@ -67,6 +67,7 @@ __all__ = [
     "pass_body_grid",
     "fog_pass_terms",
     "trace_pass_lanes",
+    "accum_image",
     "set_backend",
     "get_backend",
     "BACKEND_CPU",
@@ -263,6 +264,26 @@ def trace_pass_lanes(
     return col.to_rows(), segs
 
 
+def accum_image(accum, w: int, h: int, count: int, gpu: bool, denoise: bool):
+    """The u8 image (a tensor) of the first ``w*h`` rows of an accumulator
+    after ``count`` passes: the gpu contract's chain (ACES; with ``denoise``
+    the bilateral denoise and the box smooth where they are configured,
+    which progress frames skip, gpu.go:2291-2293) or the cpu contract's.
+    Both the Renderer and the mesh renderer finish their images here."""
+    flat = accum[: w * h].reshape(h, w, 3)
+    if not gpu:
+        return finalize_cpu_contract(flat, count)
+    dn = env_config.get_denoise_config()
+    u8 = finalize_gpu_contract(
+        flat, count, denoise=denoise and dn.enabled,
+        denoise_sigma_s=dn.sigma_s, denoise_sigma_r=dn.sigma_r,
+    )
+    sm = env_config.get_smooth_config()
+    if denoise and sm.enabled and sm.radius > 0 and sm.strength > 0:
+        u8 = box_smooth(u8, sm.radius, sm.strength)
+    return u8
+
+
 # ---------------------------------------------------------------------------
 # Renderer
 # ---------------------------------------------------------------------------
@@ -386,20 +407,6 @@ class Renderer:
         elif samples > 1 or cancel is not None:
             window = 1
 
-        def image(count, denoise):
-            flat = accum[:n].reshape(h, w, 3)
-            if not gpu:
-                return finalize_cpu_contract(flat, count)
-            dn = env_config.get_denoise_config()
-            u8 = finalize_gpu_contract(
-                flat, count, denoise=denoise and dn.enabled,
-                denoise_sigma_s=dn.sigma_s, denoise_sigma_r=dn.sigma_r,
-            )
-            sm = env_config.get_smooth_config()
-            if denoise and sm.enabled and sm.radius > 0 and sm.strength > 0:
-                u8 = box_smooth(u8, sm.radius, sm.strength)
-            return u8
-
         kw = dict(tcfg=tcfg, width=w, height=h, n_strata=n_strata, samples=samples, has_aperture=has_aperture,
                   normalize_pass=self.normalize_pass)
         # on the card a window's lanes go to the kernels whole: the regeneration
@@ -443,11 +450,11 @@ class Renderer:
                     )
                 if progress is not None:
                     # progress frames skip denoise/smooth (gpu.go:2291-2293)
-                    progress(p, image(p, denoise=False).cpu().numpy())
+                    progress(p, accum_image(accum, w, h, p, gpu, denoise=False).cpu().numpy())
             if cancel is not None and cancel():
                 break
 
-        img = image(p, denoise=True).cpu().numpy()
+        img = accum_image(accum, w, h, p, gpu, denoise=True).cpu().numpy()
         segs_total = int(total_segs)
         if not observed:
             nonfinite = int(metrics_mod.nonfinite_count(accum))

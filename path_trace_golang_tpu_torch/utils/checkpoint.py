@@ -43,6 +43,11 @@ class Checkpoint:
     width: int
     height: int
 
+    def compatible_with(self, digest: str, passes_done: Optional[int] = None) -> bool:
+        """Whether the buffer belongs to a render of ``digest`` (the JAX
+        package's signature; ``passes_done`` is not consulted there either)."""
+        return self.digest == digest
+
 
 def scene_digest(sc, cfg, contract: str, normalize_pass: bool, samples: int) -> str:
     """Digest of everything that determines a pass's output besides the
