@@ -212,6 +212,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     accumulator entry; segments equal; every rank the same image; each
     mesh's wall (its slowest rank's) printed beside the single Renderer's.
 
+34. PATHTRACER_BVH_DROP (integrator.TraceConfig.debug_drop, the launch
+    flags FLAG_DROP_*): for each of closest, shadow, spec and all three, B1's
+    paged instance on bench_mesh (64x64, depth 4, one pass), faithful fog's
+    classic instance on demo_showcase with its mesh routed to the paged walk
+    (PATHTRACER_BVH_DYNAMIC=1; 96x48, depth 3, one pass: the shadow drop
+    must leave the fog march's own shadow tests alone) and B3 through
+    trace() under the gpu contract (bench_mesh, depth 8, 16,384 camera and
+    16,384 random rays: the specular-NEE walk changes few of them), each against its plain version bit for bit with
+    segments equal, and each dropped image different from the undropped;
+35. every measurement tool of the port once, each in a process of its own
+    at its smallest arguments (tools/perf walk_attrib, tri_scaling at 10k
+    and 100k triangles, many_lights, fixed_cost, mesh_scaling and
+    mesh_attrib on a world of 2, graft_entry on 2 ranks, and the CLI under
+    PATHTRACER_TIME_PHASES=1, whose phase table must name the JAX
+    Renderer's phases): each must exit 0 with its JSON line and no call of
+    a plain version.
+
+Phases 34 and 35 run in a third process (``--phases-34-35``), started
+beside the second and read with it.
+
 Phase 15's faithful-fog frame in 4 chunks and phase 19's padded last
 1080p chunk run in a second process (``--classic-holds``) that the main one
 starts after phase 6 and reads before phase 11, beside phases 7-10, which
@@ -231,7 +251,13 @@ and depth 4, and a first, small run of B3 and of the classic instance.
 ``--mesh [4x1 2x2 ...]`` phases 1, 2 (the render libraries only) and 33
 on the meshes given (33b's world holds the largest); ``--mesh
 --across-cards`` phase 33c instead of 33a and 33b: that world over NCCL,
-one card a rank (on a machine with as many cards).
+one card a rank (on a machine with as many cards).  ``--drop`` runs
+phases 1, 2 (the render libraries only) and 34.  ``--tools`` runs phases
+1, 2 and every tool at its full arguments on one card (mesh_scaling and
+mesh_attrib at 1920x1080 on demo_showcase and on bench_mesh, the others at
+the JAX tools' defaults), each tool's log and JSON line written under
+build/tools/; ``--tools --across-cards`` the two mesh tools alone,
+over NCCL one card a rank.
 
 ``--render-only [scene width height passes depth renders]`` (defaults:
 demo_showcase 1920 1080 8 12 5) times the Renderer alone with the code of
@@ -2134,6 +2160,171 @@ def mesh_phase(pt, cuda_trace, card, shapes, across_cards=False):
     return walls
 
 
+DROPS = ("closest", "shadow", "spec", "closest,shadow,spec")
+# phase 34's paths: (label, scene, width, height, depth, faithful fog, environment)
+DROP_PATHS = (
+    ("B1 paged instance", "bench_mesh", 64, 64, 4, False, {}),
+    ("classic instance, faithful fog", "demo_showcase", 96, 48, 3, True, {"PATHTRACER_BVH_DYNAMIC": "1"}),
+)
+
+
+def drop_phase(pt, cuda_trace, card):
+    """Phase 34: PATHTRACER_BVH_DROP on the card.  For each drop and path, the
+    kernel against its plain version bit for bit with segments equal, and
+    the dropped image against the undropped kernel's, which must differ.
+    Returns {path: {drop: bits equal and differs}} and whether all held."""
+    import numpy as np
+    import torch
+
+    held, good = {}, True
+    saved = {k: os.environ.get(k) for k in ("PATHTRACER_BVH_DROP", "PATHTRACER_BVH_DYNAMIC")}
+    try:
+        for label, name, w, h, depth, faithful, env in DROP_PATHS:
+            os.environ.update(env)
+            os.environ.pop("PATHTRACER_BVH_DROP", None)
+            _sc, pack, kw = scene_setup(pt, name, w, h, depth, "gpu", faithful)
+            if pack.paged is None:
+                print(f"[34] FAIL: {name} carries no pages, so no walk can be dropped", file=sys.stderr)
+                return held, False
+            px, py = lanes(w, h)
+            base = cuda_trace.render_pass_cuda(pack, 7, px, py, n_passes=1, **kw)[0].to_rows()
+            for drop in DROPS:
+                os.environ["PATHTRACER_BVH_DROP"] = drop
+                _sc, pack, kw = scene_setup(pt, name, w, h, depth, "gpu", faithful)
+                col_k, segs_k = cuda_trace.render_pass_cuda(pack, 7, px, py, n_passes=1, **kw)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                col_p, segs_p = cuda_trace.render_pass_plain(pack, 7, px, py, n_passes=1, **kw)
+                torch.cuda.synchronize()
+                plain_s = time.perf_counter() - t0
+                a, b = col_k.to_rows(), col_p.to_rows()
+                bits = torch.equal(a.view(torch.int32), b.view(torch.int32)) and int(segs_k) == int(segs_p)
+                moved = int((a != base).any(dim=1).sum())
+                ok = bits and moved > 0 and kw["tcfg"].debug_drop == tuple(sorted(drop.split(",")))
+                held.setdefault(label, {})[drop] = ok
+                good = good and ok
+                print(f"[34] {label}, {name} {w}x{h} d{depth}, drop {drop}: kernel against plain bit-identical "
+                      f"{bits} (segments {int(segs_k)} vs {int(segs_p)}), lanes that differ from the undropped "
+                      f"image {moved} of {w * h}; plain version {plain_s:.1f} s", flush=True)
+            for k in env:
+                os.environ.pop(k, None)
+        # B3 through trace(), gpu contract, on bench_mesh's pages
+        os.environ.pop("PATHTRACER_BVH_DROP", None)
+        _sc, pack, kw = scene_setup(pt, "bench_mesh", 512, 512, 8)
+        o, d = walk_rays(pack, 512, 512, 16384, 16384, seed=34)
+        state = torch.from_numpy(np.random.default_rng(35).integers(0, 2**32, size=o.x.numel(),
+                                                                    dtype=np.int64)).to(DEVICE)
+        base = cuda_trace.trace_grid_cuda(o, d, state, pack, kw["tcfg"])[0].to_rows()
+        for drop in DROPS:
+            os.environ["PATHTRACER_BVH_DROP"] = drop
+            _sc, pack, kw = scene_setup(pt, "bench_mesh", 512, 512, 8)
+            rk, sk, gk = cuda_trace.trace_grid_cuda(o, d, state, pack, kw["tcfg"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rp, sp, gp = cuda_trace.trace_grid_plain(o, d, state, pack, kw["tcfg"])
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            a, b = rk.to_rows(), rp.to_rows()
+            bits = torch.equal(a.view(torch.int32), b.view(torch.int32)) and torch.equal(sk, sp) and int(gk) == int(gp)
+            moved = int((a != base).any(dim=1).sum())
+            ok = bits and moved > 0
+            held.setdefault("B3 through trace()", {})[drop] = ok
+            good = good and ok
+            print(f"[34] B3 through trace(), bench_mesh gpu contract d8, drop {drop}: {o.x.numel()} rays, radiance, "
+                  f"state and segments bit-identical {bits} (segments {int(gk)} vs {int(gp)}), rays that differ "
+                  f"from the undropped trace {moved}; plain version {plain_s:.1f} s | card {card}", flush=True)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if not good:
+        print("[34] FAIL: a dropped walk's kernel disagrees with its plain version, or left the image as it was",
+              file=sys.stderr)
+    return held, good
+
+
+TOOLS_DIR = os.path.join(HERE, "build", "tools")  # --tools' logs and JSON lines (build/ is not committed)
+TOOL = "path_trace_golang_tpu_torch.tools.perf."
+# phase 35: (label, module, arguments, environment) at the smallest arguments
+TOOL_SMOKE = (
+    ("walk_attrib", TOOL + "walk_attrib", ["1", "--size", "64"], {}),
+    ("tri_scaling", TOOL + "tri_scaling", ["--sizes", "80x64,250x200", "--size", "64", "--reps", "1"], {}),
+    ("many_lights", TOOL + "many_lights", ["1", "64", "36", "1"], {}),
+    ("fixed_cost", TOOL + "fixed_cost", ["1", "--size", "64"], {}),
+    ("mesh_scaling", TOOL + "mesh_scaling", ["32", "16", "2", "--depth", "2", "--shapes", "1x1,2x1,1x2", "--reps",
+                                             "1"], {}),
+    ("mesh_attrib", TOOL + "mesh_attrib", ["32", "16", "2", "--depth", "2", "--shapes", "1x1,2x1,1x2", "--reps",
+                                           "1"], {}),
+    ("graft_entry", "path_trace_golang_tpu_torch.graft_entry", ["--devices", "2"], {}),
+    ("time_phases", "path_trace_golang_tpu_torch", ["-scene", "demo_cornell", "-gpu", "-headless", "--width", "64",
+                                                    "--height", "36", "--spp", "2", "--depth", "4", "--json-stats"],
+     {"PATHTRACER_TIME_PHASES": "1"}),
+)
+# --tools: the same at full arguments on one card; --tools --across-cards: the mesh tools over NCCL
+TOOL_FULL = (
+    ("walk_attrib", TOOL + "walk_attrib", [], {}),
+    ("tri_scaling", TOOL + "tri_scaling", [], {}),
+    ("many_lights", TOOL + "many_lights", [], {}),
+    ("fixed_cost", TOOL + "fixed_cost", [], {}),
+) + tuple(
+    (f"{tool}_{scene}", TOOL + tool, ["1920", "1080", spp, "--scene", scene], {})
+    for tool, spp in (("mesh_scaling", "8"), ("mesh_attrib", "4")) for scene in ("demo_showcase", "bench_mesh")
+) + (
+    ("graft_entry", "path_trace_golang_tpu_torch.graft_entry", [], {}),
+    ("time_phases", "path_trace_golang_tpu_torch", ["-scene", "demo_showcase", "-gpu", "-headless", "--width", "1920",
+                                                    "--height", "1080", "--spp", "8", "--depth", "12", "--json-stats"],
+     {"PATHTRACER_TIME_PHASES": "1"}),
+)
+PHASE_NAMES = ("pack_scene", "trace_config", "accum_init", "pass_window@", "interval@", "final_fetch")
+
+
+def run_tools(tools, card, tag, out_dir=None, extra=()):
+    """Each tool in a process of its own: exit 0, its last line a JSON object
+    with no call of a plain version (the CLI's stats line, whose phase table
+    on stderr must name the JAX Renderer's phases in their order).  Prints a
+    line a tool; returns {label: the JSON line} or None on a failure."""
+    results = {}
+    for label, module, args, env in tools:
+        cmd = [sys.executable, "-m", module] + list(args) + list(extra if module.startswith(TOOL + "mesh") else ())
+        if out_dir and module != "path_trace_golang_tpu_torch":
+            cmd += ["--out", os.path.join(out_dir, f"{label}.json")]
+        if module == "path_trace_golang_tpu_torch":
+            cmd += ["-out", os.path.join(FRONT_END_DIR, f"{label}.png")]
+            os.makedirs(FRONT_END_DIR, exist_ok=True)
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, cwd=HERE, env={**os.environ, **env}, capture_output=True, text=True, timeout=1800)
+        secs = time.perf_counter() - t0
+        if out_dir:
+            with open(os.path.join(out_dir, f"{label}.log"), "w") as f:
+                f.write(f"$ {' '.join(cmd)}\n{p.stdout}\n--- stderr\n{p.stderr}")
+        lines = [ln for ln in p.stdout.splitlines() if ln.startswith("{")]
+        try:
+            line = json.loads(lines[-1])
+        except (IndexError, ValueError):
+            line = None
+        problem = None
+        if p.returncode != 0 or line is None:
+            problem = f"exit {p.returncode}, JSON line {'parsed' if line is not None else 'missing'}"
+        elif line.get("plain_calls", 0) != 0 and str(line.get("device", "cuda")).startswith("cuda"):
+            problem = f"{line['plain_calls']} calls of a plain version"
+        elif "PATHTRACER_TIME_PHASES" in env:
+            names = [ln.split()[1] for ln in p.stderr.splitlines() if ln.startswith("  phase ")]
+            order = [next((i for i, ph in enumerate(PHASE_NAMES) if n.startswith(ph)), -1) for n in names]
+            if not names or names[0] != "pack_scene" or names[-1] != "final_fetch" or -1 in order:
+                problem = f"phase table {names}"
+            line["phases"] = names
+        results[label] = line
+        shown = {k: v for k, v in (line or {}).items() if k not in ("rows", "note", "card")}
+        print(f"[{tag}] {label}: {' '.join(cmd[2:])} in {secs:.1f} s: {problem or 'ok'}; "
+              f"{json.dumps(shown)[:600]} | card {card}", flush=True)
+        if problem:
+            print(f"[{tag}] FAIL: {label}: {problem}\n{p.stdout[-3000:]}\n{p.stderr[-3000:]}", file=sys.stderr)
+            return None
+    return results
+
+
 def main(argv) -> int:
     quick = "--quick" in argv
     t_start = time.perf_counter()
@@ -2208,13 +2399,22 @@ def main(argv) -> int:
 
     if "--classic-holds" in argv:
         return 0 if classic_holds(pt, cuda_trace) else 1
+    if "--phases-34-35" in argv:  # the default run's third process: the libraries are built
+        t_side = time.perf_counter()
+        held, good = drop_phase(pt, cuda_trace, card)
+        tools = run_tools(TOOL_SMOKE, card, "35") if good else None
+        print(f"[34-35] in {time.perf_counter() - t_side:.1f} s | card {card}", flush=True)
+        print("PHASES-34-35 " + json.dumps({"drop": held, "tools": sorted(tools or {})}), flush=True)
+        return 0 if good and tools is not None else 1
 
     # ---- 2. build: one nvcc for each source and variant, all started together (--probes, --repro: that
     # library only; the repros' counting variant holds T6's step split alone: their bounds come from their shapes)
     probes_only, repro_only, front_only = "--probes" in argv, "--repro" in argv, "--front-end" in argv
     mesh_only = "--mesh" in argv
+    drop_only, tools_only = "--drop" in argv, "--tools" in argv
     sources = ("probes",) if probes_only else ("repro",) if repro_only else (
-        ("render_pass", "classic") if front_only or mesh_only else tuple(cuda_trace.SOURCES))
+        ("render_pass", "classic") if front_only or mesh_only or drop_only or tools_only
+        else tuple(cuda_trace.SOURCES))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=2 * len(sources)) as pool:
         builds = [pool.submit(cuda_trace.build, count_ops=c, source=src)
@@ -2254,6 +2454,27 @@ def main(argv) -> int:
             return 1
         print(f"[done] phases 1, 2 and 33{'c' if '--across-cards' in argv else ''} in "
               f"{time.perf_counter() - t_start:.1f} s ({json.dumps(walls)})", flush=True)
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
+    if drop_only:
+        held, good = drop_phase(pt, cuda_trace, card)
+        if not good:
+            return 1
+        print(f"[done] phases 1, 2 and 34 in {time.perf_counter() - t_start:.1f} s ({json.dumps(held)})", flush=True)
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
+    if tools_only:
+        across = "--across-cards" in argv
+        os.makedirs(TOOLS_DIR, exist_ok=True)
+        tools = [t for t in TOOL_FULL if t[1].startswith(TOOL + "mesh")] if across else TOOL_FULL
+        results = run_tools(tools, card, "tools", TOOLS_DIR, extra=("--across-cards",) if across else ())
+        if results is None:
+            return 1
+        print(f"[done] phases 1, 2 and the tools{' across the cards' if across else ''} in "
+              f"{time.perf_counter() - t_start:.1f} s (logs and JSON lines in {os.path.relpath(TOOLS_DIR, HERE)})",
+              flush=True)
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
@@ -2384,6 +2605,10 @@ def main(argv) -> int:
     holds = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--classic-holds"], stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
     atexit.register(lambda: holds.poll() is None and (holds.kill(), holds.wait()))
+    # phases 34 and 35 in a third process beside them, read with the second
+    side = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phases-34-35"], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: side.poll() is None and (side.kill(), side.wait()))
 
     # ---- 7. kernel vs plain version at the main path's own arguments
     # (1920x1080 camera mapping, frame seed 1, the 8-pass reseed schedule)
@@ -2420,6 +2645,13 @@ def main(argv) -> int:
         print("[15/19] FAIL: the classic instance disagrees with its plain version on the chunked faithful-fog "
               "frame or the padded last 1080p chunk (second process)", file=sys.stderr)
         return 1
+    side_out = side.communicate()[0]
+    print(side_out, end="", flush=True)
+    if side.returncode != 0:
+        print("[34/35] FAIL: a dropped walk disagrees with its plain version, or a tool failed (third process)",
+              file=sys.stderr)
+        return 1
+    side_summary = json.loads(next(ln for ln in side_out.splitlines() if ln.startswith("PHASES-34-35 "))[13:])
 
     # ---- 11. the mesh path at full width: bench_mesh 512x512, depth 8, one 8-pass window
     mesh_run = drive_renderer(pt, cuda_trace, "11", "bench_mesh", 512, 512, 8, 8, 3, card)
@@ -2850,6 +3082,8 @@ def main(argv) -> int:
         "mesh_max_abs_err": mesh_check_err,
         "mesh_walk_share_of_operations": mesh_walk_ops / mesh_ops,
         "mesh_walk_share_of_lane_cycles": mesh_walk_cycles / mesh_cycles,
+        "drop_flag": {"flags": cuda_trace.FLAG_DROP, "held_bit_for_bit_and_moved": {
+            k: v for k, v in side_summary["drop"].items() if not k.startswith("B3")}},
     }] + [{
         "name": name,
         "route": "cuda",
@@ -2939,6 +3173,8 @@ def main(argv) -> int:
         "latency_floor_ms": {k: v["trace_longest_ms"] for k, v in trace_part.items()},
         "latency_floor_is": "the longest path's ray traced alone (pt_trace_grid on one ray): no call ends sooner",
         "ptxas": trace_part["cpu"]["trace_ptxas"],
+        "drop_flag": {"flags": cuda_trace.FLAG_DROP, "held_bit_for_bit_and_moved": {
+            k: v for k, v in side_summary["drop"].items() if k.startswith("B3")}},
         "max_abs_err_over": "2,048 and 16,384 camera and random rays on demo_showcase, demo_cornell and "
                             "bench_mesh, cpu contract d80, gpu contract d12, in-trace fog d12, a batch with "
                             "an active mask; 2,048 rays an SM and 17 more on bench_mesh d8, several rays a "

@@ -158,7 +158,7 @@ template <bool PAGED>
 __device__ bool cpu_bounce(const Scene& S, const Params& P, int dep, V& orig, V& dir, V& thr, V& col,
                            uint32_t& st OPS_PARAM) {
   STAGE_BEGIN(isect_t0);
-  Hit h = intersect<PAGED>(S, orig, dir, -1, false OPS_ARG);
+  Hit h = intersect<PAGED>(S, orig, dir, -1, false, true OPS_ARG);
   STAGE_END(isect_t0, STAGE_ISECT);
   if (!h.hit) {
     OPS(C_NORMALIZE + C_BACKGROUND + 6);
@@ -272,7 +272,7 @@ __device__ __forceinline__ V trace_march(const Scene& S, V orig, V dir, uint32_t
 
 // the bounces of one lane's trace, up to max_depth, adding into col; st
 // advances one quota per own bounce, len receives the lane's bounces
-template <bool PAGED, bool CPU>
+template <bool PAGED, bool CPU, bool DROP = false>
 __device__ __forceinline__ V trace_bounces(const Scene& S, const Params& P, const Shading& D, V orig, V dir, V col,
                                            uint32_t& st, bool active, int& len OPS_PARAM) {
   V thr = mk(1.0f, 1.0f, 1.0f);
@@ -286,7 +286,7 @@ __device__ __forceinline__ V trace_bounces(const Scene& S, const Params& P, cons
     if constexpr (CPU)
       alive = cpu_bounce<PAGED>(S, P, dep, orig, dir, thr, col, st OPS_ARG);
     else
-      alive = gpu_bounce<PAGED>(S, P, D, dep, orig, dir, thr, col, st, glass_obj, glass_dist OPS_ARG);
+      alive = gpu_bounce<PAGED, DROP>(S, P, D, dep, orig, dir, thr, col, st, glass_obj, glass_dist OPS_ARG);
     LANE_DONE();
   }
   STAGE_END(loop_t0, STAGE_LOOP);
@@ -366,7 +366,7 @@ __global__ void __launch_bounds__(BLOCK, PAGED ? 1 : MARCH_MIN_BLOCKS)
 // (marched), else from zero and st_in; it writes its radiance, its state
 // after its own L bounces, and L, and raises trips[0] to the longest L (a
 // shared maximum a block, one atomic a block).
-template <bool PAGED, bool CPU>
+template <bool PAGED, bool CPU, bool DROP = false>
 __global__ void __launch_bounds__(BLOCK, PAGED ? TRACE_PAGED_MIN_BLOCKS : TRACE_MIN_BLOCKS)
     trace_bounce_kernel(Tables T, Params P, TraceIO io, int marched, unsigned long long* __restrict__ counters) {
   extern __shared__ float smem[];
@@ -409,7 +409,7 @@ __global__ void __launch_bounds__(BLOCK, PAGED ? TRACE_PAGED_MIN_BLOCKS : TRACE_
       if constexpr (CPU)
         alive = cpu_bounce<PAGED>(S, P, dep, orig, dir, thr, col, st OPS_ARG);
       else
-        alive = gpu_bounce<PAGED>(S, P, D, dep, orig, dir, thr, col, st, glass_obj, glass_dist OPS_ARG);
+        alive = gpu_bounce<PAGED, DROP>(S, P, D, dep, orig, dir, thr, col, st, glass_obj, glass_dist OPS_ARG);
       dep += 1;
       LANE_DONE();
     }
@@ -626,7 +626,7 @@ __global__ void __launch_bounds__(BLOCK, PAGED ? 1 : MARCH_MIN_BLOCKS)
 
 // the bounces of a classic sample from classic_march_kernel's ray, state and
 // march (ray_buf, st_buf), adding into the running radiance
-template <bool PAGED, bool CPU>
+template <bool PAGED, bool CPU, bool DROP = false>
 __global__ void __launch_bounds__(BLOCK, PAGED ? 1 : SAMPLE_MIN_BLOCKS)
     classic_sample_kernel(Tables T, Params P, int sample, int chunk, float* __restrict__ col_buf,
                           const float* __restrict__ ray_buf, uint32_t* __restrict__ st_buf, int* __restrict__ len_buf,
@@ -650,7 +650,7 @@ __global__ void __launch_bounds__(BLOCK, PAGED ? 1 : SAMPLE_MIN_BLOCKS)
     const V d = mk(ray_buf[3 * n + lane], ray_buf[4 * n + lane], ray_buf[5 * n + lane]);
     const V m = mk(ray_buf[6 * n + lane], ray_buf[7 * n + lane], ray_buf[8 * n + lane]);
     V col = mk(col_buf[lane], col_buf[n + lane], col_buf[2 * n + lane]);
-    col = add(col, trace_bounces<PAGED, CPU>(S, P, D, o, d, m, st, true, len OPS_ARG));
+    col = add(col, trace_bounces<PAGED, CPU, DROP>(S, P, D, o, d, m, st, true, len OPS_ARG));
     segs = (unsigned long long)len;
     if (keep) {
       st_buf[lane] = st;
@@ -684,13 +684,13 @@ inline Params classic_params(Params P, int n_lanes, unsigned int frame_seed, int
   return P;
 }
 
-template <bool PAGED, bool CPU>
+template <bool PAGED, bool CPU, bool DROP = false>
 cudaError_t launch_samples(const Tables& T, const Params& P, size_t smem, cudaStream_t stream, const int* px,
                            const int* py, int sample0, int sample1, int chunk, float* col, float* rays,
                            unsigned int* state, int* len, int* trips, float* accum, unsigned long long* march_counters,
                            unsigned long long* counters) {
   auto march = classic_march_kernel<PAGED, CPU>;
-  auto bounce = classic_sample_kernel<PAGED, CPU>;
+  auto bounce = classic_sample_kernel<PAGED, CPU, DROP>;
   cudaError_t e = prepare_launch(march, smem);
   if (e == cudaSuccess) e = prepare_launch(bounce, smem);
   if (e != cudaSuccess) return e;
@@ -726,7 +726,9 @@ extern "C" int pt_trace_grid(PT_SCENE_PARAMS, const float* ox, const float* oy, 
   const cudaStream_t s = (cudaStream_t)stream;
   const bool cpu = flags & FLAG_CPU, march = !cpu && (flags & FLAG_FOG_TRACE);
   const bool paged = n_pages > 0;
-  auto bounce = paged ? (cpu ? trace_bounce_kernel<true, true> : trace_bounce_kernel<true, false>)
+  const bool drop = paged && !cpu && (flags & FLAG_DROP_ANY);
+  auto bounce = paged ? (cpu    ? trace_bounce_kernel<true, true>
+                         : drop ? trace_bounce_kernel<true, false, true> : trace_bounce_kernel<true, false>)
                       : (cpu ? trace_bounce_kernel<false, true> : trace_bounce_kernel<false, false>);
   cudaError_t e = prepare_launch(bounce, smem);
   if (e == cudaSuccess) e = cudaMemsetAsync(counters, 0, sizeof(unsigned long long) * N_COUNTERS, s);
@@ -811,7 +813,9 @@ extern "C" int pt_classic_samples(PT_SCENE_PARAMS, const int* px, const int* py,
     if (e != cudaSuccess) return (int)e;
   }
   const bool cpu = flags & FLAG_CPU;
-  auto run = n_pages > 0 ? (cpu ? launch_samples<true, true> : launch_samples<true, false>)
+  const bool drop = n_pages > 0 && !cpu && (flags & FLAG_DROP_ANY);
+  auto run = n_pages > 0 ? (cpu    ? launch_samples<true, true>
+                            : drop ? launch_samples<true, false, true> : launch_samples<true, false>)
                          : (cpu ? launch_samples<false, true> : launch_samples<false, false>);
   return (int)run(T, P, smem, s, px, py, sample0, sample1, chunk, col, rays, state, len, trips, accum,
                   march_counters, counters);

@@ -175,6 +175,11 @@ constexpr int BASIS_LEN = 19;
 constexpr int FLAG_APERTURE = 1, FLAG_LENS_DISK = 2, FLAG_ROUGH_METAL = 4, FLAG_DIELECTRIC = 8,
               FLAG_FOG_ONCE = 16, FLAG_NORMALIZE = 32, FLAG_NEE = 64, FLAG_TRI_EMISSIVE = 128,
               FLAG_CPU = 256, FLAG_FOG_TRACE = 512;
+// PATHTRACER_BVH_DROP (integrator.py::TraceConfig.debug_drop, for timing only): the bounce's closest hit, NEE's
+// shadow rays and the specular-NEE query of a paged mesh skip their walk, as rays whose result is discarded do;
+// a launch that carries one runs the kernels' DROP instances
+constexpr int FLAG_DROP_CLOSEST = 1024, FLAG_DROP_SHADOW = 2048, FLAG_DROP_SPEC = 4096;
+constexpr int FLAG_DROP_ANY = FLAG_DROP_CLOSEST | FLAG_DROP_SHADOW | FLAG_DROP_SPEC;
 
 #ifdef PT_COUNT_OPS
 // per-call f32 operation counts of the fixed-cost helpers below
@@ -395,11 +400,16 @@ __device__ __forceinline__ bool object_t(const float* ob, int typ, V o, V d, flo
 // sweep's winner: a ray whose object winner is not emissive walks nothing,
 // the others take the any-hit walk up to that winner's t, and a hidden or
 // non-emissive winner comes back as no hit.
+// DROP (PATHTRACER_BVH_DROP's instances only): ``walk`` false skips the paged
+// walk as for a ray whose result is discarded (the plain version's
+// ``skip``): the mesh hides nothing from a lite query, whose answer is then
+// no hit, and adds nothing to a closest hit.  Without DROP ``walk`` is not
+// read, and the code is the walk's alone.
 // PAGED is a template argument of the whole kernel: launches without pages
 // run code that holds nothing of the paged walk, so the walk's registers
 // and code do not weigh on scenes that have no large mesh.
-template <bool PAGED>
-__device__ Hit intersect(const Scene& S, V o, V d, int exclude, bool lite OPS_PARAM) {
+template <bool PAGED, bool DROP = false>
+__device__ Hit intersect(const Scene& S, V o, V d, int exclude, bool lite, bool walk OPS_PARAM) {
   const float t_min = F(0.001);
   float a = dot(d, d);
   float inv_a = 1.0f / a;
@@ -428,7 +438,7 @@ __device__ Hit intersect(const Scene& S, V o, V d, int exclude, bool lite OPS_PA
     const V inv = mk(inv_dx, inv_dy, inv_dz);
     if (lite && !S.tri_emissive) {
       bool seen = obj_hit && (int)S.mat[(int)S.obj[best_obj * OBJ_STRIDE + 1] * MAT_STRIDE] == MAT_EMISSIVE;
-      if (seen) WALK_CLOCK(seen = !paged_occluded(S.pages, o, d, inv, t_min, best_t OPS_ARG));
+      if (seen) WALK_CLOCK(seen = (!DROP || walk) && !paged_occluded(S.pages, o, d, inv, t_min, best_t OPS_ARG));
       if (!seen) {
         Hit h;
         h.hit = false;
@@ -439,7 +449,7 @@ __device__ Hit intersect(const Scene& S, V o, V d, int exclude, bool lite OPS_PA
         h.obj_idx = h.obj_type = h.mat_idx = h.mtyp = 0;
         return h;
       }
-    } else {
+    } else if (!DROP || walk) {
       PagedWinner w;
       WALK_CLOCK(w = paged_traverse(S.pages, o, d, inv, t_min, best_t, __int_as_float(0x7f800000),
                                     (float)exclude OPS_ARG));
@@ -662,8 +672,10 @@ __device__ __forceinline__ V luminance_clamp(V c) {
 // 8, two draws each; above that one draw for the start of a window of 8
 // consecutive lights (modulo the count), two draws and one shadow ray per
 // slot, the sum scaled by count/8.  Non-sphere lights contribute nothing.
-template <bool PAGED>
-__device__ V direct_light(const Scene& S, V p, V n, V albedo, uint32_t& st OPS_PARAM) {
+// DROP and ``walk`` false: the shadow rays skip the paged walk, and a
+// skipped ray counts as blocked (the plain version's ``skip``).
+template <bool PAGED, bool DROP = false>
+__device__ V direct_light(const Scene& S, V p, V n, V albedo, uint32_t& st, bool walk OPS_PARAM) {
   V total = mk(0.0f, 0.0f, 0.0f);
   const float PI4 = 4.0f * F(3.14159265359);
   const int count = S.n_lights;
@@ -701,7 +713,7 @@ __device__ V direct_light(const Scene& S, V p, V n, V albedo, uint32_t& st OPS_P
     valid = valid && cos_s > 0.0f && cos_l > 0.0f;
     if (!valid) continue;
     OPS(7);
-    if (occluded<PAGED>(S, add(p, muls(n, F(0.001))), wi, dist - F(0.002), ~0u OPS_ARG)) continue;
+    if ((DROP && !walk) || occluded<PAGED>(S, add(p, muls(n, F(0.001))), wi, dist - F(0.002), ~0u OPS_ARG)) continue;
     OPS(13 + C_LUM_CLAMP + 3);
     float inv_d2 = 1.0f / nmax(dist_sq, F(1e-6));
     float w = cos_s * cos_l * inv_d2 * nmin(inv_pdf, F(1e6));
@@ -1088,7 +1100,7 @@ constexpr int FOG_STEPS = 24;
 template <bool PAGED>
 __device__ __forceinline__ V fog_march(const Scene& S, const Fog& fp, V o, V d, uint32_t& st OPS_PARAM) {
   WSTAGE_BEGIN(hit_t0);
-  Hit h = intersect<PAGED>(S, o, d, -1, false OPS_ARG);
+  Hit h = intersect<PAGED>(S, o, d, -1, false, true OPS_ARG);
   WSTAGE_END(hit_t0, STAGE_MHIT);
   float t_max = nmin(h.hit ? h.t : F(40.0), F(40.0));
   float step = t_max * F(1.0 / FOG_STEPS);
@@ -1121,12 +1133,15 @@ __device__ __forceinline__ V fog_march(const Scene& S, const Fog& fp, V o, V d, 
 // roulette; every lane draws D.shade_draws + 1 uniforms, whatever it does
 // (PHYSICS.md D7).  Returns whether the path goes on (a path also ends where
 // depth dep + 1 reaches max_depth); the ray and throughput then move on.
-template <bool PAGED>
+// DROP: the instance that reads PATHTRACER_BVH_DROP's flags (a paged launch
+// whose flags carry one); the others hold the walks alone.
+template <bool PAGED, bool DROP = false>
 __device__ __forceinline__ bool gpu_bounce(const Scene& S, const Params& P, const Shading& D, int dep, V& orig,
                                            V& dir, V& thr, V& col, uint32_t& st, int& glass_obj,
                                            float& glass_dist OPS_PARAM) {
   STAGE_BEGIN(isect_t0);
-  Hit h = intersect<PAGED>(S, orig, dir, D.dielectric ? glass_obj : -1, false OPS_ARG);
+  Hit h = intersect<PAGED, DROP>(S, orig, dir, D.dielectric ? glass_obj : -1, false, !(P.flags & FLAG_DROP_CLOSEST)
+                                 OPS_ARG);
   STAGE_END(isect_t0, STAGE_ISECT);
   if (!h.hit) {
     OPS(C_NORMALIZE + C_BACKGROUND + 6 + (D.sky_fog ? 11 : 0));
@@ -1170,7 +1185,7 @@ __device__ __forceinline__ bool gpu_bounce(const Scene& S, const Params& P, cons
     if (is_lambert || is_rough_metal) {
       NEE_ENTRY();
       STAGE_BEGIN(nee_t0);
-      direct = direct_light<PAGED>(S, p, n, albedo, st OPS_ARG);
+      direct = direct_light<PAGED, DROP>(S, p, n, albedo, st, !(P.flags & FLAG_DROP_SHADOW) OPS_ARG);
       STAGE_END(nee_t0, STAGE_NEE);
     } else {
       skip_u(st, D.nee_draws);
@@ -1197,7 +1212,8 @@ __device__ __forceinline__ bool gpu_bounce(const Scene& S, const Params& P, cons
   if (D.rough_metal && D.nee && is_rough_metal && !metal_dead) {
     OPS(6);
     STAGE_BEGIN(lite_t0);
-    Hit r = intersect<PAGED>(S, add(p, muls(n, F(0.001))), mirror_dir, -1, true OPS_ARG);
+    Hit r = intersect<PAGED, DROP>(S, add(p, muls(n, F(0.001))), mirror_dir, -1, true, !(P.flags & FLAG_DROP_SPEC)
+                                   OPS_ARG);
     STAGE_END(lite_t0, STAGE_LITE);
     if (r.hit && r.mtyp == MAT_EMISSIVE) {
       OPS(24);

@@ -134,7 +134,7 @@ __global__ void __launch_bounds__(BLOCK, FOG_MIN_BLOCKS)
 // (fog_terms, when the flags ask for the fog once a pass); each iteration
 // traces one segment: a new sample's camera ray where the path ended
 // (reseeding at a pass boundary), else the ray goes on, then one bounce.
-template <bool PAGED>
+template <bool PAGED, bool DROP = false>
 __global__ void __launch_bounds__(BLOCK, PAGED ? B1_PAGED_MIN_BLOCKS : B1_MIN_BLOCKS)
     render_pass_kernel(Tables T, Params P, const int* __restrict__ g_px, const int* __restrict__ g_py,
                        const float* __restrict__ fog_terms, float* __restrict__ out,
@@ -212,7 +212,7 @@ __global__ void __launch_bounds__(BLOCK, PAGED ? B1_PAGED_MIN_BLOCKS : B1_MIN_BL
       RNG(3);
     }
     segs += 1;
-    alive = gpu_bounce<PAGED>(S, P, D, dep, orig, dir, thr, col, st, glass_obj, glass_dist OPS_ARG);
+    alive = gpu_bounce<PAGED, DROP>(S, P, D, dep, orig, dir, thr, col, st, glass_obj, glass_dist OPS_ARG);
     dep += 1;
     LANE_DONE();
     if (!alive && s >= total) {
@@ -264,7 +264,8 @@ extern "C" int pt_render_pass(PT_SCENE_PARAMS, const int* px, const int* py, int
   P.rr_threshold = rr_threshold; P.flags = flags;
   const bool paged = n_pages > 0;
   const size_t smem = scene_smem_bytes(P);
-  auto kernel = paged ? render_pass_kernel<true> : render_pass_kernel<false>;
+  auto kernel = !paged ? render_pass_kernel<false>
+                : (flags & FLAG_DROP_ANY) ? render_pass_kernel<true, true> : render_pass_kernel<true>;
   cudaError_t e = prepare_launch(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   int grid = (n_lanes + BLOCK - 1) / BLOCK;

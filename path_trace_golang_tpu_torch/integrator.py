@@ -22,6 +22,7 @@ the call (:func:`trace_grid`).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -73,12 +74,33 @@ class TraceConfig:
     has_dielectric: bool = True
     rr_threshold: int = 3  # gpu.go:1649
     regen: bool = True
+    # for timing only (PATHTRACER_BVH_DROP=closest,shadow,spec): the named walks
+    # of a paged mesh are skipped, as by lanes whose result is discarded.  The
+    # images are wrong by design; tools/perf/walk_attrib.py times each walk's
+    # share of a render with it.  Never set it in real use.
+    debug_drop: tuple = ()
+
+
+def _parse_bvh_drop(raw: str) -> tuple:
+    """Parse PATHTRACER_BVH_DROP strictly: a typo raises rather than silently
+    timing the base configuration.  The knob names walks of the gpu
+    contract's bounce and NEE: it is inert under the cpu contract, and on
+    scenes without a paged mesh."""
+    toks = [w.strip() for w in raw.split(",") if w.strip()]
+    bad = [w for w in toks if w not in ("closest", "shadow", "spec")]
+    if bad:
+        raise ValueError(
+            f"PATHTRACER_BVH_DROP: unknown walk name(s) {bad!r}; "
+            "valid tokens are closest, shadow, spec"
+        )
+    return tuple(sorted(toks))
 
 
 def trace_config_for_scene(
     sc_pack: ScenePack, scene, max_depth: int, contract: str = "gpu", faithful_fog: bool = False
 ) -> TraceConfig:
-    """A TraceConfig with feature flags read off the scene (integrator.py:103)."""
+    """A TraceConfig with feature flags read off the scene (integrator.py:103)
+    and the walks that ``PATHTRACER_BVH_DROP`` names."""
     has_rough_metal = False
     has_dielectric = False
     for m in scene.materials:
@@ -103,6 +125,7 @@ def trace_config_for_scene(
         has_rough_metal=has_rough_metal,
         has_dielectric=has_dielectric,
         regen=contract == "gpu" and not (bool(fogm) and bool(faithful_fog)),
+        debug_drop=_parse_bvh_drop(os.environ.get("PATHTRACER_BVH_DROP", "")),
     )
 
 
@@ -185,6 +208,8 @@ def _shade_gpu(hit: Hit, dirv: V3, throughput: V3, radiance: V3, rng: LaneRng, p
         if alive is not None:
             uses_direct = (is_lambert | is_metal) if cfg.has_rough_metal else is_lambert
             nee_skip = ~(alive & hit.hit & uses_direct)
+        if "shadow" in cfg.debug_drop:
+            nee_skip = torch.ones_like(is_lambert)
         direct = lights_ops.estimate_direct_light(p, n, hit.albedo, pack, rng, skip=nee_skip)
     else:
         direct = zero3
@@ -221,6 +246,8 @@ def _shade_gpu(hit: Hit, dirv: V3, throughput: V3, radiance: V3, rng: LaneRng, p
     if cfg.has_rough_metal and cfg.enable_nee:
         refl_orig = p + n * 0.001
         spec_skip = None if alive is None else ~(alive & is_rough_metal & ~metal_dead)
+        if "spec" in cfg.debug_drop:
+            spec_skip = torch.ones_like(is_rough_metal)
         rhit = intersect_world(refl_orig, mirror_dir, pack, 0.001, lite=True, skip=spec_skip)
         dist_sq = torch.clamp_min(rhit.t * rhit.t, 1e-20)
         cos_light = torch.clamp_min(-(rhit.normal.dot(mirror_dir)), 0.0)
@@ -297,7 +324,8 @@ def _bounce_gpu(pack: ScenePack, cfg: TraceConfig, orig: V3, dirv: V3, throughpu
     fog_block = pack.host("fog")
     zero3 = V3.zeros_like(orig.x)
     hit = intersect_world(
-        orig, dirv, pack, 0.001, exclude_obj=glass_obj if cfg.has_dielectric else None, skip=~alive,
+        orig, dirv, pack, 0.001, exclude_obj=glass_obj if cfg.has_dielectric else None,
+        skip=torch.ones_like(alive) if "closest" in cfg.debug_drop else ~alive,
     )
     bg = background_color(dirv.normalize(), pack.sky)
     if fog_block[0] > 0 and fog_block[2] > _f(0.5):  # legacy sky fog (gpu.go:1392)

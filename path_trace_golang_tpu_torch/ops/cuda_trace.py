@@ -112,6 +112,8 @@ NVCC_FLAGS = (
 FLAG_APERTURE, FLAG_LENS_DISK, FLAG_ROUGH_METAL, FLAG_DIELECTRIC = 1, 2, 4, 8
 FLAG_FOG_ONCE, FLAG_NORMALIZE, FLAG_NEE, FLAG_TRI_EMISSIVE = 16, 32, 64, 128
 FLAG_CPU, FLAG_FOG_TRACE = 256, 512
+# PATHTRACER_BVH_DROP's walks (integrator.TraceConfig.debug_drop), skipped on a paged mesh
+FLAG_DROP = {"closest": 1024, "shadow": 2048, "spec": 4096}
 
 _LIBS: dict = {}
 
@@ -620,6 +622,7 @@ def _flags(pack: ScenePack, tcfg, has_aperture=False, normalize_pass=False) -> i
         | (FLAG_TRI_EMISSIVE if pack.tri_any_emissive else 0)
         | (FLAG_CPU if tcfg.contract == "cpu" else 0)
         | (FLAG_FOG_TRACE if (tcfg.enable_fog_march and tcfg.fog_in_trace) else 0)
+        | sum(FLAG_DROP[w] for w in tcfg.debug_drop)
     )
 
 

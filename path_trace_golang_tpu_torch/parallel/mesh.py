@@ -141,12 +141,26 @@ def _sharded_pass(
     (PHYSICS.md D7).  Returns (accum_blk, this rank's segments, int64)."""
     ip, isp = mesh.get_coordinate()
     block = n_pad // mesh.size(0)
-    csize = block if chunk <= 0 else min(chunk, block)
     frame_seed = (base_seed + pass_base + isp * n_passes) & MASK32
+    col, segs = render_block(pack, frame_seed, ip * block, block, tcfg=tcfg, width=width, height=height,
+                             n_strata=n_strata, samples=samples, has_aperture=has_aperture,
+                             normalize_pass=normalize_pass, n_passes=n_passes, chunk=chunk)
+    dist.all_reduce(col, group=mesh.get_group("spp"))  # merge the simultaneous pass windows
+    accum_blk += col
+    return accum_blk, segs
+
+
+def render_block(pack: ScenePack, frame_seed: int, lo0: int, block: int, *, tcfg, width: int, height: int,
+                 n_strata: int, samples: int, has_aperture: bool, normalize_pass: bool, n_passes: int = 1,
+                 chunk: int = 0):
+    """A rank's work in one dispatch, without its collective: the pass window
+    ``n_passes`` from ``frame_seed`` on the lanes ``[lo0, lo0 + block)``, cut
+    into chunks of ``chunk`` lanes (0 = the whole block).  Returns (col
+    f32[block, 3], segments int64)."""
+    csize = block if chunk <= 0 else min(chunk, block)
     kw = dict(tcfg=tcfg, width=width, height=height, n_strata=n_strata, samples=samples, has_aperture=has_aperture,
               normalize_pass=normalize_pass)
-    dev = accum_blk.device
-    lo0 = ip * block
+    dev = pack.device
     if regen_enabled(tcfg):
         cols = []
         segs = torch.zeros((), dtype=torch.int64, device=dev)
@@ -161,9 +175,20 @@ def _sharded_pass(
         col = torch.zeros((block, 3), dtype=torch.float32, device=dev)
         px, py = idx % width, torch.div(idx, width, rounding_mode="floor")
         segs = cuda_trace.classic_render(col, pack, frame_seed, px, py, chunk=csize, n_passes=n_passes, **kw)
-    dist.all_reduce(col, group=mesh.get_group("spp"))  # merge the simultaneous pass windows
-    accum_blk += col
-    return accum_blk, segs
+    return col, segs
+
+
+def dispatch_plan(tcfg, passes: int, n_spp: int, interactive: bool = False):
+    """(window, dispatches) of a render of ``passes`` passes: the JAX MeshRenderer's windows (mesh.py:219-234).
+    A dispatch advances ``n_spp * window`` passes, the passes rounded up to whole dispatches; the window is
+    capped at the update cadence where the render is ``interactive`` (callbacks or checkpointing)."""
+    window = 1
+    if regen_enabled(tcfg):
+        window = max(1, int(os.environ.get("PATHTRACER_PASS_WINDOW", "8")))
+    window = max(1, min(window, -(-passes // n_spp)))
+    if interactive:
+        window = max(1, min(window, passes // max(1, 10 * n_spp)))
+    return window, -(-passes // (n_spp * window))
 
 
 class MeshRenderer:
@@ -245,18 +270,10 @@ class MeshRenderer:
         gpu = self.contract == "gpu"
         n_strata, samples = (4, 16) if gpu else (1, 1)
 
-        # the JAX MeshRenderer's windows (mesh.py:219-234): a dispatch advances n_spp * window passes, the passes
-        # rounded up to whole dispatches; the window is capped at the update cadence under callbacks or
-        # checkpointing
-        window = 1
-        if regen_enabled(tcfg):
-            window = max(1, int(os.environ.get("PATHTRACER_PASS_WINDOW", "8")))
         passes = max(1, cfg.samples_per_px)
-        window = max(1, min(window, -(-passes // n_spp)))
-        if progress is not None or cancel is not None or self.checkpoint_path:
-            window = max(1, min(window, passes // max(1, 10 * n_spp)))
+        window, dispatches = dispatch_plan(
+            tcfg, passes, n_spp, progress is not None or cancel is not None or bool(self.checkpoint_path))
         per_dispatch = n_spp * window
-        dispatches = -(-passes // per_dispatch)
         update_every = max(1, dispatches // 10)
         total_passes = dispatches * per_dispatch
 

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import sys
 import time
 from typing import Callable, Optional
 
@@ -348,6 +349,18 @@ class Renderer:
     def _render(self, sc, cfg, contract, progress, cancel) -> np.ndarray:
         t0 = time.perf_counter()
         dev = self.device
+        # PATHTRACER_TIME_PHASES=1: a table of the render's phases on stderr, each timed to its end (JAX
+        # render.py:538-549, 738-744); the marks after device work synchronise the card first, so the phases
+        # add up to slightly more than a render without them.  Off, it adds nothing.
+        timed_phases = os.environ.get("PATHTRACER_TIME_PHASES", "") in ("1", "true", "on")
+        marks = []
+
+        def mark(name, sync=False):
+            if timed_phases:
+                if sync and dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                marks.append((name, time.perf_counter()))
+
         w, h = cfg.width, cfg.height
         n = w * h
         # as the JAX Renderer: every chunk traces ``chunk`` lanes, the last
@@ -359,7 +372,9 @@ class Renderer:
         n_pad = -(-n // chunk) * chunk
 
         pack = pack_scene(sc, w, h, device=dev)
+        mark("pack_scene")
         tcfg = trace_config_for_scene(pack, sc, cfg.max_depth, contract, faithful_fog=self.faithful_fog)
+        mark("trace_config")
         has_aperture = sc.camera.aperture > 0
         gpu = contract == BACKEND_GPU
         # the shader's strata arithmetic at 1 spp a pass; one sample under the cpu contract
@@ -391,6 +406,7 @@ class Renderer:
         if accum is None:
             accum = torch.zeros((n_pad, 3), dtype=torch.float32, device=dev)
         total_segs = torch.zeros((), dtype=torch.int64, device=dev)
+        mark("accum_init", sync=True)
         metrics = metrics_mod.MetricsLog(sink=self.metrics_sink)
         # each interval's record costs a read of the card (the non-finite count and the segments); where
         # nothing observes intervals, the render ends with one record instead (JAX render.py:662-671)
@@ -438,9 +454,11 @@ class Renderer:
                         accum[start:start + launch] += col
                         total_segs = total_segs + segs
             p += nw
+            mark(f"pass_window@{p}", sync=True)
             if observed and ((p % update_every) < nw or p == passes):
                 nonfinite = int(metrics_mod.nonfinite_count(accum))  # padding lanes too, as the JAX Renderer's
                 metrics.interval(p, int(total_segs), nonfinite)
+                mark(f"interval@{p}")
                 if self.checkpoint_path:
                     ckpt_mod.save_checkpoint(
                         self.checkpoint_path,
@@ -459,6 +477,11 @@ class Renderer:
         if not observed:
             nonfinite = int(metrics_mod.nonfinite_count(accum))
             metrics.interval(p, segs_total, nonfinite)
+        mark("final_fetch")
+        prev = t0
+        for name, tm in marks:
+            print(f"  phase {name:<18} {(tm - prev) * 1e3:8.1f} ms", file=sys.stderr)
+            prev = tm
         self.stats = RenderStats(
             passes=p,
             samples_per_pixel=p * samples,

@@ -12,6 +12,10 @@ fast PyTorch's CPU kernels are, nothing about the card.
 
 from __future__ import annotations
 
+import json
+import os
+import subprocess
+import sys
 import time
 
 import torch
@@ -26,6 +30,70 @@ def resolve(device: str) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("the probes run on an NVIDIA card (pass --device cpu for the plain versions)")
     return dev
+
+
+# the plain versions' call counters of ops/cuda_trace.py: a render on the card calls none of them
+PLAIN_COUNTERS = ("PLAIN_CALLS", "FOG_PLAIN_CALLS", "TRACE_PLAIN_CALLS", "WALK_PLAIN_CALLS")
+
+
+def plain_calls() -> int:
+    """Calls of the plain versions in this process so far."""
+    from ...ops import cuda_trace
+
+    return sum(getattr(cuda_trace, c) for c in PLAIN_COUNTERS)
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def card_line(dev: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit`` gives them (the name
+    alone where nvidia-smi cannot be read); "cpu" on the CPU."""
+    if dev.type != "cuda":
+        return "cpu"
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i",
+                              str(index)], capture_output=True, text=True, timeout=30)
+        if out.returncode == 0 and out.stdout.strip():
+            return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.TimeoutExpired):
+        pass
+    return torch.cuda.get_device_name(index)
+
+
+def scene_named(name: str, fallback: str):
+    """(scene, label): the scene file that ``scene.builtin.find_scene`` resolves ``name`` to, else the builtin
+    scene of that name, else the builtin ``fallback`` (as the JAX package's bench.py:108-114 falls back to
+    demo_showcase); the label says which."""
+    from ...scene import builtin
+    from ...scene import io as scene_io
+
+    path = builtin.find_scene(name)
+    if path is not None:
+        return scene_io.load(path), os.path.basename(path)
+    sc = builtin.builtin_scene(name)
+    if sc is not None:
+        return sc, f"{name}(builtin)"
+    return builtin.builtin_scene(fallback), f"{fallback}(builtin; no file for {name})"
+
+
+def finish(tool: str, dev: torch.device, fields: dict, out=None, plain=None) -> int:
+    """Print the tool's one JSON line (and write it to ``out`` where given): the tool, the device, the card's
+    name and power limit, the plain versions' calls (``plain``, or this process's) and ``fields``.  Returns the
+    exit code: 1 where a render on the card called a plain version."""
+    plain = plain_calls() if plain is None else plain
+    text = json.dumps({"tool": tool, "device": str(dev), "card": card_line(dev), "plain_calls": plain, **fields})
+    if out:
+        with open(out, "w") as f:
+            f.write(text + "\n")
+    print(text, flush=True)
+    if dev.type == "cuda" and plain:
+        print(f"{tool}: FAIL: {plain} calls of a plain version on the card", file=sys.stderr)
+        return 1
+    return 0
 
 
 def describe(dev: torch.device) -> str:
