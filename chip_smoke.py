@@ -229,7 +229,40 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     Renderer's phases): each must exit 0 with its JSON line and no call of
     a plain version.
 
-Phases 34 and 35 run in a third process (``--phases-34-35``), started
+36. PATHTRACER_NO_REGEN: the classic instance under the gpu contract (its
+    march kernel, which adds the fog once at sample 0, and its sample
+    kernel) held bit for bit, segments equal, to the plain classic loop on
+    demo_showcase (fog once) at 256x144 d12 and bench_mesh (paged) at
+    192x192 d8, each in 4 chunks of 10,000 lanes, the last padded, on
+    demo_cornell (no fog) at 256x144 d12 as one chunk launched through
+    render_pass_cuda, and on the padded last chunk of the 1080p NO_REGEN
+    frame (8 chunks of 2^18 lanes), there also to the chunk launched
+    alone; then, after phase 29, the Renderer on
+    the 1080p showcase, d12, one pass of 16 samples, under NO_REGEN beside
+    the regeneration path: Mrays/s of both, the classic instance's
+    launches, its time on the frame and its bound from the counting
+    build's operations, the two images within the goldens' bands,
+    nonfinite 0, no plain call;
+37. each profiling knob (PATHTRACER_PROF_NO_MESH_HIT, _LITE, _OCCL,
+    PATHTRACER_NO_WALK_SKIP) through the profiling build held bit for bit
+    to the plain versions on B1 paged and page-free with the fog kernel,
+    the classic instance under both contracts (NO_REGEN with fog once on a
+    static and a paged mesh, faithful fog) and B3; a mesh knob must change
+    the image of every path that runs its query, NO_WALK_SKIP none; after
+    phase 29 the Renderer with NO_WALK_SKIP and without on the 1080p
+    showcase (one pass) and bench_mesh 512x512 (what the knob costs on the
+    card: NEE and the specular-NEE query on every lane that hit), and the
+    shipped build's SASS digest of each library;
+38. union_stats, want_stats and build_probe at their smallest arguments
+    (union_stats exits 1 unless the counting build's sweep counts equal
+    its warp model).
+
+Phases 34 and 35 run in a third process (``--phases-34-35``), phase 36's
+holds of demo_cornell and bench_mesh, 37 and 38 in a fourth
+(``--phases-36-38``, which first builds the render libraries' eight
+profiling builds, side by side), and in a fifth (``--side-holds``) phase
+36's holds of the showcase, phase 15's faithful-fog frame as one chunk
+and phase 19's first chunk of the 1080p faithful-fog frame; all started
 beside the second and read with it.
 
 Phase 15's faithful-fog frame in 4 chunks and phase 19's padded last
@@ -256,8 +289,12 @@ phases 1, 2 (the render libraries only) and 34.  ``--tools`` runs phases
 1, 2 and every tool at its full arguments on one card (mesh_scaling and
 mesh_attrib at 1920x1080 on demo_showcase and on bench_mesh, the others at
 the JAX tools' defaults), each tool's log and JSON line written under
-build/tools/; ``--tools --across-cards`` the two mesh tools alone,
-over NCCL one card a rank.
+build/tools/ (the page statistics at 10k, 40k and 100k triangles);
+``--tools --across-cards`` the two mesh tools alone, over NCCL one card a
+rank.  ``--knobs`` runs phases 1, 2 (the render libraries and their
+profiling builds) and 36-38; ``--sass`` prints the shipped build's SASS
+digest of each library (a copy of this script in another tree's root
+digests that tree).
 
 ``--render-only [scene width height passes depth renders]`` (defaults:
 demo_showcase 1920 1080 8 12 5) times the Renderer alone with the code of
@@ -573,12 +610,13 @@ def hold_classic_frame(pt, cuda_trace, tag, name, w, h, depth, chunk, n_passes, 
     return bits == 1.0 and int(segs_k) == int(segs_p) and launches == shape, err
 
 
-def hold_fog_chunk(cuda_trace, pack, kw, frame_acc, px, py, c0, chunk, n):
-    """Phase 19: the chunk at lane ``c0`` of the 1080p faithful-fog frame,
-    whose one pass ``frame_acc`` holds from the frame's launches over all
-    chunks, against the plain version on that chunk and against the chunk
-    launched alone, bit for bit with segments equal.  Returns (held,
-    largest |a-b|, seconds of the plain version)."""
+def hold_classic_chunk(cuda_trace, tag, label, pack, kw, frame_acc, px, py, c0, chunk, n):
+    """Phases 19 and 36: the chunk at lane ``c0`` of a 1080p frame of the
+    classic instance (faithful fog, or the gpu contract under
+    PATHTRACER_NO_REGEN), whose one pass ``frame_acc`` holds from the
+    frame's launches over all chunks, against the plain version on that
+    chunk and against the chunk launched alone, bit for bit with segments
+    equal.  Returns (held, largest |a-b|, seconds of the plain version)."""
     import torch
 
     cpx, cpy = px[c0:c0 + chunk], py[c0:c0 + chunk]
@@ -593,7 +631,7 @@ def hold_fog_chunk(cuda_trace, pack, kw, frame_acc, px, py, c0, chunk, n):
     share, seg_gap, mean_gap, err = lane_stats(got, want, segs_k, segs_p)
     bits = bit_share(got, want)
     print(
-        f"[19] demo_showcase 1920x1080 d12 faithful fog, the chunk at lane {c0} ({chunk} lanes, "
+        f"[{tag}] {label}, the chunk at lane {c0} ({chunk} lanes, "
         f"{max(0, c0 + chunk - n)} of them padding, frame seed 1; the kernel's lanes from the frame's launches "
         f"over all chunks): lanes matching {share:.4%}, bit-identical {bits:.4%}, segments {int(segs_k)} vs "
         f"{int(segs_p)} (the chunk launched alone; gap {seg_gap:.4%}), channel-mean gap {mean_gap:.4%}, "
@@ -618,7 +656,8 @@ def classic_holds(pt, cuda_trace) -> bool:
     px, py = lanes(1920, 1080, 0, n_pad)
     acc = torch.zeros((n_pad, 3), dtype=torch.float32, device=DEVICE)
     cuda_trace.classic_render_cuda(acc, pack, 1, px, py, chunk=chunk, **kw)
-    last, _err, _s = hold_fog_chunk(cuda_trace, pack, kw, acc, px, py, n_pad - chunk, chunk, n)
+    last, _err, _s = hold_classic_chunk(cuda_trace, "19", "demo_showcase 1920x1080 d12 faithful fog", pack, kw, acc,
+                                        px, py, n_pad - chunk, chunk, n)
     return good and last
 
 
@@ -2325,6 +2364,388 @@ def run_tools(tools, card, tag, out_dir=None, extra=()):
     return results
 
 
+# ---- phases 36-38: PATHTRACER_NO_REGEN, the profiling knobs, the page statistics
+# phase 36's holds of the classic instance under the gpu contract: (scene, width, height, depth); the first two
+# in 4 chunks of SMALL_CHUNK lanes, the last padded, the third as one chunk through cuda_trace.render_pass_cuda
+NOREGEN_HOLDS = (("demo_showcase", 256, 144, 12), ("bench_mesh", 192, 192, 8), ("demo_cornell", 256, 144, 12))
+NOREGEN_FRAME = ("demo_showcase", 1920, 1080, 1, 12)  # phase 36's full-width render: scene, w, h, passes, depth
+# phase 37's timed pair of PATHTRACER_NO_WALK_SKIP: (scene, w, h, passes, depth), the main path's frame (one
+# pass) and the mesh path's
+WALK_SKIP_CELLS = (("demo_showcase", 1920, 1080, 1, 12), ("bench_mesh", 512, 512, 8, 8))
+GOLDEN_BANDS = (0.015, 0.06)  # tests/test_goldens.py: the image mean within 1.5%, its std within 6%
+# the profiling knobs: (variable, TraceConfig's name for it)
+KNOBS = (("PATHTRACER_PROF_NO_MESH_HIT", "hit"), ("PATHTRACER_PROF_NO_MESH_LITE", "lite"),
+         ("PATHTRACER_PROF_NO_MESH_OCCL", "occl"), ("PATHTRACER_NO_WALK_SKIP", "walk_all"))
+# phase 37's paths: (label, scene, width, height, depth, contract, faithful fog, environment, the knobs that must
+# change its image: every query type that the path runs on a mesh)
+KNOB_PATHS = (
+    ("B1 paged instance", "demo_mesh", 64, 64, 4, "gpu", False, {}, ("hit", "occl")),
+    ("B1 page-free (static mesh) and the fog kernel", "demo_showcase", 64, 64, 4, "gpu", False, {},
+     ("hit", "occl")),
+    ("classic instance, gpu contract under NO_REGEN, paged", "demo_mesh", 64, 64, 4, "gpu", False,
+     {"PATHTRACER_NO_REGEN": "1"}, ("hit", "occl")),
+    ("classic instance, gpu contract under NO_REGEN, fog once, static mesh", "demo_showcase", 64, 32, 3, "gpu",
+     False, {"PATHTRACER_NO_REGEN": "1"}, ("hit", "occl")),
+    ("classic instance, gpu contract under NO_REGEN, fog once, paged", "demo_showcase", 64, 32, 3, "gpu", False,
+     {"PATHTRACER_NO_REGEN": "1", "PATHTRACER_BVH_DYNAMIC": "1"}, ("hit", "occl")),
+    ("classic instance, cpu contract, paged", "demo_mesh", 64, 64, 4, "cpu", False, {}, ("hit",)),
+    ("classic instance, faithful fog, paged", "demo_showcase", 64, 32, 3, "gpu", True,
+     {"PATHTRACER_BVH_DYNAMIC": "1"}, ("hit", "occl")),
+)
+# phase 38 at the smallest arguments; --tools at full ones
+PAGE_TOOLS_SMOKE = (
+    ("union_stats", TOOL + "union_stats", ["--sizes", "80x64", "--rows", "8"], {}),
+    ("want_stats", TOOL + "want_stats", ["--sizes", "80x64", "--rows", "8"], {}),
+    ("build_probe", TOOL + "build_probe", ["--rows", "8"], {}),
+)
+PAGE_TOOLS_FULL = tuple((label, module, [], {}) for label, module, _a, _e in PAGE_TOOLS_SMOKE)
+
+
+class env_set:
+    """Set environment variables for a block, and put back what was there."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        for k, v in self.values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def noregen_holds(pt, cuda_trace):
+    """Phase 36's holds in the fourth process: under PATHTRACER_NO_REGEN the
+    gpu contract runs the classic instance (the march kernel, then the
+    sample kernel, 16 samples a pass), held bit for bit with segments equal
+    to its plain version, the classic loop of render.pass_body_grid: a
+    scene without fog as one chunk, launched through render_pass_cuda as
+    the Renderer launches a pass, and the paged mesh in 4 chunks, the last
+    padded (the showcase's fog once: ``noregen_chunk_holds``).  Returns
+    (all held, seconds by scene: of the plain version, of the whole
+    chunked hold)."""
+    good, plain = True, {}
+    with env_set(PATHTRACER_NO_REGEN="1"):
+        name, w, h, depth = NOREGEN_HOLDS[1]
+        t0 = time.perf_counter()
+        good, _err = hold_classic_frame(pt, cuda_trace, "36", name, w, h, depth, SMALL_CHUNK, 1, "gpu", False)
+        plain[name] = time.perf_counter() - t0
+        for name, w, h, depth in NOREGEN_HOLDS[2:]:
+            _sc, pack, kw = scene_setup(pt, name, w, h, depth)
+            before = (cuda_trace.CLASSIC_LAUNCHES, cuda_trace.MARCH_LAUNCHES, cuda_trace.FOG_LAUNCHES)
+            held, _err, secs = hold_pass(pt, cuda_trace, "36", name, w, h, depth, passes=(1,))
+            launched = (cuda_trace.CLASSIC_LAUNCHES - before[0], cuda_trace.MARCH_LAUNCHES - before[1],
+                        cuda_trace.FOG_LAUNCHES - before[2])
+            ok = held and not kw["tcfg"].regen and launched == (16, 16, 0)
+            plain[name] = secs[1]
+            print(f"[36] {name}: the config's regen {kw['tcfg'].regen}, fog once "
+                  f"{kw['tcfg'].enable_fog_march and not kw['tcfg'].fog_in_trace}, pages {pack.paged is not None}; "
+                  f"launches of the sample kernel, the march kernel and the fog kernel {launched} (want 16, 16, 0): "
+                  f"{'held' if ok else 'FAIL'}", flush=True)
+            good = good and ok
+    return good, plain
+
+
+def noregen_chunk_holds(pt, cuda_trace) -> bool:
+    """Phase 36's chunked holds of the showcase: under PATHTRACER_NO_REGEN
+    the classic instance with the fog once a pass, at 256x144 in 4 chunks
+    of 10,000 lanes, the last padded, and on the padded last chunk of the
+    1080p frame that phase 36 times (8 chunks of the default chunk), each
+    held bit for bit with segments equal to the plain version chunk by
+    chunk.  Returns (both held, seconds of the plain version on the 1080p
+    chunk)."""
+    import torch
+
+    t0 = time.perf_counter()
+    with env_set(PATHTRACER_NO_REGEN="1"):
+        name, w, h, depth = NOREGEN_HOLDS[0]
+        good, _err = hold_classic_frame(pt, cuda_trace, "36", name, w, h, depth, SMALL_CHUNK, 1, "gpu", False)
+        name, w, h, _passes, depth = NOREGEN_FRAME
+        chunk, n = pt.render.env_config.get_chunk_size(), w * h
+        n_pad = -(-n // chunk) * chunk
+        _sc, pack, kw = scene_setup(pt, name, w, h, depth)
+        px, py = lanes(w, h, 0, n_pad)
+        acc = torch.zeros((n_pad, 3), dtype=torch.float32, device=DEVICE)
+        cuda_trace.classic_render_cuda(acc, pack, 1, px, py, chunk=chunk, **kw)
+        fog_once = kw["tcfg"].enable_fog_march and not kw["tcfg"].fog_in_trace
+        last, _err, plain_s = hold_classic_chunk(cuda_trace, "36", f"{name} {w}x{h} d{depth} under NO_REGEN (fog "
+                                                 f"once {fog_once}, {n_pad // chunk} chunks)", pack, kw, acc, px,
+                                                 py, n_pad - chunk, chunk, n)
+        good = good and last and not kw["tcfg"].regen and fog_once
+    print(f"[36] the showcase's chunked holds in {time.perf_counter() - t0:.1f} s: {'held' if good else 'FAIL'}",
+          flush=True)
+    return good, plain_s
+
+
+def side_holds(pt, cuda_trace) -> bool:
+    """``--side-holds``: the main run's fifth process, beside phases 7-10:
+    phase 36's chunked holds of the showcase (``noregen_chunk_holds``),
+    phase 15's faithful-fog frame at 256x144 d12 as one chunk and phase
+    19's first chunk of the 1080p faithful-fog frame (rendered here as the
+    Renderer launches it, frame seed 1), each bit for bit with segments
+    equal.  Prints ``SIDE-HOLDS {json}`` with the largest |a-b| and the
+    seconds of the plain version on the two 1080p chunks; returns whether
+    all held."""
+    import torch
+
+    t0 = time.perf_counter()
+    good, noregen_plain_s = noregen_chunk_holds(pt, cuda_trace)
+    held, err, _s = hold_pass(pt, cuda_trace, "15", "demo_showcase", 256, 144, 12, passes=(1,), contract="gpu",
+                              faithful=True)
+    good = good and held
+    chunk, n = pt.render.env_config.get_chunk_size(), 1920 * 1080
+    n_pad = -(-n // chunk) * chunk
+    _sc, pack, kw = scene_setup(pt, "demo_showcase", 1920, 1080, 12, "gpu", True)
+    px, py = lanes(1920, 1080, 0, n_pad)
+    acc = torch.zeros((n_pad, 3), dtype=torch.float32, device=DEVICE)
+    cuda_trace.classic_render_cuda(acc, pack, 1, px, py, chunk=chunk, **kw)
+    first, err19, plain_s = hold_classic_chunk(cuda_trace, "19", "demo_showcase 1920x1080 d12 faithful fog", pack, kw,
+                                               acc, px, py, 0, chunk, n)
+    good = good and first
+    print(f"[15/19/36] the fifth process's holds in {time.perf_counter() - t0:.1f} s: {'held' if good else 'FAIL'}",
+          flush=True)
+    print("SIDE-HOLDS " + json.dumps({"max_abs_err": max(err, err19), "fog_chunk_plain_s": plain_s,
+                                      "noregen_chunk_plain_s": noregen_plain_s}), flush=True)
+    return good
+
+
+def knob_image(cuda_trace, pack, kw, px, py):
+    col, segs = cuda_trace.render_pass_cuda(pack, 7, px, py, n_passes=1, **kw)
+    return col.to_rows(), int(segs)
+
+
+def knob_phase(pt, cuda_trace, card):
+    """Phase 37: each profiling knob through the profiling build of the
+    kernels, held bit for bit (segments equal) to the plain versions on
+    every path of KNOB_PATHS and on B3 through trace(); each mesh knob must
+    change the image of the paths that run its query type, and
+    PATHTRACER_NO_WALK_SKIP must leave every image as the shipped build's,
+    bit for bit.  Returns ({path: {knob: held}}, all held)."""
+    import numpy as np
+    import torch
+
+    held, good = {}, True
+    unset = {var: None for var, _ in KNOBS}
+    for label, name, w, h, depth, contract, faithful, env, must_move in KNOB_PATHS:
+        px, py = lanes(w, h)
+        with env_set(**{**unset, **env}):
+            _sc, pack, kw = scene_setup(pt, name, w, h, depth, contract, faithful)
+            base, base_segs = knob_image(cuda_trace, pack, kw, px, py)
+        for var, knob in KNOBS:
+            with env_set(**{**unset, **env, var: "1"}):
+                _sc, pack, kw = scene_setup(pt, name, w, h, depth, contract, faithful)
+                bits_of = cuda_trace.prof_bits(kw["tcfg"])
+                col_k, segs_k = knob_image(cuda_trace, pack, kw, px, py)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                col_p, segs_p = cuda_trace.render_pass_plain(pack, 7, px, py, n_passes=1, **kw)
+                torch.cuda.synchronize()
+                plain_s = time.perf_counter() - t0
+            a, b = col_k, col_p.to_rows()
+            bits = torch.equal(a.view(torch.int32), b.view(torch.int32)) and segs_k == int(segs_p)
+            moved = int((a != base).any(dim=1).sum())
+            if knob == "walk_all":
+                ok = bits and moved == 0 and segs_k == base_segs
+            else:
+                ok = bits and (moved > 0 or knob not in must_move)
+            held.setdefault(label, {})[knob] = ok
+            good = good and ok and bits_of != 0
+            print(f"[37] {label}, {name} {w}x{h} d{depth}, {var}=1 (PT_PROF={bits_of}): kernel against plain "
+                  f"bit-identical {bits} (segments {segs_k} vs {int(segs_p)}), lanes that differ from the shipped "
+                  f"build's image {moved} of {w * h}{' (must be 0)' if knob == 'walk_all' else ''}"
+                  f"{' (must be > 0)' if knob in must_move else ''}: {'held' if ok else 'FAIL'}; plain version "
+                  f"{plain_s:.1f} s", flush=True)
+    # B3 through trace(), gpu contract, on demo_mesh's pages
+    with env_set(**unset):
+        _sc, pack, kw = scene_setup(pt, "demo_mesh", 64, 64, 8)
+        o, d = walk_rays(pack, 64, 64, 2048, 2048, seed=37)
+        state = torch.from_numpy(np.random.default_rng(38).integers(0, 2**32, size=o.x.numel(),
+                                                                    dtype=np.int64)).to(DEVICE)
+        base = cuda_trace.trace_grid_cuda(o, d, state, pack, kw["tcfg"])[0].to_rows()
+    for var, knob in KNOBS:
+        with env_set(**{**unset, var: "1"}):
+            _sc, pack, kw = scene_setup(pt, "demo_mesh", 64, 64, 8)
+            rk, sk, gk = cuda_trace.trace_grid_cuda(o, d, state, pack, kw["tcfg"])
+            rp, sp, gp = cuda_trace.trace_grid_plain(o, d, state, pack, kw["tcfg"])
+        a, b = rk.to_rows(), rp.to_rows()
+        bits = torch.equal(a.view(torch.int32), b.view(torch.int32)) and torch.equal(sk, sp) and int(gk) == int(gp)
+        moved = int((a != base).any(dim=1).sum())
+        ok = bits and (moved == 0 if knob == "walk_all" else moved > 0 or knob == "lite")
+        held.setdefault("B3 through trace()", {})[knob] = ok
+        good = good and ok
+        print(f"[37] B3 through trace(), demo_mesh gpu contract d8, {var}=1: {o.x.numel()} rays, radiance, state and "
+              f"segments bit-identical {bits}, rays that differ from the shipped build's {moved}: "
+              f"{'held' if ok else 'FAIL'} | card {card}", flush=True)
+    if not good:
+        print("[37] FAIL: a profiling build disagrees with its plain version, a mesh knob left an image as it was, "
+              "or PATHTRACER_NO_WALK_SKIP changed one", file=sys.stderr)
+    return held, good
+
+
+def sass_digests(cuda_trace):
+    """The shipped build's machine code: {source: (functions, sha256 of
+    ``cuobjdump -sass`` over its functions)}; the functions' own digests
+    under "functions".  A function's name is taken without its anonymous
+    namespace, whose mangled name holds a hash of the file's path."""
+    import hashlib
+    import re
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out, per_fn = {}, {}
+    for source in cuda_trace.SOURCES:
+        so = cuda_trace.build(False, source)
+        text = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True, check=True).stdout
+        fns, name, body = {}, None, []
+        for line in text.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                if name:
+                    fns[name] = hashlib.sha256("\n".join(body).encode()).hexdigest()[:16]
+                name, body = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "", m.group(1)), []
+            elif name and line.strip().startswith("/*"):
+                body.append(line.strip())
+        if name:
+            fns[name] = hashlib.sha256("\n".join(body).encode()).hexdigest()[:16]
+        whole = hashlib.sha256("".join(f"{k}:{v};" for k, v in sorted(fns.items())).encode()).hexdigest()[:16]
+        out[source] = (len(fns), whole)
+        per_fn[source] = fns
+    out["functions"] = per_fn
+    return out
+
+
+def noregen_timing(pt, cuda_trace, card):
+    """Phase 36's full-width run: the Renderer on the 1080p showcase, depth
+    12, one pass of 16 samples, under PATHTRACER_NO_REGEN beside the
+    regeneration path on the same passes; the classic instance's launches,
+    its device time on the frame and its bound from the counting build's
+    operations.  Returns a dict, or None on a failure."""
+    import torch
+
+    name, w, h, passes, depth = NOREGEN_FRAME
+    with env_set(PATHTRACER_NO_REGEN="1"):
+        classic = drive_renderer(pt, cuda_trace, "36", name, w, h, passes, depth, 3, card)
+        _sc, pack, kw = scene_setup(pt, name, w, h, depth)
+        chunk = min(pt.render.env_config.get_chunk_size(), w * h)
+        n_pad = -(-(w * h) // chunk) * chunk
+        fpx, fpy = lanes(w, h, 0, n_pad)
+        acc = torch.zeros((n_pad, 3), dtype=torch.float32, device=DEVICE)
+        frame = lambda: cuda_trace.classic_render_cuda(acc, pack, 1, fpx, fpy, chunk=chunk, n_passes=1, **kw)  # noqa
+        events_ms = cuda_time_ms(frame, 3)
+        names = ("classic_march_kernel", "classic_sample_kernel")
+        timed = device_ms(frame, names)
+        counted = cuda_trace.classic_count_split(acc, pack, 1, fpx, fpy, chunk=chunk, n_passes=1, **kw)
+    regen = drive_renderer(pt, cuda_trace, "36", name, w, h, passes, depth, 3, card)
+    sp = cuda_trace.classic_split([counted])
+    c = classic["counts"]
+    mean_k, mean_r = float(classic["img"].mean()), float(regen["img"].mean())
+    std_k, std_r = float(classic["img"].std()), float(regen["img"].std())
+    banded = abs(mean_k - mean_r) <= GOLDEN_BANDS[0] * mean_r and abs(std_k - std_r) <= GOLDEN_BANDS[1] * std_r
+    device = (sum(timed[k] for k in names) if all(timed[k] is not None for k in names) else None)
+    if device is not None and device < 0.5 * events_ms:  # the profiler's capture came back short: not a time
+        print(f"[36] torch.profiler saw {device:.3f} ms of the two kernels against {events_ms:.3f} ms of events: "
+              f"its capture is short, and not reported", flush=True)
+        device = timed["classic_march_kernel"] = timed["classic_sample_kernel"] = None
+    out = {
+        "mrays_classic": statistics.median(classic["rates"]), "mrays_regen": statistics.median(regen["rates"]),
+        "launches": c["CLASSIC_LAUNCHES"], "march_launches": c["MARCH_LAUNCHES"], "renders": 4,
+        "regen_launches_under_no_regen": c["LAUNCHES"] - c["CLASSIC_LAUNCHES"], "fog_launches": c["FOG_LAUNCHES"],
+        "events_ms": events_ms, "device_ms": device, "march_ms": timed["classic_march_kernel"],
+        "sample_ms": timed["classic_sample_kernel"], "ops": sp["ops"], "bound_ms": sp["bound_ops_ms"],
+        "bound_slots_ms": sp["bound_slots_ms"], "split": sp, "image_means": (mean_k, mean_r),
+        "image_stds": (std_k, std_r), "within_bands": banded,
+        "ptxas": ptxas_of(cuda_trace, "classic", "classic_"),
+    }
+    ok = (banded and classic["stats"].nonfinite == 0 and classic["plain_calls"] == 0 and regen["plain_calls"] == 0
+          and c["CLASSIC_LAUNCHES"] == 16 * 4 and c["MARCH_LAUNCHES"] == 16 * 4 and c["FOG_LAUNCHES"] == 0
+          and c["LAUNCHES"] == c["CLASSIC_LAUNCHES"])
+    print(f"[36] {name} {w}x{h} d{depth}, {passes} pass of 16 samples: under PATHTRACER_NO_REGEN "
+          f"{out['mrays_classic']:.3f} Mrays/s (the classic instance: {c['CLASSIC_LAUNCHES']} launches of the sample "
+          f"kernel and {c['MARCH_LAUNCHES']} of the march kernel over 4 renders, no other), the regeneration path "
+          f"{out['mrays_regen']:.3f} Mrays/s; the frame's classic call {events_ms:.3f} ms (events), device "
+          f"{device if device is None else round(device, 3)} ms (march {timed['classic_march_kernel']}, samples "
+          f"{timed['classic_sample_kernel']}), bound {sp['bound_ops_ms']:.4f} ms ({sp['ops']:.6g} f32 operations; "
+          f"{sp['bound_slots_ms']:.4f} ms as FFMA slots); images mean {mean_k:.4f} vs {mean_r:.4f}, std "
+          f"{std_k:.4f} vs {std_r:.4f}: within the goldens' bands {banded}; nonfinite {classic['stats'].nonfinite}; "
+          f"plain calls {classic['plain_calls']} | card {card}", flush=True)
+    print(f"[36] the classic instance's split under the gpu contract: {cuda_trace.classic_split_line(sp)} | card "
+          f"{card}", flush=True)
+    if not ok:
+        print("[36] FAIL: NO_REGEN's render left the goldens' bands, was not finite, called a plain version or did "
+              "not run on the classic instance alone", file=sys.stderr)
+        return None
+    return out
+
+
+def walk_skip_timing(pt, cuda_trace, card):
+    """Phase 37's timed pair: what PATHTRACER_NO_WALK_SKIP costs on the card.
+    There it makes every lane that hit run NEE, and every lane of a scene
+    with rough metal run the specular-NEE query, their results dropped
+    (common.cuh, PROF_WALK_ALL); a lane whose path ended or missed has left
+    its loop and walks nothing, where the JAX knob and the plain version
+    make such lanes walk.  The Renderer on each of WALK_SKIP_CELLS without
+    the knob, with it, with it and without (3 timed renders each).  Returns
+    {cell: (median Mrays/s without, with)}, or None where a render called
+    a plain version, was not finite or changed the image."""
+    import numpy as np
+
+    out, good = {}, True
+    for name, w, h, passes, depth in WALK_SKIP_CELLS:
+        runs = {}
+        for knob in (None, "1", "1", None):
+            with env_set(PATHTRACER_NO_WALK_SKIP=knob):
+                r = drive_renderer(pt, cuda_trace, "37", name, w, h, passes, depth, 3, card)
+            runs.setdefault(knob, []).append(r)
+        every = runs[None] + runs["1"]
+        same = all(np.array_equal(r["img"], every[0]["img"]) and r["stats"].ray_segments ==
+                   every[0]["stats"].ray_segments for r in every)
+        ok = same and all(r["plain_calls"] == 0 and r["stats"].nonfinite == 0 for r in every)
+        off = statistics.median([x for r in runs[None] for x in r["rates"]])
+        on = statistics.median([x for r in runs["1"] for x in r["rates"]])
+        out[f"{name} {w}x{h} d{depth} x{passes}"] = (off, on)
+        good = good and ok
+        print(f"[37] PATHTRACER_NO_WALK_SKIP on the card, {name} {w}x{h} d{depth} {passes} passes (off, on, on, off; "
+              f"3 renders each): {off:.3f} Mrays/s median without the knob, {on:.3f} with it (PT_PROF="
+              f"{cuda_trace.PROF_WALK_ALL}), {on / off:.4f} of it; images and segments equal {same}: "
+              f"{'held' if ok else 'FAIL'} | card {card}", flush=True)
+    return out if good else None
+
+
+def prof_variants(cuda_trace):
+    """The PT_PROF bits of phase 37's profiling builds: one knob each."""
+    return sorted({cuda_trace.PROF_BITS[k] for _v, k in KNOBS if k != "walk_all"} | {cuda_trace.PROF_WALK_ALL})
+
+
+def phases_36_38(pt, cuda_trace, card):
+    """``--phases-36-38`` (the default run's fourth process, beside phases
+    7-10) and ``--knobs``: the render libraries' profiling builds (one nvcc
+    each, side by side; --knobs built them in phase 2), phase 36's holds,
+    phase 37 and phase 38 at the tools' smallest arguments.  Prints a
+    summary line; returns whether all held."""
+    t0 = time.perf_counter()
+    jobs = [(src, b) for src in ("render_pass", "classic") for b in prof_variants(cuda_trace)]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        for f in [pool.submit(cuda_trace.build, False, src, b) for src, b in jobs]:
+            f.result()
+    print(f"[36-38] the profiling builds ready in {time.perf_counter() - t0:.1f} s", flush=True)
+    held36, plain36 = noregen_holds(pt, cuda_trace)
+    held37, good37 = knob_phase(pt, cuda_trace, card)
+    tools = run_tools(PAGE_TOOLS_SMOKE, card, "38") if held36 and good37 else None
+    print(f"[36-38] in {time.perf_counter() - t0:.1f} s | card {card}", flush=True)
+    print("PHASES-36-38 " + json.dumps({"noregen_held": held36, "noregen_plain_s": plain36, "knobs": held37,
+                                        "page_tools": {k: {"counted_equal": v.get("counted_equal")}
+                                                       for k, v in (tools or {}).items()}}), flush=True)
+    return held36 and good37 and tools is not None
+
+
 def main(argv) -> int:
     quick = "--quick" in argv
     t_start = time.perf_counter()
@@ -2399,6 +2820,10 @@ def main(argv) -> int:
 
     if "--classic-holds" in argv:
         return 0 if classic_holds(pt, cuda_trace) else 1
+    if "--phases-36-38" in argv:  # the default run's fourth process: the libraries are built
+        return 0 if phases_36_38(pt, cuda_trace, card) else 1
+    if "--side-holds" in argv:  # the default run's fifth process: the libraries are built
+        return 0 if side_holds(pt, cuda_trace) else 1
     if "--phases-34-35" in argv:  # the default run's third process: the libraries are built
         t_side = time.perf_counter()
         held, good = drop_phase(pt, cuda_trace, card)
@@ -2412,13 +2837,20 @@ def main(argv) -> int:
     probes_only, repro_only, front_only = "--probes" in argv, "--repro" in argv, "--front-end" in argv
     mesh_only = "--mesh" in argv
     drop_only, tools_only = "--drop" in argv, "--tools" in argv
+    knobs_only, sass_only = "--knobs" in argv, "--sass" in argv
     sources = ("probes",) if probes_only else ("repro",) if repro_only else (
-        ("render_pass", "classic") if front_only or mesh_only or drop_only or tools_only
+        ("render_pass", "classic") if front_only or mesh_only or drop_only or tools_only or knobs_only
         else tuple(cuda_trace.SOURCES))
+    # the variants: the shipped build, the counting build and, of the render libraries, the profiling builds
+    # of phase 37's knobs, one knob each
+    # (--sass builds the shipped build alone, and runs in a parent's tree too; the default run's fourth process
+    # builds the profiling builds beside phases 7-10, --knobs here)
+    jobs = [(src, c, {}) for src in sources for c in ((False,) if sass_only else (False, True))]
+    if knobs_only:
+        jobs += [(src, False, {"prof": b}) for src in sources for b in prof_variants(cuda_trace)]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2 * len(sources)) as pool:
-        builds = [pool.submit(cuda_trace.build, count_ops=c, source=src)
-                  for src in sources for c in (False, True)]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        builds = [pool.submit(cuda_trace.build, count_ops=c, source=src, **kw) for src, c, kw in jobs]
         sos = [b.result() for b in builds]
     print(
         f"[2] built {', '.join(os.path.relpath(so, HERE) for so in sos)} in {time.perf_counter() - t0:.1f} s",
@@ -2429,6 +2861,26 @@ def main(argv) -> int:
             if any(k in line for k in ("Compiling entry", "registers", "spill", "smem", "error", "warning")):
                 print(f"    ptxas {src}: {line.strip()}", flush=True)
 
+    if sass_only:
+        digests = sass_digests(cuda_trace)
+        for src, (n_fn, dig) in ((k, v) for k, v in digests.items() if k != "functions"):
+            print(f"[sass] {src}: {n_fn} functions, digest {dig} (cuobjdump -sass of the shipped build)", flush=True)
+        print("SASS " + json.dumps(digests), flush=True)
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
+    if knobs_only:
+        good = phases_36_38(pt, cuda_trace, card) and noregen_chunk_holds(pt, cuda_trace)[0]
+        timing = noregen_timing(pt, cuda_trace, card) if good else None
+        timing = timing and walk_skip_timing(pt, cuda_trace, card)
+        digests = sass_digests(cuda_trace)
+        print("SASS " + json.dumps(digests), flush=True)
+        if timing is None:
+            return 1
+        print(f"[done] phases 1, 2 and 36-38 in {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
     if probes_only:
         rows = probe_phases(card)
         if rows is None:
@@ -2468,7 +2920,7 @@ def main(argv) -> int:
     if tools_only:
         across = "--across-cards" in argv
         os.makedirs(TOOLS_DIR, exist_ok=True)
-        tools = [t for t in TOOL_FULL if t[1].startswith(TOOL + "mesh")] if across else TOOL_FULL
+        tools = [t for t in TOOL_FULL if t[1].startswith(TOOL + "mesh")] if across else TOOL_FULL + PAGE_TOOLS_FULL
         results = run_tools(tools, card, "tools", TOOLS_DIR, extra=("--across-cards",) if across else ())
         if results is None:
             return 1
@@ -2609,6 +3061,15 @@ def main(argv) -> int:
     side = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phases-34-35"], stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     atexit.register(lambda: side.poll() is None and (side.kill(), side.wait()))
+    # phase 36's holds, 37 and 38 in a fourth process beside them, read with the others
+    knob_side = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phases-36-38"],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: knob_side.poll() is None and (knob_side.kill(), knob_side.wait()))
+    # phase 36's chunked holds of the showcase and the faithful-fog holds of phases 15 and 19 (one chunk at
+    # 256x144, the first 1080p chunk) in a fifth process beside them, read with the others
+    chunk_side = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--side-holds"],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: chunk_side.poll() is None and (chunk_side.kill(), chunk_side.wait()))
 
     # ---- 7. kernel vs plain version at the main path's own arguments
     # (1920x1080 camera mapping, frame seed 1, the 8-pass reseed schedule)
@@ -2640,6 +3101,7 @@ def main(argv) -> int:
             print(f"[{tag}] FAIL: kernel disagrees with its plain version on {name}", file=sys.stderr)
             return 1
 
+    print(f"[7-10] done at {time.perf_counter() - t_start:.1f} s; reading the side processes", flush=True)
     print(holds.communicate()[0], end="", flush=True)
     if holds.returncode != 0:
         print("[15/19] FAIL: the classic instance disagrees with its plain version on the chunked faithful-fog "
@@ -2652,6 +3114,22 @@ def main(argv) -> int:
               file=sys.stderr)
         return 1
     side_summary = json.loads(next(ln for ln in side_out.splitlines() if ln.startswith("PHASES-34-35 "))[13:])
+    knob_out = knob_side.communicate()[0]
+    print(knob_out, end="", flush=True)
+    if knob_side.returncode != 0:
+        print("[36-38] FAIL: the classic instance under NO_REGEN or a profiling build disagrees with its plain "
+              "version, or a page-statistics tool failed (fourth process)", file=sys.stderr)
+        return 1
+    knob_summary = json.loads(next(ln for ln in knob_out.splitlines() if ln.startswith("PHASES-36-38 "))[13:])
+    chunk_out = chunk_side.communicate()[0]
+    print(chunk_out, end="", flush=True)
+    if chunk_side.returncode != 0:
+        print("[15/19/36] FAIL: the classic instance disagrees with its plain version on the showcase under "
+              "NO_REGEN in 4 chunks or on its padded last 1080p chunk, on the faithful-fog frame or on the first "
+              "1080p faithful-fog chunk (fifth process)", file=sys.stderr)
+        return 1
+    side_holds_summary = json.loads(next(ln for ln in chunk_out.splitlines() if ln.startswith("SIDE-HOLDS "))[11:])
+    print(f"[7-10] the side processes read at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---- 11. the mesh path at full width: bench_mesh 512x512, depth 8, one 8-pass window
     mesh_run = drive_renderer(pt, cuda_trace, "11", "bench_mesh", 512, 512, 8, 8, 3, card)
@@ -2804,9 +3282,9 @@ def main(argv) -> int:
               file=sys.stderr)
         return 1
 
-    # ---- 15. the classic instance against its plain version at 256x144, depth 12, bit for bit
-    for name, contract, faithful in (("demo_showcase", "cpu", False), ("demo_cornell", "cpu", False),
-                                     ("demo_showcase", "gpu", True)):
+    # ---- 15. the classic instance against its plain version at 256x144, depth 12, bit for bit (faithful fog:
+    # the fifth process)
+    for name, contract, faithful in (("demo_showcase", "cpu", False), ("demo_cornell", "cpu", False)):
         good, err, _secs = hold_pass(pt, cuda_trace, "15", name, 256, 144, 12, passes=(1,), contract=contract,
                                      faithful=faithful)
         classic_err = max(classic_err, err)
@@ -2969,8 +3447,8 @@ def main(argv) -> int:
 
     # ---- 19. the classic instance against its plain version at the paths' own arguments, bit for bit: on
     # strided lanes the cpu frame's 8-pass window that phase 18 timed (the main path's launch, frame seeds
-    # 1-8) and a 2-pass window; the faithful-fog frame's first chunk in full (its padded last chunk: the second
-    # process)
+    # 1-8) and a 2-pass window (the faithful-fog frame's first chunk in full: the fifth process; its padded last
+    # chunk: the second)
     cpack, ckw = cpu_setup
     for n_passes in (8, 2):
         held = hold_frame_lanes(cuda_trace, "19", "demo_showcase 1920x1080 d80 cpu contract", cpack, ckw,
@@ -2983,15 +3461,8 @@ def main(argv) -> int:
         classic_err = max(classic_err, held[1])
         if n_passes == 8:
             cpu_plain_ms = held[2] * 1e3
-    fpack, fkw = fog_setup
-    good, err, fog_plain_s = hold_fog_chunk(cuda_trace, fpack, fkw, classic_accum[("gpu", 1, 1)], fpx, fpy, 0,
-                                            chunk, n)
-    fog_chunk_plain_ms = fog_plain_s * 1e3
-    classic_err = max(classic_err, err)
-    if not good:
-        print("[19] FAIL: the classic instance disagrees with its plain version on a faithful-fog chunk, or a "
-              "lane's result depends on the launch it ran in", file=sys.stderr)
-        return 1
+    fog_chunk_plain_ms = side_holds_summary["fog_chunk_plain_s"] * 1e3
+    classic_err = max(classic_err, side_holds_summary["max_abs_err"])
     max_abs_err = max(max_abs_err, classic_err)
 
     # ---- 20-23. the perf probes T1-T4
@@ -3033,6 +3504,16 @@ def main(argv) -> int:
     if not fog_same:
         print("[29] FAIL: the fog kernel disagrees with its plain version", file=sys.stderr)
         return 1
+
+    # ---- 36 (its timed part). PATHTRACER_NO_REGEN at full width beside the regeneration path (before phases
+    # 30-33, which start processes and worlds of their own); 37: the shipped build's machine code, which a render
+    # that sets no knob runs
+    noregen = noregen_timing(pt, cuda_trace, card)
+    if noregen is None or walk_skip_timing(pt, cuda_trace, card) is None:
+        return 1
+    digests = sass_digests(cuda_trace)
+    for src, (n_fn, dig) in ((k, v) for k, v in digests.items() if k != "functions"):
+        print(f"[37] the shipped build of {src}: {n_fn} functions, SASS digest {dig} | card {card}", flush=True)
 
     # ---- 30-32. the user's entry points on the card: the CLI, checkpoint resume, the session and the viewer
     t_front = time.perf_counter()
@@ -3125,6 +3606,40 @@ def main(argv) -> int:
          f"integrator.fog_prepass_grid on the first chunk's {chunk} primary rays",
          f"demo_showcase 1920x1080 d12, faithful fog, one pass: 16 samples over {n_pad} lanes, 16 launches"))
     ] + [{
+        "name": "classic_samples_gpu",
+        "route": "cuda",
+        "source": "path_trace_golang_tpu_torch/csrc/classic.cu",
+        "replaces": "path_trace_golang_tpu/ops/pallas_trace.py:404",
+        "replaces_part": "the classic per-sample loop of render.pass_body_grid (render.py:296-322) under the gpu "
+                         "contract with PATHTRACER_NO_REGEN: classic_march_kernel (the state advance, the camera ray "
+                         "and, at sample 0, the fog once a pass) and classic_sample_kernel (the bounces)",
+        "launches": noregen["launches"] + noregen["march_launches"],
+        "launches_are": f"launches of the two kernels on the NO_REGEN path ({NOREGEN_FRAME[0]} "
+                        f"{NOREGEN_FRAME[1]}x{NOREGEN_FRAME[2]} d{NOREGEN_FRAME[4]}, 1 pass, 4 renders)",
+        "max_abs_err": 0.0,
+        "max_abs_err_over": "phase 36's holds, bit for bit: " + ", ".join(
+            f"{n} {w}x{h} d{d}" for n, w, h, d in NOREGEN_HOLDS) + ", the padded last chunk of the 1080p frame",
+        "ms": noregen["events_ms"],
+        "ms_is": "CUDA events around the frame's one pass (32 launches)",
+        "device_ms": noregen["device_ms"],
+        "device_ms_is": "the two kernels' device time by torch.profiler, which can come back short after the "
+                        "script's earlier profiles: the events' time is the row's",
+        "plain_ms": side_holds_summary["noregen_chunk_plain_s"] * 1e3,
+        "plain_shape": f"the whole pass body on the padded last chunk ({chunk} lanes) of the 1080p d12 frame, one "
+                       f"pass (phase 36's hold, in the fifth process beside phases 7-10)",
+        "bound_ms": noregen["bound_ms"],
+        "bound_by": "operations",
+        "bound_slots_ms": noregen["bound_slots_ms"],
+        "ops": noregen["ops"],
+        "library_ms": None,
+        "shape": f"{NOREGEN_FRAME[0]} 1920x1080 d12, one pass: 16 samples over {n_pad} lanes, 32 launches",
+        "mrays_classic": noregen["mrays_classic"],
+        "mrays_regen_same_passes": noregen["mrays_regen"],
+        "split": noregen["split"],
+        "profiling_build": {"knobs_held_bit_for_bit": knob_summary["knobs"],
+                            "shipped_sass": {k: v for k, v in digests.items() if k != "functions"}},
+        "page_statistics": knob_summary["page_tools"],
+    }] + [{
         "name": "fog_pass",
         "route": "cuda",
         "source": "path_trace_golang_tpu_torch/csrc/render_pass.cu",

@@ -52,7 +52,26 @@
 // past 105,615 in magnitude (CUDA's slow Payne-Hanek reduction), [33] the
 // march's warp tail (MARCH_DONE), [34] the part of [13] that kernel B3's
 // state advance runs (classic.cu, advance_kernel).  counters[CURSOR] is the
-// next lane of a launch whose blocks take lanes as they go.
+// next lane of a launch whose blocks take lanes as they go.  After it, the
+// warp sweep's own counts of the paged walk alone (pt_paged_walk; SWEEP in
+// paged_walk.cuh): [36] its working sets, [37] the pages they visit, [38]
+// the rays that want each visited page, summed, [39] the lane slots the
+// sets issue for (ray, row) pairs (rounds of the row loop times the set's
+// lanes), [40] the pairs their rays need, [41] the box tests.
+//
+// The profiling build (-DPT_PROF=bits, ops/cuda_trace.py::prof_bits; for
+// profiling only, its images are wrong by design): bit PROF_NO_MESH_HIT
+// leaves the mesh out of every closest-hit query (PATHTRACER_PROF_NO_MESH_HIT),
+// PROF_NO_MESH_LITE out of the lite query of a paged mesh (_LITE),
+// PROF_NO_MESH_OCCL out of every any-hit query (_OCCL), the fog march's
+// included; PROF_WALK_ALL (PATHTRACER_NO_WALK_SKIP) lets a bounce's lanes
+// that discard a query run it: NEE for every lane that hit, the
+// specular-NEE query wherever the scene has rough metal, their results
+// dropped (the same radiance; the draws are the same, D7).  A lane whose
+// path has ended has left its loop and runs nothing, and a missed ray
+// shades nothing, where the plain version's dead and missed lanes still
+// walk.  PT_PROF 0 is the shipped build: the constants below fold, and its
+// machine code is the same as without them.
 
 #pragma once
 
@@ -66,7 +85,34 @@
 // loop's state advance and camera ray)
 constexpr int STAGE_FOG = 0, STAGE_ISECT = 1, STAGE_NEE = 2, STAGE_LITE = 3, STAGE_LOOP = 4, STAGE_ADVANCE = 5,
               STAGE_CAMERA = 6, STAGE_MHIT = 7, STAGE_MNOISE = 8, STAGE_MLIGHT = 9, STAGE_MSHADOW = 10, N_STAGES = 11;
-constexpr int N_COUNTERS = 36, CURSOR = 35, ADVANCE_ROUNDS = 34;
+constexpr int N_COUNTERS = 42, CURSOR = 35, ADVANCE_ROUNDS = 34, SWEEP_COUNTS = 36;
+
+// the profiling build's bits and its gates: in the shipped build (PT_PROF 0) each gate expands to its
+// argument alone, so that the code is the same token for token
+#ifndef PT_PROF
+#define PT_PROF 0
+#endif
+#define PROF_NO_MESH_HIT 1
+#define PROF_NO_MESH_LITE 2
+#define PROF_NO_MESH_OCCL 4
+#define PROF_WALK_ALL 8
+#if PT_PROF & PROF_NO_MESH_HIT
+#define MESH_HIT_GATE(c) false && (c)
+#else
+#define MESH_HIT_GATE(c) c
+#endif
+#if PT_PROF & PROF_NO_MESH_LITE
+#define MESH_LITE_GATE(c) (c) && !lite
+#else
+#define MESH_LITE_GATE(c) c
+#endif
+#if PT_PROF & PROF_WALK_ALL
+#define WALK_ALL_OR(c) true
+#define WALK_ALL_AND(c) && (c)
+#else
+#define WALK_ALL_OR(c) c
+#define WALK_ALL_AND(c)
+#endif
 
 #ifdef PT_COUNT_OPS
 __device__ __forceinline__ unsigned long long global_ns() {
@@ -83,6 +129,8 @@ struct OpsCount {
   unsigned long long nee_active, nee_entries, rng;
   long long t_march;  // the end of the lane's fog march (0: it marched none)
   unsigned long long shadow_lanes, shadow_active, shadow_entries, shadow_blocked, prims, nodes, sin_calls, sin_large;
+  // the warp sweep's counts (SWEEP): working sets, visited pages, wanting rays, lane slots, pairs, box tests
+  unsigned long long w_sets, w_pages, w_want, w_slots, w_pairs, w_boxes;
 };
 __device__ __forceinline__ OpsCount ops_start() {
   OpsCount o = {};
@@ -137,6 +185,7 @@ __device__ __forceinline__ OpsCount ops_start() {
 #define SIN_ARG(x) (ops.sin_calls += 1, ops.sin_large += fabsf(x) > F(105615.0) ? 1 : 0)
 #define VISIT_PRIM() (ops.prims += 1)
 #define VISIT_NODE() (ops.nodes += 1)
+#define SWEEP(x) (x)
 #else
 #define OPS_DECL
 #define OPS(n) ((void)0)
@@ -157,6 +206,7 @@ __device__ __forceinline__ OpsCount ops_start() {
 #define SIN_ARG(x) ((void)0)
 #define VISIT_PRIM() ((void)0)
 #define VISIT_NODE() ((void)0)
+#define SWEEP(x) ((void)0)
 #endif
 
 namespace {
@@ -434,11 +484,12 @@ __device__ Hit intersect(const Scene& S, V o, V d, int exclude, bool lite, bool 
   int best_tri = 0, paged_mat = 0;
   float best_u = 0.0f, best_v = 0.0f;
   V paged_n = mk(0.0f, 0.0f, 0.0f);
-  if constexpr (PAGED) {
+  if constexpr (MESH_HIT_GATE(PAGED)) {
     const V inv = mk(inv_dx, inv_dy, inv_dz);
     if (lite && !S.tri_emissive) {
       bool seen = obj_hit && (int)S.mat[(int)S.obj[best_obj * OBJ_STRIDE + 1] * MAT_STRIDE] == MAT_EMISSIVE;
-      if (seen) WALK_CLOCK(seen = (!DROP || walk) && !paged_occluded(S.pages, o, d, inv, t_min, best_t OPS_ARG));
+      if (MESH_LITE_GATE(seen))
+        WALK_CLOCK(seen = (!DROP || walk) && !paged_occluded(S.pages, o, d, inv, t_min, best_t OPS_ARG));
       if (!seen) {
         Hit h;
         h.hit = false;
@@ -449,7 +500,7 @@ __device__ Hit intersect(const Scene& S, V o, V d, int exclude, bool lite, bool 
         h.obj_idx = h.obj_type = h.mat_idx = h.mtyp = 0;
         return h;
       }
-    } else if (!DROP || walk) {
+    } else if (MESH_LITE_GATE(!DROP || walk)) {
       PagedWinner w;
       WALK_CLOCK(w = paged_traverse(S.pages, o, d, inv, t_min, best_t, __int_as_float(0x7f800000),
                                     (float)exclude OPS_ARG));
@@ -461,7 +512,7 @@ __device__ Hit intersect(const Scene& S, V o, V d, int exclude, bool lite, bool 
         is_tri = is_paged = true;
       }
     }
-  } else if (S.n_nodes > 0) {
+  } else if (MESH_HIT_GATE(S.n_nodes > 0)) {
     int nd = 0;
     while (nd < S.n_nodes) {
       const float* bn = S.bounds + nd * 6;
@@ -611,6 +662,9 @@ __device__ bool occluded(const Scene& S, V o, V d, float t_max, uint32_t cull OP
     for (int m = 0; m < S.n_obj; ++m)
       if (blocks(m)) return true;
   }
+#if PT_PROF & PROF_NO_MESH_OCCL
+  return false;
+#endif
   if constexpr (PAGED) {
     bool blocked;
     WALK_CLOCK(blocked = paged_occluded(S.pages, o, d, mk(inv_dx, inv_dy, inv_dz), t_min, t_max OPS_ARG));
@@ -1182,7 +1236,7 @@ __device__ __forceinline__ bool gpu_bounce(const Scene& S, const Params& P, cons
 
   V direct = mk(0.0f, 0.0f, 0.0f);
   if (D.nee) {
-    if (is_lambert || is_rough_metal) {
+    if (WALK_ALL_OR(is_lambert || is_rough_metal)) {
       NEE_ENTRY();
       STAGE_BEGIN(nee_t0);
       direct = direct_light<PAGED, DROP>(S, p, n, albedo, st, !(P.flags & FLAG_DROP_SHADOW) OPS_ARG);
@@ -1209,13 +1263,13 @@ __device__ __forceinline__ bool gpu_bounce(const Scene& S, const Params& P, cons
   V atten_metal = is_rough_metal ? muls(albedo, spec_w * eff_refl + diff_w * F(0.3)) : muls(albedo, eff_refl);
   const bool metal_dead = (is_metal || is_mirror) && dot(metal_dir, n) <= F(1e-6);
 
-  if (D.rough_metal && D.nee && is_rough_metal && !metal_dead) {
+  if (D.rough_metal && D.nee && WALK_ALL_OR(is_rough_metal && !metal_dead)) {
     OPS(6);
     STAGE_BEGIN(lite_t0);
     Hit r = intersect<PAGED, DROP>(S, add(p, muls(n, F(0.001))), mirror_dir, -1, true, !(P.flags & FLAG_DROP_SPEC)
                                    OPS_ARG);
     STAGE_END(lite_t0, STAGE_LITE);
-    if (r.hit && r.mtyp == MAT_EMISSIVE) {
+    if (r.hit && r.mtyp == MAT_EMISSIVE WALK_ALL_AND(is_rough_metal && !metal_dead)) {
       OPS(24);
       const float* rm = S.mat + r.mat_idx * MAT_STRIDE;
       float dist_sq = nmax(r.t * r.t, F(1e-20));

@@ -73,6 +73,15 @@
 // (-DPT_COUNT_OPS) counts, on each lane, the pairs that lane evaluates, so
 // the warp's sum is the pairs the rays need, as before; any hit counts the
 // rows up to a ray's first hit and the box tests up to its blocking page.
+// It also counts the sweep itself (SWEEP; read through pt_paged_walk, one
+// thread a given ray, so that a warp is 32 consecutive rays): each working
+// set once, the pages it visits, the rays that want each of them (nw), the
+// lane slots it issues for (ray, row) pairs, a round of the row loop times
+// the set's lanes (closest hit: ceil(128 / s) rounds a page), against the
+// pairs its rays need (step 3's idle lanes are the difference), and each
+// lane's box tests.  Where the rays' page masks are known, the closest
+// hit's visits, nw and slots follow from them alone
+// (tools/perf/page_stats.py holds them to this count).
 // The one-thread-per-ray walk's key loop stays as paged_keys_lane: perf
 // probe T2's `gather` variant runs it, beside `real`, which runs this one.
 //
@@ -288,9 +297,11 @@ __device__ __forceinline__ void paged_keys_lane(const Pages& G, V o, V d, V inv,
 __device__ __forceinline__ void paged_keys_warp(const Pages& G, V o, V d, V inv, float t_min, float best_t,
                                                 float t_max, float excl, int& best_key, int& best_page OPS_PARAM) {
   const WalkSet W = walk_set();
+  SWEEP(ops.w_sets += W.rank == 0);
   for (int base = 0; __any_sync(W.mask, base < G.n_pages); base += 32) {
     unsigned wanted = window_enters(G, base, o, inv, t_min, best_t, t_max);
     OPS_WALK(C_PAGE_BOX * G.n_sub * max(0, min(32, G.n_pages - base)));
+    SWEEP(ops.w_boxes += G.n_sub * max(0, min(32, G.n_pages - base)));
     for (;;) {
       const int next = wanted ? __ffs(wanted) - 1 : 32;
       const int i = __reduce_min_sync(W.mask, next);  // the least page left in the set's windows
@@ -301,9 +312,20 @@ __device__ __forceinline__ void paged_keys_warp(const Pages& G, V o, V d, V inv,
       const float excl_j = __shfl_sync(W.mask, excl, S.ray_lane);
       const float t_upper = __int_as_float(__shfl_sync(W.mask, best_key, S.ray_lane) | KEY_SLOT_MASK);
       int key = paged_big_key();
+#ifdef PT_COUNT_OPS
+      {
+        const int nw = __popc(__ballot_sync(W.mask, P.mine));
+        if (W.rank == 0) {
+          ops.w_pages += 1;
+          ops.w_want += nw;
+          ops.w_slots += (unsigned long long)W.width * ((PAGE_TRIS + S.s - 1) / S.s);
+        }
+      }
+#endif
       if (S.busy) {
         for (int k = S.m; k < PAGE_TRIS; k += S.s) {
           OPS_WALK(C_PAGE_TRI);
+          SWEEP(ops.w_pairs += 1);
           const int row_key = page_row_key(G.tiles, p, k, P.o, P.d, P.t_min, t_upper, P.t_max, excl_j);
           key = row_key < key ? row_key : key;
         }
@@ -372,9 +394,11 @@ __device__ PagedWinner paged_traverse(const Pages& G, V o, V d, V inv, float t_m
 // working set of the lanes that call it together
 __device__ bool paged_occluded(const Pages& G, V o, V d, V inv, float t_min, float t_max OPS_PARAM) {
   const WalkSet W = walk_set();
+  SWEEP(ops.w_sets += W.rank == 0);
   const float t_upper = __int_as_float(paged_big_key());
   int blocked_at = -1;  // the page whose row blocked the ray
   for (int base = 0; __any_sync(W.mask, blocked_at < 0 && base < G.n_pages); base += 32) {
+    SWEEP(ops.w_boxes += blocked_at < 0 ? G.n_sub * max(0, min(32, G.n_pages - base)) : 0);
     unsigned wanted = blocked_at < 0 ? window_enters(G, base, o, inv, t_min, PAGED_BIG_T, t_max) : 0u;
     for (;;) {
       const int next = wanted ? __ffs(wanted) - 1 : 32;
@@ -385,14 +409,27 @@ __device__ bool paged_occluded(const Pages& G, V o, V d, V inv, float t_min, flo
       const PageShare& S = P.S;
       const unsigned lanes = S.s > 1 ? __match_any_sync(W.mask, S.q) : 1u << W.lane;  // ray q's lanes
       bool hit = false;  // a row of ray q hit, as far as its lanes have tested
+#ifdef PT_COUNT_OPS
+      {
+        const int nw = __popc(__ballot_sync(W.mask, P.mine));
+        if (W.rank == 0) {
+          ops.w_pages += 1;
+          ops.w_want += nw;
+        }
+      }
+#endif
       for (int k0 = 0; k0 < PAGE_TRIS; k0 += S.s) {
+        SWEEP(ops.w_slots += W.rank == 0 ? W.width : 0);
         const int k = k0 + S.m;
         const bool test = S.busy && !hit && k < PAGE_TRIS;
         const bool row_hit =
             test && page_row_key(G.tiles, p, k, P.o, P.d, P.t_min, t_upper, P.t_max, -1.0f) < paged_big_key();
         const unsigned hits = __ballot_sync(W.mask, row_hit) & lanes;
         // the rows a ray needs end at its first hit: count those alone
-        if (test && (hits & W.below) == 0u) OPS_WALK(C_PAGE_TRI);
+        if (test && (hits & W.below) == 0u) {
+          OPS_WALK(C_PAGE_TRI);
+          SWEEP(ops.w_pairs += 1);
+        }
         hit = hit || hits != 0u;
         if (!__any_sync(W.mask, S.busy && !hit)) break;
       }
@@ -412,14 +449,16 @@ __device__ bool paged_occluded(const Pages& G, V o, V d, V inv, float t_min, flo
 // rays f32[8, n]: ox oy oz dx dy dz best_t t_max; excl f32[n]; skip u8[n]
 // (closest: such rays enter no page; any hit: rays that come in blocked).
 // out_i i32[2, n]: key, page; out_f f32[6, n]: t nx ny nz mat obj;
-// blocked u8[n].  ops: one uint64, written by the counting build only.
+// blocked u8[n].  counters: N_COUNTERS uint64, written by the counting
+// build only: [1] the f32 operations, [2] those of the walk (all of them),
+// [SWEEP_COUNTS..+5] the sweep's counts (common.cuh).
 __global__ void __launch_bounds__(128) paged_walk_kernel(const float* __restrict__ tiles,
                                                          const float* __restrict__ boxes, int n_pages, int n_sub,
                                                          const float* __restrict__ rays, const float* __restrict__ excl,
                                                          const unsigned char* __restrict__ skip, int n, float t_min,
                                                          int any_hit, int* __restrict__ out_i,
                                                          float* __restrict__ out_f, unsigned char* __restrict__ blocked,
-                                                         unsigned long long* __restrict__ ops_out) {
+                                                         unsigned long long* __restrict__ counters) {
 #ifdef PT_COUNT_OPS
   OpsCount ops = {0ull, 0ull, 0ull};
 #endif
@@ -448,8 +487,11 @@ __global__ void __launch_bounds__(128) paged_walk_kernel(const float* __restrict
     }
   }
 #ifdef PT_COUNT_OPS
-  unsigned long long all = ops.all;
-  for (int off = 16; off > 0; off >>= 1) all += __shfl_down_sync(0xffffffffu, all, off);
-  if ((threadIdx.x & 31) == 0 && all) atomicAdd(ops_out, all);
+  unsigned long long tally[8] = {ops.all, ops.walk, ops.w_sets, ops.w_pages, ops.w_want,
+                                 ops.w_slots, ops.w_pairs, ops.w_boxes};
+  for (int c = 0; c < 8; ++c) {
+    for (int off = 16; off > 0; off >>= 1) tally[c] += __shfl_down_sync(0xffffffffu, tally[c], off);
+    if ((threadIdx.x & 31) == 0 && tally[c]) atomicAdd(counters + (c < 2 ? 1 + c : SWEEP_COUNTS + c - 2), tally[c]);
+  }
 #endif
 }

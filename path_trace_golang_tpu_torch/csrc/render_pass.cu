@@ -284,10 +284,10 @@ extern "C" int pt_render_pass(PT_SCENE_PARAMS, const int* px, const int* py, int
 // hit's key, page, t, normal, mat and obj, any_hit = 1 writes blocked.
 extern "C" int pt_paged_walk(const float* tiles, const float* boxes, int n_pages, int n_sub, const float* rays,
                              const float* excl, const unsigned char* skip, int n, float t_min, int any_hit,
-                             int* out_i, float* out_f, unsigned char* blocked, unsigned long long* ops,
+                             int* out_i, float* out_f, unsigned char* blocked, unsigned long long* counters,
                              void* stream) {
   if (n <= 0) return 0;
   paged_walk_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
-      tiles, boxes, n_pages, n_sub, rays, excl, skip, n, t_min, any_hit, out_i, out_f, blocked, ops);
+      tiles, boxes, n_pages, n_sub, rays, excl, skip, n, t_min, any_hit, out_i, out_f, blocked, counters);
   return (int)cudaGetLastError();
 }

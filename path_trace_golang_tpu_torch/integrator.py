@@ -47,6 +47,7 @@ from .soa import (
     OBJ_SPHERE,
     ScenePack,
 )
+from .utils.config import switch_on
 
 __all__ = [
     "TraceConfig",
@@ -73,7 +74,15 @@ class TraceConfig:
     has_rough_metal: bool = True
     has_dielectric: bool = True
     rr_threshold: int = 3  # gpu.go:1649
-    regen: bool = True
+    regen: bool = True  # the merged sample+bounce loop; PATHTRACER_NO_REGEN=1 runs the classic loop
+    # lanes whose result the caller discards enter no page of the paged walk (work pruning only; the same
+    # radiance); PATHTRACER_NO_WALK_SKIP=1 lets them walk, for timing the pruning
+    walk_skip: bool = True
+    # for profiling only (PATHTRACER_PROF_NO_MESH_HIT, _LITE, _OCCL): the mesh left out of every closest-hit
+    # query ("hit"), of the specular-NEE lite query of a paged mesh ("lite") or of every any-hit query
+    # ("occl").  The images are wrong by design; on the card such a render runs the profiling build of the
+    # kernels (ops/cuda_trace.py).  Never set it in real use.
+    prof_no_mesh: tuple = ()
     # for timing only (PATHTRACER_BVH_DROP=closest,shadow,spec): the named walks
     # of a paged mesh are skipped, as by lanes whose result is discarded.  The
     # images are wrong by design; tools/perf/walk_attrib.py times each walk's
@@ -96,11 +105,20 @@ def _parse_bvh_drop(raw: str) -> tuple:
     return tuple(sorted(toks))
 
 
+# the profiling knobs and their names in TraceConfig.prof_no_mesh; as in the JAX package
+# (ops/geometry.py:215, :226, :384) any non-empty value sets one
+PROF_KNOBS = (("hit", "PATHTRACER_PROF_NO_MESH_HIT"), ("lite", "PATHTRACER_PROF_NO_MESH_LITE"),
+              ("occl", "PATHTRACER_PROF_NO_MESH_OCCL"))
+
+
 def trace_config_for_scene(
     sc_pack: ScenePack, scene, max_depth: int, contract: str = "gpu", faithful_fog: bool = False
 ) -> TraceConfig:
     """A TraceConfig with feature flags read off the scene (integrator.py:103)
-    and the walks that ``PATHTRACER_BVH_DROP`` names."""
+    and the knobs of the environment, read anew for every config:
+    ``PATHTRACER_NO_REGEN`` (the gpu contract through the classic loop),
+    ``PATHTRACER_NO_WALK_SKIP``, the walks that ``PATHTRACER_BVH_DROP`` names
+    and the ``PATHTRACER_PROF_NO_MESH_*`` knobs."""
     has_rough_metal = False
     has_dielectric = False
     for m in scene.materials:
@@ -124,7 +142,10 @@ def trace_config_for_scene(
         enable_nee=(contract == "gpu"),
         has_rough_metal=has_rough_metal,
         has_dielectric=has_dielectric,
-        regen=contract == "gpu" and not (bool(fogm) and bool(faithful_fog)),
+        regen=(contract == "gpu" and not (bool(fogm) and bool(faithful_fog))
+               and not switch_on("PATHTRACER_NO_REGEN")),
+        walk_skip=not switch_on("PATHTRACER_NO_WALK_SKIP"),
+        prof_no_mesh=tuple(name for name, var in PROF_KNOBS if os.environ.get(var)),
         debug_drop=_parse_bvh_drop(os.environ.get("PATHTRACER_BVH_DROP", "")),
     )
 
@@ -139,11 +160,12 @@ def regen_enabled(cfg: TraceConfig) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _fog_prepass(orig: V3, dirv: V3, state, pack: ScenePack):
+def _fog_prepass(orig: V3, dirv: V3, state, pack: ScenePack, prof: tuple = ()):
     """Single-scatter march along the primary ray (gpu.go:1311-1341):
-    24 fixed steps to min(firstHit, 40).  Returns (radiance V3, state)."""
+    24 fixed steps to min(firstHit, 40).  ``prof``: the profiling knobs
+    (``TraceConfig.prof_no_mesh``).  Returns (radiance V3, state)."""
     fog_block = pack.host("fog")
-    hit = intersect_world(orig, dirv, pack, 0.001)
+    hit = intersect_world(orig, dirv, pack, 0.001, prof=prof)
     t_max = torch.clamp_max(
         torch.where(hit.hit, hit.t, fog_ops.FOG_MARCH_TMAX), fog_ops.FOG_MARCH_TMAX
     )
@@ -156,7 +178,7 @@ def _fog_prepass(orig: V3, dirv: V3, state, pack: ScenePack):
         pos = orig + dirv * t
         sigma_s, _sigma_a, sigma_t = fog_ops.medium_coeffs(pos, fog_block)
         tr = torch.exp(-sigma_t * t)
-        ls = fog_ops.estimate_volume_light(pos, dirv, pack, rng)
+        ls = fog_ops.estimate_volume_light(pos, dirv, pack, rng, prof=prof)
         w = sigma_s * tr * step
         dl = V3(fc[0] * ls.x * w, fc[1] * ls.y * w, fc[2] * ls.z * w)
         ok = (sigma_t > 0) & (sigma_s > 0) & (step > 0)
@@ -164,10 +186,10 @@ def _fog_prepass(orig: V3, dirv: V3, state, pack: ScenePack):
     return rad, rng.state
 
 
-def fog_prepass_grid(orig: V3, dirv: V3, state, pack: ScenePack):
+def fog_prepass_grid(orig: V3, dirv: V3, state, pack: ScenePack, prof: tuple = ()):
     """The volumetric march, gated on the fog block's gpu_volumetric flag
     like the shader (gpu.go:1311).  Returns (radiance V3, state)."""
-    rad, state = _fog_prepass(orig, dirv, state, pack)
+    rad, state = _fog_prepass(orig, dirv, state, pack, prof)
     gate = 1.0 if pack.host("fog")[3] > _f(0.5) else 0.0
     return rad * gate, state
 
@@ -183,11 +205,14 @@ def _shade_gpu(hit: Hit, dirv: V3, throughput: V3, radiance: V3, rng: LaneRng, p
 
     ``alive``: bool lanes of the bounce loop; the caller discards dead
     lanes' outputs, so their shadow and specular-NEE rays enter no page of
-    the paged mesh walk (work pruning only, the same radiance).
+    the paged mesh walk (work pruning only, the same radiance), unless
+    ``cfg.walk_skip`` is off.
 
     Returns (new_dir, attenuation, radiance, scattered_ok, enter_glass,
     exit_glass, travel, absorption, abs_scale, tint)."""
     zero3 = V3.zeros_like(dirv.x)
+    if not cfg.walk_skip:
+        alive = None
     typ = hit.mtyp
     n = hit.normal
     p = hit.p
@@ -210,7 +235,8 @@ def _shade_gpu(hit: Hit, dirv: V3, throughput: V3, radiance: V3, rng: LaneRng, p
             nee_skip = ~(alive & hit.hit & uses_direct)
         if "shadow" in cfg.debug_drop:
             nee_skip = torch.ones_like(is_lambert)
-        direct = lights_ops.estimate_direct_light(p, n, hit.albedo, pack, rng, skip=nee_skip)
+        direct = lights_ops.estimate_direct_light(p, n, hit.albedo, pack, rng, skip=nee_skip,
+                                                  prof=cfg.prof_no_mesh)
     else:
         direct = zero3
     radiance = radiance + V3.where(is_lambert, throughput * direct, zero3)
@@ -248,7 +274,8 @@ def _shade_gpu(hit: Hit, dirv: V3, throughput: V3, radiance: V3, rng: LaneRng, p
         spec_skip = None if alive is None else ~(alive & is_rough_metal & ~metal_dead)
         if "spec" in cfg.debug_drop:
             spec_skip = torch.ones_like(is_rough_metal)
-        rhit = intersect_world(refl_orig, mirror_dir, pack, 0.001, lite=True, skip=spec_skip)
+        rhit = intersect_world(refl_orig, mirror_dir, pack, 0.001, lite=True, skip=spec_skip,
+                               prof=cfg.prof_no_mesh)
         dist_sq = torch.clamp_min(rhit.t * rhit.t, 1e-20)
         cos_light = torch.clamp_min(-(rhit.normal.dot(mirror_dir)), 0.0)
         direct_reflect = rhit.emit * (cos_light / dist_sq)
@@ -325,7 +352,8 @@ def _bounce_gpu(pack: ScenePack, cfg: TraceConfig, orig: V3, dirv: V3, throughpu
     zero3 = V3.zeros_like(orig.x)
     hit = intersect_world(
         orig, dirv, pack, 0.001, exclude_obj=glass_obj if cfg.has_dielectric else None,
-        skip=torch.ones_like(alive) if "closest" in cfg.debug_drop else ~alive,
+        skip=torch.ones_like(alive) if "closest" in cfg.debug_drop else (~alive if cfg.walk_skip else None),
+        prof=cfg.prof_no_mesh,
     )
     bg = background_color(dirv.normalize(), pack.sky)
     if fog_block[0] > 0 and fog_block[2] > _f(0.5):  # legacy sky fog (gpu.go:1392)
@@ -492,7 +520,7 @@ def _trace_gpu(orig: V3, dirv: V3, state, pack: ScenePack, cfg: TraceConfig, act
     Returns (radiance V3, state, segments int64 0-d tensor)."""
     radiance = V3.zeros_like(orig.x)
     if cfg.enable_fog_march and cfg.fog_in_trace:
-        radiance, state = fog_prepass_grid(orig, dirv, state, pack)
+        radiance, state = fog_prepass_grid(orig, dirv, state, pack, cfg.prof_no_mesh)
         if active is not None:
             radiance = V3.where(active, radiance, V3.zeros_like(orig.x))
     alive = torch.ones_like(orig.x, dtype=torch.bool) if active is None else active
@@ -565,7 +593,8 @@ def _trace_cpu(orig: V3, dirv: V3, state, pack: ScenePack, cfg: TraceConfig, act
     while d < cfg.max_depth and bool(alive.any()):
         segments = segments + alive.sum()
         rng = LaneRng(state)
-        hit = intersect_world(orig, dirv, pack, 0.001, skip=~alive)
+        hit = intersect_world(orig, dirv, pack, 0.001, skip=~alive if cfg.walk_skip else None,
+                              prof=cfg.prof_no_mesh)
         miss = alive & ~hit.hit
         radiance = radiance + V3.where(miss, throughput * background_color(dirv.normalize(), pack.sky), zero3)
         alive = alive & hit.hit

@@ -303,29 +303,22 @@ class PagedBvh:
         return -(-self.n_pages // MASK_BITS)
 
 
-def build_paged_bvh(v0, e1, e2, tri_mat, tri_obj, tri_smooth, tri_vn):
-    """Median-split paged build (host NumPy, float64 precompute), identical
-    to the JAX package's.
-
-    v0/e1/e2: f64[T,3]; tri_mat/tri_obj: per-triangle material index and
-    global object id; tri_smooth: per-triangle bool; tri_vn: per-triangle
-    (n0,n1,n2) vertex normals or None.
-
-    Returns (paged: PagedBvh,
-             page_tiles f32[P, PAGE_TRIS, N_PAGE_ATTRS],
-             page_bbox  f32[P, 8]   [lo3, hi3, count, pad])
-    """
-    t = v0.shape[0]
+def tri_bounds(v0, e1, e2):
+    """(lo, hi, centroid) f64[T, 3] of each triangle's box."""
     lo = np.minimum(np.minimum(v0, v0 + e1), v0 + e2)
     hi = np.maximum(np.maximum(v0, v0 + e1), v0 + e2)
-    centroid = (lo + hi) * 0.5
+    return lo, hi, (lo + hi) * 0.5
+
+
+def aligned_median_pages(centroid):
+    """The paged build's partition: median splits along the longest centroid
+    axis, aligned to the page capacity so that the leaves come out (almost
+    all) full pages.  Returns lists of triangle indices, one a page."""
 
     def split(idxs):
         c = centroid[idxs]
         axis = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
         order = np.argsort(c[:, axis], kind="stable")
-        # near the median but aligned to the page capacity, so that the
-        # leaves come out (almost all) full pages
         n = len(idxs)
         half = round(n / 2 / PAGE_TRIS) * PAGE_TRIS
         half = max(PAGE_TRIS, min(half, n - 1))
@@ -333,7 +326,7 @@ def build_paged_bvh(v0, e1, e2, tri_mat, tri_obj, tri_smooth, tri_vn):
             half = n - PAGE_TRIS
         return [idxs[i] for i in order[:half]], [idxs[i] for i in order[half:]]
 
-    pages = []  # list of triangle-index lists
+    pages = []
 
     def emit(idxs):
         if len(idxs) <= PAGE_TRIS:
@@ -343,10 +336,17 @@ def build_paged_bvh(v0, e1, e2, tri_mat, tri_obj, tri_smooth, tri_vn):
         emit(left)
         emit(right)
 
-    emit(list(range(t)))
-    n_pages = len(pages)
+    emit(list(range(len(centroid))))
+    return pages
 
-    # pages sorted along the axis of largest page-centre spread
+
+def sort_pages(pages, lo, hi, centroid):
+    """Pages (lists of triangle indices) as the paged build lays them out:
+    sorted along the axis of largest page-centre spread, each with its
+    ``N_SUB_BOXES`` entry boxes (its members split into runs along its
+    longest centroid axis).  Returns (pages, sort_axis, sort_margin,
+    sub_bounds)."""
+    n_pages = len(pages)
     pcent = np.array([(lo[m].min(axis=0) + hi[m].max(axis=0)) * 0.5 for m in pages])
     sort_axis = int(np.argmax(pcent.max(axis=0) - pcent.min(axis=0))) if n_pages > 1 else 0
     pages = [pages[i] for i in np.argsort(pcent[:, sort_axis], kind="stable")]
@@ -356,8 +356,6 @@ def build_paged_bvh(v0, e1, e2, tri_mat, tri_obj, tri_smooth, tri_vn):
         c = (blo[sort_axis] + bhi[sort_axis]) * 0.5
         sort_margin = max(sort_margin, c - blo[sort_axis], bhi[sort_axis] - c)
 
-    # sub-boxes: each page's members split into runs along the page's
-    # longest centroid axis
     sub_list = []
     for m in pages:
         c = centroid[m]
@@ -373,7 +371,25 @@ def build_paged_bvh(v0, e1, e2, tri_mat, tri_obj, tri_smooth, tri_vn):
         while len(flat) < 6 * N_SUB_BOXES:  # tiny pages repeat their last box
             flat += flat[-6:]
         sub_list.append(tuple(flat))
-    sub_bounds = tuple(sub_list)
+    return pages, sort_axis, sort_margin, tuple(sub_list)
+
+
+def build_paged_bvh(v0, e1, e2, tri_mat, tri_obj, tri_smooth, tri_vn):
+    """Median-split paged build (host NumPy, float64 precompute), identical
+    to the JAX package's.
+
+    v0/e1/e2: f64[T,3]; tri_mat/tri_obj: per-triangle material index and
+    global object id; tri_smooth: per-triangle bool; tri_vn: per-triangle
+    (n0,n1,n2) vertex normals or None.
+
+    Returns (paged: PagedBvh,
+             page_tiles f32[P, PAGE_TRIS, N_PAGE_ATTRS],
+             page_bbox  f32[P, 8]   [lo3, hi3, count, pad])
+    """
+    t = v0.shape[0]
+    lo, hi, centroid = tri_bounds(v0, e1, e2)
+    pages, sort_axis, sort_margin, sub_bounds = sort_pages(aligned_median_pages(centroid), lo, hi, centroid)
+    n_pages = len(pages)
 
     # piecewise-linear fit of the sorted page centres (chord per
     # equal-count segment, with the largest residual)

@@ -17,7 +17,8 @@ passes, for flat pixel lanes:
   :func:`fog_pass`) and then its regeneration instance, one launch for all
   the given lanes (with pages, persistent blocks whose threads take lanes
   as they go);
-  for the cpu contract and faithful fog the classic instance of
+  for the classic loop (the cpu contract, faithful fog, and the gpu
+  contract under ``PATHTRACER_NO_REGEN``) the classic instance of
   ``csrc/classic.cu`` on the lanes as one chunk; or it raises;
 * on CPU tensors it runs :func:`render_pass_plain`, the torch
   ``render.pass_body_grid``, which the kernel is held to.
@@ -25,7 +26,7 @@ passes, for flat pixel lanes:
 :func:`classic_render` runs the classic instance as the Renderer launches
 it on the card: a window of passes over all of a frame's lanes in chunks,
 added into the Renderer's accumulator (under the cpu contract one launch a
-window, under faithful fog one launch a sample over all chunks); on CPU
+window, else two launches a sample over all chunks); on CPU
 tensors its plain version, ``pass_body_grid`` pass by pass and chunk by
 chunk.
 
@@ -41,7 +42,12 @@ The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into
 ``build/torch_kernels/`` beside the package, one library for each source
 (``render_pass``, ``classic``; ``probes``, the perf probes, and ``repro``,
 the Mosaic repros, whose entry points ``ops/probes.py`` and ``ops/repro.py``
-bind), and bound with ``ctypes``.  ``LAUNCHES``
+bind), and bound with ``ctypes``.  Besides the shipped build each source
+has its counting build (``-DPT_COUNT_OPS``, the bounds and splits) and, for
+a render whose config sets a profiling knob (``PATHTRACER_PROF_NO_MESH_*``,
+``PATHTRACER_NO_WALK_SKIP``), a profiling build of the render libraries with
+the knobs as the macro ``PT_PROF`` (:func:`prof_bits`), compiled at its
+first use; a config that sets none runs the shipped build.  ``LAUNCHES``
 counts launches of the whole-pass kernel, ``PAGED_LAUNCHES`` those of them
 that carried pages (the walk ran inside them), ``CLASSIC_LAUNCHES`` those of
 them of the classic instance, ``FOG_LAUNCHES`` launches of the fog kernel,
@@ -79,7 +85,7 @@ __all__ = [
     "march_split_line", "N_COUNTERS",
     "classic_render", "classic_render_plain", "classic_render_cuda", "classic_count_split",
     "trace_grid", "trace_grid_plain", "trace_grid_cuda", "trace_count_ops",
-    "paged_traverse", "paged_occluded", "paged_count_ops",
+    "paged_traverse", "paged_occluded", "paged_count_ops", "paged_count_split", "prof_bits",
     "LAUNCHES", "FOG_LAUNCHES", "MARCH_LAUNCHES", "PAGED_LAUNCHES", "CLASSIC_LAUNCHES", "TRACE_LAUNCHES",
     "WALK_LAUNCHES",
     "PLAIN_CALLS", "FOG_PLAIN_CALLS", "TRACE_PLAIN_CALLS", "WALK_PLAIN_CALLS",
@@ -114,6 +120,10 @@ FLAG_FOG_ONCE, FLAG_NORMALIZE, FLAG_NEE, FLAG_TRI_EMISSIVE = 16, 32, 64, 128
 FLAG_CPU, FLAG_FOG_TRACE = 256, 512
 # PATHTRACER_BVH_DROP's walks (integrator.TraceConfig.debug_drop), skipped on a paged mesh
 FLAG_DROP = {"closest": 1024, "shadow": 2048, "spec": 4096}
+# the profiling build's PT_PROF bits (must match csrc/common.cuh): TraceConfig.prof_no_mesh's queries, and
+# PATHTRACER_NO_WALK_SKIP (TraceConfig.walk_skip off)
+PROF_BITS = {"hit": 1, "lite": 2, "occl": 4}
+PROF_WALK_ALL = 8
 
 _LIBS: dict = {}
 
@@ -128,16 +138,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the port's kernels")
 
 
-def build(count_ops: bool = False, source: str = "render_pass") -> Path:
+def prof_bits(tcfg) -> int:
+    """The profiling build that a config runs: its PT_PROF bits, 0 for the shipped build."""
+    return sum(PROF_BITS[k] for k in tcfg.prof_no_mesh) | (0 if tcfg.walk_skip else PROF_WALK_ALL)
+
+
+def build(count_ops: bool = False, source: str = "render_pass", prof: int = 0) -> Path:
     """Compile one source (once per source and flag set) and return the .so
     path.  ``count_ops`` builds the operation-counting variant
     (-DPT_COUNT_OPS), used only to compute the kernels' bounds and B1's
-    split.  Builds of other sources or variants may run at the same time
-    from other threads."""
-    flags = NVCC_FLAGS + (("-DPT_COUNT_OPS",) if count_ops else ())
+    split; ``prof`` the profiling build of :func:`prof_bits`'s bits
+    (-DPT_PROF=bits).  Builds of other sources or variants may run at the
+    same time from other threads; a build that fails raises."""
+    flags = NVCC_FLAGS + (("-DPT_COUNT_OPS",) if count_ops else ()) + ((f"-DPT_PROF={prof}",) if prof else ())
     src = SOURCES[source].read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
     tag = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()[:12]
-    so = BUILD_DIR / f"{source}_{'count_' if count_ops else ''}{tag}.so"
+    so = BUILD_DIR / f"{source}_{'count_' if count_ops else ''}{f'prof{prof}_' if prof else ''}{tag}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -146,7 +162,7 @@ def build(count_ops: bool = False, source: str = "render_pass") -> Path:
     cmd = [_nvcc(), *flags, "-o", tmp, str(SOURCES[source])]
     res = subprocess.run(cmd, capture_output=True, text=True)
     log = res.stdout + res.stderr
-    if not count_ops:
+    if not count_ops and not prof:
         BUILD_LOG[source] = log
     if res.returncode != 0:
         os.unlink(tmp)
@@ -160,10 +176,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SCENE_ARGTYPES = [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I]
 
 
-def _lib(count_ops: bool = False, source: str = "render_pass"):
-    key = (count_ops, source)
+def _lib(count_ops: bool = False, source: str = "render_pass", prof: int = 0):
+    key = (count_ops, source, prof)
     if key not in _LIBS:
-        lib = ctypes.CDLL(str(build(count_ops, source)))
+        lib = ctypes.CDLL(str(build(count_ops, source, prof)))
         p, i, u = _P, _I, ctypes.c_uint
         if source == "render_pass":
             lib.pt_render_pass.argtypes = _SCENE_ARGTYPES + [p, p, i, u, i, i, i, i, i, i, i, i, p, p, p, p]
@@ -278,8 +294,9 @@ def count_ops(pack: ScenePack, frame_seed: int, px, py, **kw):
 
 
 # the counters of a launch (csrc/common.cuh): [0] segments, the counting
-# build's tallies after it, the lane cursor last
-N_COUNTERS = 36
+# build's tallies after it, the lane cursor at 35, the warp sweep's counts of
+# the walk alone after it (paged_count_split)
+N_COUNTERS = 42
 _COUNT_NAMES = (
     "segments", "ops", "walk_ops", "walk_cycles", "cycles",
     "fog_cycles", "isect_cycles", "nee_cycles", "lite_cycles", "loop_cycles",
@@ -646,7 +663,7 @@ def fog_pass(pack: ScenePack, frame_seed: int, px, py, *, tcfg, width: int, heig
 
         FOG_PLAIN_CALLS += 1
         terms = fog_pass_terms(pack, frame_seed, px, py, width=width, height=height, samples=samples,
-                               has_aperture=has_aperture, n_passes=n_passes)
+                               has_aperture=has_aperture, n_passes=n_passes, prof=tcfg.prof_no_mesh)
         return torch.stack([torch.stack([t.x, t.y, t.z]) for t in terms])
     raise NotImplementedError(f"fog_pass: no kernel for device {px.device}")
 
@@ -676,7 +693,7 @@ def _launch_fog(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height
     if counters is None:
         counters = torch.zeros(N_COUNTERS, dtype=torch.int64, device=dev)
     basis = camera_basis(pack.cam, width, height).contiguous()
-    lib = _lib(counting, "render_pass")
+    lib = _lib(counting, "render_pass", prof_bits(tcfg))
     err = lib.pt_fog_pass(
         *_scene_args(pack, basis), px.data_ptr(), py.data_ptr(), n, int(frame_seed) & MASK32, width, height,
         samples, n_passes, flags, terms.data_ptr(), counters.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
@@ -712,7 +729,7 @@ def _launch(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, n_
     flags = _flags(pack, tcfg, has_aperture, normalize_pass)
     stream = torch.cuda.current_stream(dev).cuda_stream
     seed = int(frame_seed) & MASK32
-    lib = _lib(counting, "render_pass")
+    lib = _lib(counting, "render_pass", prof_bits(tcfg))
     terms = fog_terms
     if terms is not None and tuple(terms.shape) != (n_passes, 3, n):
         raise ValueError(f"render_pass_cuda: fog_terms must be f32[{n_passes}, 3, {n}]")
@@ -738,9 +755,10 @@ def _launch(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, n_
 
 def classic_render(accum, pack: ScenePack, frame_seed: int, px, py, *, chunk: int, n_passes: int = 1, **kw):
     """A window of ``n_passes`` passes of the classic loop (the cpu contract,
-    faithful fog) for flat lanes ``px``/``py`` (int32[N]) in chunks of
-    ``chunk`` lanes, pass p at frame seed ``frame_seed + p``, each pass's
-    radiance added into ``accum`` (f32[N, 3]) in pass order, as the
+    faithful fog, the gpu contract under ``PATHTRACER_NO_REGEN``) for flat
+    lanes ``px``/``py`` (int32[N]) in chunks of ``chunk`` lanes, pass p at
+    frame seed ``frame_seed + p``, each pass's radiance added into
+    ``accum`` (f32[N, 3]) in pass order, as the
     Renderer's ``accum += col``.  A chunk is the set of lanes whose longest
     path advances every lane's state between samples (PHYSICS.md D7).
     Other keyword arguments as :func:`render_pass_plain`.  Returns the
@@ -774,8 +792,9 @@ def classic_render_cuda(accum, pack: ScenePack, frame_seed: int, px, py, *, chun
     """Launch the classic instance on the current stream: under the cpu
     contract one launch of the window kernel for all the lanes and passes;
     else, pass by pass, two launches a sample over all the lanes (the march
-    kernel, then the sample kernel), each lane reading its own chunk's
-    longest paths."""
+    kernel, which at sample 0 also adds the pass's fog-once estimate where
+    the gpu contract marches one, then the sample kernel), each lane
+    reading its own chunk's longest paths."""
     global LAUNCHES, PAGED_LAUNCHES, CLASSIC_LAUNCHES, MARCH_LAUNCHES
     _c, _m, launches, march_launches = _launch_classic(False, accum, pack, frame_seed, px, py, chunk=chunk,
                                                        n_passes=n_passes, **kw)
@@ -813,8 +832,9 @@ def _launch_classic(counting: bool, accum, pack, frame_seed, px, py, *, chunk, n
     in the counting build one a sample, in a list; those of the march
     launches likewise, empty under the cpu contract's window; launches of
     the classic instance; launches of the march)."""
-    if _regen(tcfg):
-        raise ValueError("classic_render: the classic instance runs the cpu contract and faithful fog")
+    if _regen(tcfg):  # its plain version would run the regeneration loop: another sample schedule, another image
+        raise ValueError("classic_render: the config runs the regeneration loop (render_pass_cuda); "
+                         "PATHTRACER_NO_REGEN=1 takes the gpu contract through the classic loop")
     dev = _check_device("classic_render_cuda", pack, px, py, accum)
     n = px.numel()
     if tuple(accum.shape) != (n, 3) or accum.dtype != torch.float32 or not accum.is_contiguous():
@@ -827,7 +847,7 @@ def _launch_classic(counting: bool, accum, pack, frame_seed, px, py, *, chunk, n
     flags = _flags(pack, tcfg, has_aperture, normalize_pass)
     stream = torch.cuda.current_stream(dev).cuda_stream
     seed = int(frame_seed) & MASK32
-    lib = _lib(counting, "classic")
+    lib = _lib(counting, "classic", prof_bits(tcfg))
     new = lambda: torch.zeros(N_COUNTERS, dtype=torch.int64, device=dev)  # noqa: E731
     counters = [new()]
     if samples == 1 and flags & FLAG_CPU and not flags & FLAG_FOG_ONCE:
@@ -955,7 +975,7 @@ def _trace_call(counting: bool, orig: V3, dirv: V3, state, pack, cfg, active, ro
     counters = scratch[:N_COUNTERS]
     march = scratch[N_COUNTERS:2 * N_COUNTERS] if counting else counters
     lengths = scratch[2 * N_COUNTERS + 1:].view(torch.int32)[:n]
-    lib = _lib(counting, "classic")
+    lib = _lib(counting, "classic", prof_bits(cfg))
     args = (
         *_trace_scene_args(pack), *(c.data_ptr() for c in o), o_stride, *(c.data_ptr() for c in d), d_stride,
         st_in.data_ptr(), 0 if act is None else act.data_ptr(), n, cfg.max_depth, cfg.rr_threshold,
@@ -1035,10 +1055,27 @@ def paged_count_ops(o: V3, d: V3, pack: ScenePack, t_min, best_t=None, t_max=Non
     """The f32 operations that the walk does for these rays, tallied by the
     counting build (the C_PAGE_* table in csrc/paged_walk.cuh).  Not a
     launch of the walk: ``WALK_LAUNCHES`` does not change."""
-    return _launch_walk(True, any_hit, o, d, pack, t_min, best_t, t_max, exclude_obj, skip, want_ops=True)
+    return paged_count_split(o, d, pack, t_min, best_t, t_max, exclude_obj, skip, any_hit)["ops"]
 
 
-def _launch_walk(counting, any_hit, o, d, pack, t_min, best_t, t_max, exclude_obj, skip, want_ops=False):
+# the warp sweep's counts after the cursor (csrc/common.cuh, SWEEP_COUNTS)
+_SWEEP_NAMES = ("sets", "pages_visited", "want_sum", "lane_slots", "pairs", "box_tests")
+
+
+def paged_count_split(o: V3, d: V3, pack: ScenePack, t_min, best_t=None, t_max=None, exclude_obj=None, skip=None,
+                      any_hit=False) -> dict:
+    """The counting build of the walk alone on these rays, one thread a ray
+    (a warp is 32 consecutive rays): ``ops``, and the warp sweep's counts
+    summed over its working sets: ``sets``, ``pages_visited``, ``want_sum``
+    (the rays that want each visited page), ``lane_slots`` (rounds of the
+    row loop times the set's lanes), ``pairs`` (the (ray, row) pairs the
+    rays need) and ``box_tests``.  Not a launch of the walk."""
+    counters = _launch_walk(True, any_hit, o, d, pack, t_min, best_t, t_max, exclude_obj, skip, want_counts=True)
+    vals = [int(c) for c in counters.cpu()]
+    return {"ops": vals[1], **dict(zip(_SWEEP_NAMES, vals[36:42]))}
+
+
+def _launch_walk(counting, any_hit, o, d, pack, t_min, best_t, t_max, exclude_obj, skip, want_counts=False):
     dev = o.x.device
     if dev.type != "cuda":
         raise ValueError(f"the paged walk kernel needs CUDA tensors, got {dev}")
@@ -1064,18 +1101,18 @@ def _launch_walk(counting, any_hit, o, d, pack, t_min, best_t, t_max, exclude_ob
     out_i = torch.empty((2, n), dtype=torch.int32, device=dev)
     out_f = torch.empty((6, n), dtype=torch.float32, device=dev)
     out_b = torch.empty(n, dtype=torch.uint8, device=dev)
-    ops = torch.zeros(1, dtype=torch.int64, device=dev)
+    counters = torch.zeros(N_COUNTERS, dtype=torch.int64, device=dev)
     if any(t.dtype != torch.float32 or not t.is_contiguous() for t in (pack.page_tiles, pack.page_boxes)):
         raise ValueError("paged walk: page tables must be contiguous float32")
     lib = _lib(counting)
     err = lib.pt_paged_walk(
         pack.page_tiles.data_ptr(), pack.page_boxes.data_ptr(), pack.paged.n_pages, pack.page_boxes.shape[1],
         rays.data_ptr(), excl.data_ptr(), skip_u8.data_ptr(), n, float(t_min), int(any_hit),
-        out_i.data_ptr(), out_f.data_ptr(), out_b.data_ptr(), ops.data_ptr(),
+        out_i.data_ptr(), out_f.data_ptr(), out_b.data_ptr(), counters.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"paged walk kernel launch failed: {lib.pt_error_string(err).decode()}")
-    if want_ops:
-        return int(ops)
+    if want_counts:
+        return counters
     return out_i, out_f, out_b

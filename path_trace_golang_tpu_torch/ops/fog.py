@@ -116,10 +116,11 @@ def apply_legacy_fog(radiance: V3, distance, fog_block: np.ndarray) -> V3:
     )
 
 
-def estimate_volume_light(pos: V3, view_dir: V3, pack: ScenePack, rng: LaneRng) -> V3:
+def estimate_volume_light(pos: V3, view_dir: V3, pack: ScenePack, rng: LaneRng, prof: tuple = ()) -> V3:
     """Single-scatter in-fog lighting at ``pos`` (gpu.go:1208-1297): per
     sphere light an un-offset shadow ray and the HG phase, summed,
-    doubled (gpu.go:1283) and luminance-clamped.  Two draws per light."""
+    doubled (gpu.go:1283) and luminance-clamped.  Two draws per light.
+    ``prof``: the profiling knobs (geometry.occluded)."""
     fog_block = pack.host("fog")
     obj, mat = pack.host("obj"), pack.host("mat")
     g = _f(fog_block[10])
@@ -145,7 +146,7 @@ def estimate_volume_light(pos: V3, view_dir: V3, pack: ScenePack, rng: LaneRng) 
         dist = torch.sqrt(torch.clamp_min(dist_sq, 1e-20))
         wi = to_light * (1.0 / dist)
 
-        blocked = geometry.occluded(pos, wi, pack, 0.001, dist - 0.002)
+        blocked = geometry.occluded(pos, wi, pack, 0.001, dist - 0.002, prof=prof)
         valid = valid & ~blocked
 
         cos_light = torch.clamp_min(-(light_n.dot(wi)), 0.0)

@@ -120,6 +120,7 @@ def intersect_world(
     exclude_obj: Optional[torch.Tensor] = None,
     lite: bool = False,
     skip: Optional[torch.Tensor] = None,
+    prof: tuple = (),
 ) -> Hit:
     """Closest hit over all objects, then the triangles (shader hitWorld).
 
@@ -136,6 +137,10 @@ def intersect_world(
     ``skip``: bool lanes whose result the caller discards; they enter no
     page of the paged walk (work pruning only) and may come back with an
     object-only record.
+    ``prof`` (``TraceConfig.prof_no_mesh``, for profiling only): with
+    "hit" the mesh is left out of the query, with "lite" out of a lite
+    query of a paged mesh, before its emissive skip (JAX
+    ops/geometry.py:215, :226); the record is then the objects' alone.
     """
     best_t = torch.full_like(o.x, BIG_T)
     best_m = torch.zeros_like(o.x, dtype=torch.int64)  # winning object index
@@ -153,7 +158,8 @@ def intersect_world(
     is_tri = torch.zeros_like(o.x, dtype=torch.bool)
     tri_n = [torch.zeros_like(o.x)] * 3
 
-    if pack.n_triangles and pack.paged is not None:
+    mesh = bool(pack.n_triangles) and "hit" not in prof
+    if mesh and pack.paged is not None and not (lite and "lite" in prof):
         if lite and not pack.tri_any_emissive:
             obj_mtyp = pack.mat[best_mat, 0].to(torch.int32)
             skip_l = ~(obj_hit & (obj_mtyp == MAT_EMISSIVE))
@@ -175,7 +181,7 @@ def intersect_world(
         best_mat = torch.where(improved, w.mat.to(torch.int64), best_mat)
         is_tri = improved
         tri_n = [w.nx, w.ny, w.nz]
-    elif pack.n_triangles:
+    elif mesh and pack.paged is None:
         tri = pack.host("tri")
         state = dict(best_t=best_t, best_m=best_m, best_mat=best_mat, is_tri=is_tri, n=tri_n)
 
@@ -262,33 +268,34 @@ def _finish_hit(o: V3, d: V3, pack: ScenePack, best_t, best_m, best_obj, obj_hit
     )
 
 
-def occluded(o: V3, d: V3, pack: ScenePack, t_min, t_max, skip=None):
+def occluded(o: V3, d: V3, pack: ScenePack, t_min, t_max, skip=None, prof: tuple = ()):
     """Any-hit test for shadow rays (hitWorld with tMax = dist - 0.002).
 
     ``skip``: bool lanes whose result the caller discards (shadow rays
     already ruled out by their cosine or distance terms); they enter no
-    page of the paged mesh walk."""
+    page of the paged mesh walk.  ``prof`` with "occl" (for profiling
+    only): the mesh blocks nothing (JAX ops/geometry.py:384)."""
     blocked = torch.zeros_like(o.x, dtype=torch.bool)
     for _m, t, ok in _object_candidates(o, d, pack, t_min):
         blocked = blocked | (ok & (t <= t_max))
-    if pack.n_triangles and pack.paged is not None:
+    if not pack.n_triangles or "occl" in prof:
+        return blocked
+    if pack.paged is not None:
         return bvh_mod.occluded_triangles_paged(
             o, d, pack, t_min, t_max, blocked if skip is None else (blocked | skip)
         )
-    if pack.n_triangles:
-        state = dict(blocked=blocked)
+    state = dict(blocked=blocked)
 
-        def update(_oi, _bvh_i, t, ok, _nrm):
-            state["blocked"] = state["blocked"] | (ok & (t <= t_max))
+    def update(_oi, _bvh_i, t, ok, _nrm):
+        state["blocked"] = state["blocked"] | (ok & (t <= t_max))
 
-        big = torch.full_like(o.x, BIG_T)
-        # prune box visits once a lane is already occluded
-        bvh_mod.traverse_triangles(
-            o, d, pack, t_min,
-            lambda: torch.where(state["blocked"], _f(t_min), big), update,
-        )
-        blocked = state["blocked"]
-    return blocked
+    big = torch.full_like(o.x, BIG_T)
+    # prune box visits once a lane is already occluded
+    bvh_mod.traverse_triangles(
+        o, d, pack, t_min,
+        lambda: torch.where(state["blocked"], _f(t_min), big), update,
+    )
+    return state["blocked"]
 
 
 def box_exit_t(o: V3, d: V3, bmin: V3, bmax: V3, t_min=0.001):

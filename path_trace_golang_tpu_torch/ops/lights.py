@@ -34,7 +34,8 @@ def luminance_clamp(contrib: V3, max_lum=500.0) -> V3:
     return contrib * scale
 
 
-def _direct_single(p: V3, n: V3, albedo: V3, pack: ScenePack, rng: LaneRng, light, gathered: bool, skip=None) -> V3:
+def _direct_single(p: V3, n: V3, albedo: V3, pack: ScenePack, rng: LaneRng, light, gathered: bool, skip=None,
+                   prof: tuple = ()) -> V3:
     """estimateDirectLightSingle (gpu.go:923-999) for one light.
 
     ``light`` is (cx, cy, cz, radius, ex, ey, ez, is_sphere): float32
@@ -66,7 +67,7 @@ def _direct_single(p: V3, n: V3, albedo: V3, pack: ScenePack, rng: LaneRng, ligh
 
     shadow_orig = p + n * 0.001
     no_need = ~valid if skip is None else (~valid | skip)
-    blocked = geometry.occluded(shadow_orig, wi, pack, 0.001, dist - 0.002, skip=no_need)
+    blocked = geometry.occluded(shadow_orig, wi, pack, 0.001, dist - 0.002, skip=no_need, prof=prof)
     valid = valid & ~blocked
 
     inv_dist_sq = 1.0 / torch.clamp_min(dist_sq, 1e-6)
@@ -97,13 +98,14 @@ def _gathered_light(pack: ScenePack, idx_l: torch.Tensor):
             pick(mrow[..., 8]), pick(mrow[..., 9]), pick(mrow[..., 10]), is_sphere)
 
 
-def estimate_direct_light(p: V3, n: V3, albedo: V3, pack: ScenePack, rng: LaneRng, skip=None) -> V3:
+def estimate_direct_light(p: V3, n: V3, albedo: V3, pack: ScenePack, rng: LaneRng, skip=None,
+                          prof: tuple = ()) -> V3:
     """estimateDirectLight (gpu.go:1004-1070): NEE over all lights.
 
     Every light when there are <= 8, otherwise a random contiguous window
     of 8 per lane scaled by count/8; the sum times 1/light_count.
     ``skip``: lanes whose result the caller discards (shadow-walk work
-    pruning only).
+    pruning only); ``prof``: the profiling knobs (geometry.occluded).
     """
     count = pack.n_lights
     total = V3.zeros_like(p.x)
@@ -114,7 +116,7 @@ def estimate_direct_light(p: V3, n: V3, albedo: V3, pack: ScenePack, rng: LaneRn
         for j in range(MAX_LIGHTS_TO_SAMPLE):
             idx_l = (start + j) % count
             total = total + _direct_single(
-                p, n, albedo, pack, rng, _gathered_light(pack, idx_l), gathered=True, skip=skip
+                p, n, albedo, pack, rng, _gathered_light(pack, idx_l), gathered=True, skip=skip, prof=prof
             )
         total = total * (count / MAX_LIGHTS_TO_SAMPLE)
     else:
@@ -125,6 +127,6 @@ def estimate_direct_light(p: V3, n: V3, albedo: V3, pack: ScenePack, rng: LaneRn
                 rng.next()
                 continue
             total = total + _direct_single(
-                p, n, albedo, pack, rng, _static_light(pack, lo), gathered=False, skip=skip
+                p, n, albedo, pack, rng, _static_light(pack, lo), gathered=False, skip=skip, prof=prof
             )
     return total * (1.0 / count)

@@ -7,11 +7,13 @@ counted as one sample (PHYSICS.md Q1); ``normalize_pass=True`` gives a
 physically normalized render instead.  Several passes run in one kernel
 launch (a pass window, default 8), each lane reseeding at every pass
 boundary, so a window render equals the pass-by-pass render.  Faithful
-fog (``faithful_fog=True``) and the cpu contract (one sample a pass, the
-default backend) run the classic per-sample loop: on the card the cpu
-contract renders a window of passes in one launch (``PATHTRACER_PASS_WINDOW``,
-default 8; ``=1`` gives one pass a launch) and faithful fog one launch a
-sample over all chunks; on the CPU both go pass by pass and chunk by chunk.
+fog (``faithful_fog=True``), the cpu contract (one sample a pass, the
+default backend) and the gpu contract under ``PATHTRACER_NO_REGEN=1`` run
+the classic per-sample loop: on the card the cpu contract renders a window
+of passes in one launch (``PATHTRACER_PASS_WINDOW``, default 8; ``=1`` gives
+one pass a launch) and the gpu contract two launches a sample over all
+chunks, one pass a window, as the JAX Renderer dispatches it; on the CPU
+they go pass by pass and chunk by chunk.
 
 The renderer runs on the card (``device="cuda"``) unless the caller asks
 for the CPU; with no card it raises instead of falling back.  A failure
@@ -171,7 +173,7 @@ def pass_body_grid(
     col = V3.zeros_like(pxf)
     if tcfg.enable_fog_march and not tcfg.fog_in_trace:
         for term in fog_pass_terms(pack, frame_seed, px, py, width=width, height=height, samples=samples,
-                                   has_aperture=has_aperture, n_passes=n_passes):
+                                   has_aperture=has_aperture, n_passes=n_passes, prof=tcfg.prof_no_mesh):
             col = col + term
 
     if regen_enabled(tcfg):
@@ -208,12 +210,13 @@ def pass_body_grid(
 
 
 def fog_pass_terms(pack: ScenePack, frame_seed: int, px, py, *, width: int, height: int, samples: int,
-                   has_aperture: bool, n_passes: int = 1):
+                   has_aperture: bool, n_passes: int = 1, prof: tuple = ()):
     """The fog estimate once per pass of a window (render.py:232-266), each
     on its own counter stream (``(frame_seed + p) ^ FOG_STREAM_XOR``,
     PHYSICS.md D6): jitter, camera ray and the gated march, times the pass's
     samples.  Returns one V3 a pass, which :func:`pass_body_grid` adds to a
-    lane's color in pass order (the fog kernel's plain version)."""
+    lane's color in pass order (the fog kernel's plain version).  ``prof``:
+    the profiling knobs (``TraceConfig.prof_no_mesh``)."""
     inv_w = _f(1.0) / _f(width - 1 if width > 1 else 1)
     inv_h = _f(1.0) / _f(height - 1 if height > 1 else 1)
     fy = _f(height - 1) - py.to(torch.float32)
@@ -229,7 +232,7 @@ def fog_pass_terms(pack: ScenePack, frame_seed: int, px, py, *, width: int, heig
             (pxf + jx) * inv_w, (fy + jy) * inv_h, pack.cam, width, height, rng0,
             has_aperture, pack.lens_disk, basis=basis,
         )
-        fog_rad, _ = fog_prepass_grid(fog_o, fog_d, rng0.state, pack)
+        fog_rad, _ = fog_prepass_grid(fog_o, fog_d, rng0.state, pack, prof)
         terms.append(fog_rad * _f(samples))
     return terms
 
@@ -415,7 +418,8 @@ class Renderer:
         # a window of passes: under the regeneration loop as the JAX Renderer's, capped at the update cadence
         # when a callback is given or checkpoints are saved; under the classic loop with one sample a pass (the
         # cpu contract) the window ends at every interval pass that is observed, and is one pass when cancel is
-        # given, as the JAX Renderer checks it after every classic pass; faithful fog renders one pass at a time
+        # given, as the JAX Renderer checks it after every classic pass; the classic loop of the gpu contract
+        # (faithful fog, PATHTRACER_NO_REGEN) renders one pass at a time
         window = max(1, int(os.environ.get("PATHTRACER_PASS_WINDOW", "8")))
         if regen:
             if progress is not None or cancel is not None or self.checkpoint_path:

@@ -34,6 +34,7 @@ from .ops.bvh import (
     build_paged_bvh, page_boxes_table, use_dynamic_walk,
 )
 from .scene.model import Scene
+from .utils.config import switch_on
 
 __all__ = [
     "ScenePack",
@@ -111,6 +112,10 @@ class ScenePack:
     obj_mats: tuple = ()
     light_objs: tuple = ()
     mat_types: tuple = ()
+    # per material column, its value where every material has the same one, else None (JAX soa.py:510-518,
+    # where it prunes the select chains of the closest hit); () after PATHTRACER_NO_MAT_UNIFORM_PRUNE=1 is
+    # (None,) * MAT_STRIDE.  No kernel and no plain version reads it: a CUDA thread reads its hit's material row,
+    # and the plain version gathers the winner's row (ops/geometry.py).
     mat_uniform: tuple = ()
     tri: Optional[torch.Tensor] = None  # f32[max(T,1)+LEAF_SIZE, 24]
     bvh_bounds: Optional[torch.Tensor] = None  # f32[max(B,1), 6]
@@ -383,7 +388,9 @@ def pack_scene(sc: Scene, width: int = 0, height: int = 0, device="cuda") -> Sce
         mat_uniform=tuple(
             float(mat[0, c]) if bool(np.all(mat[:, c] == mat[0, c])) else None
             for c in range(MAT_STRIDE)
-        ),
+        )
+        if not switch_on("PATHTRACER_NO_MAT_UNIFORM_PRUNE")
+        else (None,) * MAT_STRIDE,
         n_triangles=t_count,
         tri_mats=tuple(tri_mat_list),
         tri_smooth=tuple(tri_smooth_list),

@@ -26,10 +26,18 @@ __all__ = [
     "set_smooth_config_from_ui",
     "get_chunk_size",
     "reset_cache",
+    "switch_on",
 ]
 
 _TRUE = ("1", "true", "on", "yes")
+_SWITCH_ON = ("1", "true", "on")
 _FALSE = ("0", "false", "off", "no")
+
+
+def switch_on(name: str) -> bool:
+    """A switch of the JAX package's form (``PATHTRACER_NO_REGEN`` and its
+    kind): "1", "true" or "on" sets it, read anew on every call."""
+    return os.environ.get(name, "") in _SWITCH_ON
 
 
 @dataclasses.dataclass

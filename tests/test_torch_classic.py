@@ -527,15 +527,16 @@ def test_trace_split_arithmetic():
 def test_trace_counter_slots_match_classic_cu():
     """B3's counters name the slots that csrc/common.cuh and csrc/classic.cu
     write: the state advance's hash rounds in ADVANCE_ROUNDS besides the
-    total (slot 13), and the paged bounces' ray cursor last."""
+    total (slot 13), and the paged bounces' ray cursor after it, the walk's
+    sweep counts last."""
     csrc = Path(cuda_trace.__file__).resolve().parent.parent / "csrc"
     common, classic = (csrc / "common.cuh").read_text(), (csrc / "classic.cu").read_text()
     n = cuda_trace.N_COUNTERS
-    assert f"N_COUNTERS = {n}, CURSOR = {n - 1}, ADVANCE_ROUNDS = {n - 2};" in common
+    assert f"N_COUNTERS = {n}, CURSOR = 35, ADVANCE_ROUNDS = 34, SWEEP_COUNTS = {n - 6};" in common
     assert "atomicAdd(counters + 13, rounds);" in classic and "atomicAdd(counters + ADVANCE_ROUNDS, rounds);" in classic
     assert "lane = PAGED ? (int)atomicAdd(counters + CURSOR, 1ull)" in classic
     c = cuda_trace._count_dict(torch.arange(n, dtype=torch.int64))
-    assert c["advance_rounds"] == n - 2 and c["rng_rounds"] == 13 and c["march_tail_cycles"] == 33
+    assert c["advance_rounds"] == 34 and c["rng_rounds"] == 13 and c["march_tail_cycles"] == 33
 
 
 def test_trace_reads_rays_in_place():

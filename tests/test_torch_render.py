@@ -515,9 +515,11 @@ def test_march_split_arithmetic():
 
 def test_counter_slots_match_common_cuh():
     """The counters of a launch name every slot of csrc/common.cuh: the
-    march's split after the classic loop's, the lane cursor last."""
+    march's split after the classic loop's, then the lane cursor, the walk's
+    sweep counts last."""
     src = (Path(cuda_trace.__file__).resolve().parent.parent / "csrc" / "common.cuh").read_text()
-    assert f"N_COUNTERS = {cuda_trace.N_COUNTERS}, CURSOR = {cuda_trace.N_COUNTERS - 1}" in src
+    assert f"N_COUNTERS = {cuda_trace.N_COUNTERS}, CURSOR = 35" in src
+    assert cuda_trace.N_COUNTERS == 36 + len(cuda_trace._SWEEP_NAMES)
     vals = torch.arange(cuda_trace.N_COUNTERS, dtype=torch.int64)
     c = cuda_trace._count_dict(vals)
     assert c["march_hit_cycles"] == 21 and c["march_tail_cycles"] == 33 and c["warp_segments"] == 20

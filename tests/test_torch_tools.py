@@ -348,4 +348,4 @@ def test_tools_import_no_jax():
     )
     p = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, p.stderr
-    assert int(p.stdout.strip()) >= 17  # tools/perf (12), tools/repro (4), graft_entry
+    assert int(p.stdout.strip()) >= 21  # tools/perf (16), tools/repro (4), graft_entry
