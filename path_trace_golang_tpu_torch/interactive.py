@@ -26,6 +26,15 @@ thread, whose kernels launch on that thread's current stream:
 A tiny terminal front-end (`run_terminal`) drives the same session for
 manual use over SSH.  A render that raises reports the error on the status
 line and keeps it in ``error`` (None after a render that ended well).
+
+Each frame is one request of the span recorder (``utils/metrics.py``): its
+``session.frame`` span opens at the first edit since the last frame
+started (or at ``render_now``) and closes when the frame is published,
+and holds ``session.edit``, ``session.cancel``, ``session.join``,
+``session.handoff``, ``session.scene_copy``, the Renderer's ``render`` (on
+the render thread, under the same request id) and ``session.publish``;
+its counters ``debounce_scheduled`` and ``debounce_cancelled``.  ``spans``
+holds the last finished frame's.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from .io_png import save_png
 from .scene import io as scene_io
 from .scene.model import RenderSettings, Scene
 from .utils import config as env_config
+from .utils import metrics
 
 __all__ = ["InteractiveSession"]
 
@@ -91,16 +101,37 @@ class InteractiveSession:
         self._cancel_flag = threading.Event()
         self._render_thread: Optional[threading.Thread] = None
         self._generation = 0
+        self._pending = None  # (trace, its session.frame span) of the next frame
+        self.spans: list = []  # the last finished frame's spans (utils/metrics.py)
 
     # ------------------------------------------------------------------
     # render loop
     # ------------------------------------------------------------------
 
+    def _frame(self, take: bool = False):
+        """The (trace, ``session.frame`` span) of the frame that the next
+        render publishes, opened by the first edit since the last one
+        started; ``take`` starts it, so that the next edit opens another."""
+        with self._lock:
+            frame = self._pending
+            if frame is None:
+                trace = metrics.Trace()
+                frame = (trace, trace.open("session.frame"))
+            self._pending = None if take else frame
+            return frame
+
+    def _cancel_debounce(self, trace) -> None:
+        # under self._lock
+        if self._debounce is not None:
+            if not self._debounce.finished.is_set():
+                trace.count("debounce_cancelled")
+            self._debounce.cancel()
+
     def request_render(self, final: bool = False) -> None:
         """Debounced, cancellable re-render (startRender, app.go:234-264)."""
+        trace, _root = self._frame()
         with self._lock:
-            if self._debounce is not None:
-                self._debounce.cancel()
+            self._cancel_debounce(trace)
             self._cancel_flag.set()  # cooperative cancel of the running render
             self._generation += 1
             gen = self._generation
@@ -109,12 +140,13 @@ class InteractiveSession:
             )
             self._debounce.daemon = True
             self._debounce.start()
+            trace.count("debounce_scheduled")
 
     def render_now(self, final: bool = False) -> np.ndarray:
         """Synchronous render (used by the terminal front-end and tests)."""
-        with self._lock:
-            if self._debounce is not None:
-                self._debounce.cancel()
+        trace, root = self._frame()
+        with metrics.bound(trace, root), metrics.span("session.cancel"), self._lock:
+            self._cancel_debounce(trace)
             self._cancel_flag.set()
             self._generation += 1
             gen = self._generation
@@ -129,31 +161,53 @@ class InteractiveSession:
         return R.RenderConfig(s.width, s.height, s.samples_per_px, s.max_depth)
 
     def _start_render(self, final: bool, gen: int, wait: bool = False):
-        prev = self._render_thread
-        if prev is not None and prev.is_alive():
-            prev.join()  # the old render stops at its next pass boundary
+        trace, root = self._frame(take=True)
+        with metrics.bound(trace, root):
+            prev = self._render_thread
+            if prev is not None and prev.is_alive():
+                with metrics.span("session.join"):
+                    prev.join()  # the old render stops at its next pass boundary
 
-        self._cancel_flag = threading.Event()
-        cancel_flag = self._cancel_flag
+            self._cancel_flag = threading.Event()
+            cancel_flag = self._cancel_flag
+            handoff = trace.open("session.handoff", root)
 
         def work():
-            t0 = time.perf_counter()
+            handoff.end_ns = time.perf_counter_ns()
+            try:
+                with metrics.bound(trace, root):
+                    self._work(final, gen, wait, cancel_flag)
+            finally:
+                self.spans = trace.spans
+                trace.finish(root)
+
+        th = threading.Thread(target=work, daemon=True)
+        self._render_thread = th
+        th.start()
+        if wait:
+            th.join()
+        return th
+
+    def _work(self, final: bool, gen: int, wait: bool, cancel_flag: threading.Event) -> None:
+        t0 = time.perf_counter()
+        with metrics.span("session.scene_copy"):
             sc = self.scene.copy()  # render a snapshot; edits keep flowing
             cfg = self._config(final)
-            self.on_status(f"rendering {'final' if final else 'preview'} {cfg.width}x{cfg.height}")
+        self.on_status(f"rendering {'final' if final else 'preview'} {cfg.width}x{cfg.height}")
 
-            def progress(pass_idx, img):
-                if gen == self._generation and self.on_frame is not None:
-                    self.on_frame(pass_idx, img)
+        def progress(pass_idx, img):
+            if gen == self._generation and self.on_frame is not None:
+                self.on_frame(pass_idx, img)
 
-            try:
-                img = self.renderer.render(
-                    sc, cfg, progress=progress, cancel=lambda: cancel_flag.is_set()
-                )
-            except Exception as e:  # surface render errors to the status line
-                self.error = e
-                self.on_status(f"render error: {e!r}")
-                return
+        try:
+            img = self.renderer.render(
+                sc, cfg, progress=progress, cancel=lambda: cancel_flag.is_set()
+            )
+        except Exception as e:  # surface render errors to the status line
+            self.error = e
+            self.on_status(f"render error: {e!r}")
+            return
+        with metrics.span("session.publish"):
             self.error = None
             elapsed = time.perf_counter() - t0
             self.fps = 1.0 / elapsed if elapsed > 0 else 0.0  # app.go:217-220
@@ -166,13 +220,6 @@ class InteractiveSession:
                     f"done in {elapsed:.2f}s ({self.fps:.2f} fps, "
                     f"{self.renderer.stats.mrays_per_sec:.1f} Mrays/s)"
                 )
-
-        th = threading.Thread(target=work, daemon=True)
-        self._render_thread = th
-        th.start()
-        if wait:
-            th.join()
-        return th
 
     # ------------------------------------------------------------------
     # camera control (app.go:1303-1425)
@@ -191,32 +238,34 @@ class InteractiveSession:
         }.get(key.lower())
         if delta is None:
             return False
-        dx, dy, dz = delta
-        cam.position.x += dx
-        cam.position.y += dy
-        cam.position.z += dz
-        cam.target.x += dx
-        cam.target.y += dy
-        cam.target.z += dz
-        self.request_render(False)
+        with metrics.bound(*self._frame()), metrics.span("session.edit"):
+            dx, dy, dz = delta
+            cam.position.x += dx
+            cam.position.y += dy
+            cam.position.z += dz
+            cam.target.x += dx
+            cam.target.y += dy
+            cam.target.z += dz
+            self.request_render(False)
         return True
 
     def rotate(self, d_yaw: float = 0.0, d_pitch: float = 0.0) -> None:
         """Arrow-key yaw/pitch: rotate the target around the position,
         preserving the view distance, pitch clamped (app.go:1336-1412)."""
-        cam = self.scene.camera
-        dx = cam.target.x - cam.position.x
-        dy = cam.target.y - cam.position.y
-        dz = cam.target.z - cam.position.z
-        yaw = math.atan2(dz, dx)
-        pitch = math.atan2(dy, math.hypot(dx, dz))
-        r = math.sqrt(dx * dx + dy * dy + dz * dz)
-        yaw += d_yaw
-        pitch = max(-PITCH_LIMIT, min(PITCH_LIMIT, pitch + d_pitch))
-        cam.target.x = cam.position.x + r * math.cos(pitch) * math.cos(yaw)
-        cam.target.y = cam.position.y + r * math.sin(pitch)
-        cam.target.z = cam.position.z + r * math.cos(pitch) * math.sin(yaw)
-        self.request_render(False)
+        with metrics.bound(*self._frame()), metrics.span("session.edit"):
+            cam = self.scene.camera
+            dx = cam.target.x - cam.position.x
+            dy = cam.target.y - cam.position.y
+            dz = cam.target.z - cam.position.z
+            yaw = math.atan2(dz, dx)
+            pitch = math.atan2(dy, math.hypot(dx, dz))
+            r = math.sqrt(dx * dx + dy * dy + dz * dz)
+            yaw += d_yaw
+            pitch = max(-PITCH_LIMIT, min(PITCH_LIMIT, pitch + d_pitch))
+            cam.target.x = cam.position.x + r * math.cos(pitch) * math.cos(yaw)
+            cam.target.y = cam.position.y + r * math.sin(pitch)
+            cam.target.z = cam.position.z + r * math.cos(pitch) * math.sin(yaw)
+            self.request_render(False)
 
     def arrow_key(self, key: str) -> bool:
         step = {

@@ -56,7 +56,9 @@ fog: the first of a sample's two launches; ``CLASSIC_LAUNCHES`` counts the
 second), ``TRACE_LAUNCHES`` calls that launched kernel B3, ``WALK_LAUNCHES``
 launches of the walk alone; ``PLAIN_CALLS``, ``FOG_PLAIN_CALLS``,
 ``TRACE_PLAIN_CALLS`` and ``WALK_PLAIN_CALLS`` count calls of the plain
-versions.
+versions.  A library's first load in a render is its span ``kernels.load``,
+the build inside it ``kernels.build``, which the render's ``kernel_builds``
+counts.
 """
 
 from __future__ import annotations
@@ -72,6 +74,7 @@ from pathlib import Path
 import torch
 
 from ..soa import ScenePack
+from ..utils.metrics import count, span
 from . import bvh as bvh_mod
 from ._launch import raise_on
 from .camera import camera_basis
@@ -160,7 +163,9 @@ def build(count_ops: bool = False, source: str = "render_pass", prof: int = 0) -
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *flags, "-o", tmp, str(SOURCES[source])]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    with span("kernels.build"):
+        res = subprocess.run(cmd, capture_output=True, text=True)
+    count("kernel_builds")
     log = res.stdout + res.stderr
     if not count_ops and not prof:
         BUILD_LOG[source] = log
@@ -179,27 +184,28 @@ _SCENE_ARGTYPES = [_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _
 def _lib(count_ops: bool = False, source: str = "render_pass", prof: int = 0):
     key = (count_ops, source, prof)
     if key not in _LIBS:
-        lib = ctypes.CDLL(str(build(count_ops, source, prof)))
-        p, i, u = _P, _I, ctypes.c_uint
-        if source == "render_pass":
-            lib.pt_render_pass.argtypes = _SCENE_ARGTYPES + [p, p, i, u, i, i, i, i, i, i, i, i, p, p, p, p]
-            lib.pt_render_pass.restype = i
-            lib.pt_fog_pass.argtypes = _SCENE_ARGTYPES + [p, p, i, u, i, i, i, i, i, p, p, p]
-            lib.pt_fog_pass.restype = i
-            lib.pt_paged_walk.argtypes = [p, p, i, i, p, p, p, i, ctypes.c_float, i, p, p, p, p, p]
-            lib.pt_paged_walk.restype = i
-        elif source == "classic":
-            lib.pt_trace_grid.argtypes = _SCENE_ARGTYPES + [p, p, p, i, p, p, p, i, p, p, i, i, i, i, p, i, i,
-                                                            p, p, p, p, p, p]
-            lib.pt_trace_grid.restype = i
-            lib.pt_classic_window.argtypes = _SCENE_ARGTYPES + [p, p, i, u, i, i, i, i, i, i, i, p, p, p]
-            lib.pt_classic_window.restype = i
-            lib.pt_classic_samples.argtypes = _SCENE_ARGTYPES + [p, p, i, i, u, i, i, i, i, i, i, i, i, i,
-                                                                 p, p, p, p, p, p, p, p, p]
-            lib.pt_classic_samples.restype = i
-        lib.pt_error_string.argtypes = [i]
-        lib.pt_error_string.restype = ctypes.c_char_p
-        _LIBS[key] = lib
+        with span("kernels.load"):
+            lib = ctypes.CDLL(str(build(count_ops, source, prof)))
+            p, i, u = _P, _I, ctypes.c_uint
+            if source == "render_pass":
+                lib.pt_render_pass.argtypes = _SCENE_ARGTYPES + [p, p, i, u, i, i, i, i, i, i, i, i, p, p, p, p]
+                lib.pt_render_pass.restype = i
+                lib.pt_fog_pass.argtypes = _SCENE_ARGTYPES + [p, p, i, u, i, i, i, i, i, p, p, p]
+                lib.pt_fog_pass.restype = i
+                lib.pt_paged_walk.argtypes = [p, p, i, i, p, p, p, i, ctypes.c_float, i, p, p, p, p, p]
+                lib.pt_paged_walk.restype = i
+            elif source == "classic":
+                lib.pt_trace_grid.argtypes = _SCENE_ARGTYPES + [p, p, p, i, p, p, p, i, p, p, i, i, i, i, p, i, i,
+                                                                p, p, p, p, p, p]
+                lib.pt_trace_grid.restype = i
+                lib.pt_classic_window.argtypes = _SCENE_ARGTYPES + [p, p, i, u, i, i, i, i, i, i, i, p, p, p]
+                lib.pt_classic_window.restype = i
+                lib.pt_classic_samples.argtypes = _SCENE_ARGTYPES + [p, p, i, i, u, i, i, i, i, i, i, i, i, i,
+                                                                     p, p, p, p, p, p, p, p, p]
+                lib.pt_classic_samples.restype = i
+            lib.pt_error_string.argtypes = [i]
+            lib.pt_error_string.restype = ctypes.c_char_p
+            _LIBS[key] = lib
     return _LIBS[key]
 
 

@@ -76,6 +76,7 @@ __all__ = [
     "BACKEND_CPU",
     "BACKEND_GPU",
     "FOG_STREAM_XOR",
+    "phase_table",
 ]
 
 _f = np.float32
@@ -306,7 +307,10 @@ class Renderer:
     (``PATHTRACER_CHECKPOINT_KEEP``) older generations, and resumes a render
     of the same scene and settings from it; ``metrics_sink`` receives each
     interval's :class:`~.utils.metrics.PassRecord`, and ``metrics`` holds the
-    last render's log.
+    last render's log.  ``spans`` holds the last render's spans and
+    ``counters`` its counts (``syncs``: each wait of the host on the card
+    outside the phase table's own; ``readback_bytes``), replaced by each
+    render.
     """
 
     def __init__(
@@ -335,6 +339,8 @@ class Renderer:
         self.checkpoint_keep = checkpoint_keep
         self.metrics_sink = metrics_sink
         self.metrics: Optional[metrics_mod.MetricsLog] = None
+        self.spans: list = []  # the last render's spans (utils/metrics.py), its own span first
+        self.counters: dict = {}  # the last render's counts: syncs, readback_bytes
         self.stats = RenderStats()
 
     def render(
@@ -350,19 +356,34 @@ class Renderer:
         return self._render(sc, cfg, contract, progress, cancel)
 
     def _render(self, sc, cfg, contract, progress, cancel) -> np.ndarray:
-        t0 = time.perf_counter()
-        dev = self.device
         # PATHTRACER_TIME_PHASES=1: a table of the render's phases on stderr, each timed to its end (JAX
-        # render.py:538-549, 738-744); the marks after device work synchronise the card first, so the phases
-        # add up to slightly more than a render without them.  Off, it adds nothing.
+        # render.py:538-549, 738-744), read from the render's spans (_PHASES); the ends of accum_init and of each
+        # pass window synchronise the card first (a ``phase_sync`` span), so the phases add up to slightly more
+        # than a render without them.  Off, it adds nothing.
         timed_phases = os.environ.get("PATHTRACER_TIME_PHASES", "") in ("1", "true", "on")
-        marks = []
+        with metrics_mod.request("render") as rq:
+            img = self._passes(sc, cfg, contract, progress, cancel, rq.span, timed_phases)
+        self.spans = rq.spans()
+        self.counters = rq.counters()
+        if timed_phases:
+            for name, ms in phase_table(self.spans):
+                print(f"  phase {name:<18} {ms:8.1f} ms", file=sys.stderr)
+        return img
 
-        def mark(name, sync=False):
+    def _passes(self, sc, cfg, contract, progress, cancel, root, timed_phases) -> np.ndarray:
+        dev = self.device
+        span, to_host = metrics_mod.span, metrics_mod.to_host
+
+        def phase_sync():
             if timed_phases:
-                if sync and dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                marks.append((name, time.perf_counter()))
+                with span("phase_sync"):
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+
+        def image(count, denoise):  # the u8 image on the host; the card's copy is freed on return
+            with span("post.image"):
+                u8 = accum_image(accum, w, h, count, gpu, denoise=denoise)
+            return to_host(u8, "readback").numpy()
 
         w, h = cfg.width, cfg.height
         n = w * h
@@ -374,10 +395,10 @@ class Renderer:
         chunk = min(self.chunk, max(n, 1))
         n_pad = -(-n // chunk) * chunk
 
-        pack = pack_scene(sc, w, h, device=dev)
-        mark("pack_scene")
-        tcfg = trace_config_for_scene(pack, sc, cfg.max_depth, contract, faithful_fog=self.faithful_fog)
-        mark("trace_config")
+        with span("render.pack"):
+            pack = pack_scene(sc, w, h, device=dev)
+        with span("render.config"):
+            tcfg = trace_config_for_scene(pack, sc, cfg.max_depth, contract, faithful_fog=self.faithful_fog)
         has_aperture = sc.camera.aperture > 0
         gpu = contract == BACKEND_GPU
         # the shader's strata arithmetic at 1 spp a pass; one sample under the cpu contract
@@ -391,25 +412,26 @@ class Renderer:
         # this accumulator's shape and short of the passes asked for (JAX
         # render.py:588-611); else a fresh start.  The digest serializes the
         # whole scene (a mesh's every triangle), so it is made only here.
-        digest = None
-        start_pass = 0
-        accum = None
-        if self.checkpoint_path:
-            digest = ckpt_mod.scene_digest(sc, cfg, contract, self.normalize_pass, samples)
-            ck = ckpt_mod.load_checkpoint(self.checkpoint_path, keep=self.checkpoint_keep)
-            if (
-                ck is not None
-                and ck.digest == digest
-                and ck.seed == self.seed
-                and ck.accum.shape == (n_pad, 3)
-                and ck.passes < passes
-            ):
-                accum = torch.from_numpy(ck.accum).to(dev)
-                start_pass = ck.passes
-        if accum is None:
-            accum = torch.zeros((n_pad, 3), dtype=torch.float32, device=dev)
-        total_segs = torch.zeros((), dtype=torch.int64, device=dev)
-        mark("accum_init", sync=True)
+        with span("render.accum_init"):
+            digest = None
+            start_pass = 0
+            accum = None
+            if self.checkpoint_path:
+                digest = ckpt_mod.scene_digest(sc, cfg, contract, self.normalize_pass, samples)
+                ck = ckpt_mod.load_checkpoint(self.checkpoint_path, keep=self.checkpoint_keep)
+                if (
+                    ck is not None
+                    and ck.digest == digest
+                    and ck.seed == self.seed
+                    and ck.accum.shape == (n_pad, 3)
+                    and ck.passes < passes
+                ):
+                    accum = torch.from_numpy(ck.accum).to(dev)
+                    start_pass = ck.passes
+            if accum is None:
+                accum = torch.zeros((n_pad, 3), dtype=torch.float32, device=dev)
+            total_segs = torch.zeros((), dtype=torch.int64, device=dev)
+            phase_sync()
         metrics = metrics_mod.MetricsLog(sink=self.metrics_sink)
         # each interval's record costs a read of the card (the non-finite count and the segments); where
         # nothing observes intervals, the render ends with one record instead (JAX render.py:662-671)
@@ -445,57 +467,75 @@ class Renderer:
             if not regen and observed:
                 nw = min(nw, update_every - p % update_every)
             frame_seed = (self.seed + p) & MASK32
-            if card and not regen:
-                total_segs = total_segs + cuda_trace.classic_render(
-                    accum, pack, frame_seed, cpx, cpy, chunk=chunk, n_passes=nw, **kw)
-            else:
-                # the regeneration loop takes a window in one call a chunk, the classic loop a pass
-                for q in range(1 if regen else nw):
-                    for start in range(0, n_pad, launch):
-                        idx = torch.arange(start, start + launch, dtype=torch.int32, device=dev)
-                        col, segs = trace_pass_lanes(
-                            pack, (frame_seed + q) & MASK32, idx, n_passes=nw if regen else 1, **kw)
-                        accum[start:start + launch] += col
-                        total_segs = total_segs + segs
+            with span("render.window", p + nw):
+                if card and not regen:
+                    total_segs = total_segs + cuda_trace.classic_render(
+                        accum, pack, frame_seed, cpx, cpy, chunk=chunk, n_passes=nw, **kw)
+                else:
+                    # the regeneration loop takes a window in one call a chunk, the classic loop a pass
+                    for q in range(1 if regen else nw):
+                        for start in range(0, n_pad, launch):
+                            idx = torch.arange(start, start + launch, dtype=torch.int32, device=dev)
+                            col, segs = trace_pass_lanes(
+                                pack, (frame_seed + q) & MASK32, idx, n_passes=nw if regen else 1, **kw)
+                            accum[start:start + launch] += col
+                            total_segs = total_segs + segs
+                phase_sync()
             p += nw
-            mark(f"pass_window@{p}", sync=True)
             if observed and ((p % update_every) < nw or p == passes):
-                nonfinite = int(metrics_mod.nonfinite_count(accum))  # padding lanes too, as the JAX Renderer's
-                metrics.interval(p, int(total_segs), nonfinite)
-                mark(f"interval@{p}")
+                with span("render.interval", p):
+                    # padding lanes too, as the JAX Renderer's
+                    nonfinite = to_host(metrics_mod.nonfinite_count(accum))
+                    metrics.interval(p, to_host(total_segs), nonfinite)
                 if self.checkpoint_path:
-                    ckpt_mod.save_checkpoint(
-                        self.checkpoint_path,
-                        ckpt_mod.Checkpoint(accum=accum.cpu().numpy(), passes=p, seed=self.seed, digest=digest,
-                                            width=w, height=h),
-                        keep=self.checkpoint_keep,
-                    )
+                    with span("render.checkpoint", p):
+                        ckpt_mod.save_checkpoint(
+                            self.checkpoint_path,
+                            ckpt_mod.Checkpoint(accum=to_host(accum, "readback").numpy(), passes=p, seed=self.seed,
+                                                digest=digest, width=w, height=h),
+                            keep=self.checkpoint_keep,
+                        )
                 if progress is not None:
-                    # progress frames skip denoise/smooth (gpu.go:2291-2293)
-                    progress(p, accum_image(accum, w, h, p, gpu, denoise=False).cpu().numpy())
+                    with span("render.progress", p):
+                        frame = image(p, denoise=False)  # progress frames skip denoise/smooth (gpu.go:2291-2293)
+                        with span("callback"):
+                            progress(p, frame)
             if cancel is not None and cancel():
                 break
 
-        img = accum_image(accum, w, h, p, gpu, denoise=True).cpu().numpy()
-        segs_total = int(total_segs)
-        if not observed:
-            nonfinite = int(metrics_mod.nonfinite_count(accum))
-            metrics.interval(p, segs_total, nonfinite)
-        mark("final_fetch")
-        prev = t0
-        for name, tm in marks:
-            print(f"  phase {name:<18} {(tm - prev) * 1e3:8.1f} ms", file=sys.stderr)
-            prev = tm
+        with span("render.finish"):
+            img = image(p, denoise=True)
+            segs_total = to_host(total_segs)
+            if not observed:
+                nonfinite = to_host(metrics_mod.nonfinite_count(accum))
+                metrics.interval(p, segs_total, nonfinite)
         self.stats = RenderStats(
             passes=p,
             samples_per_pixel=p * samples,
             ray_segments=segs_total,
-            wall_seconds=time.perf_counter() - t0,
+            wall_seconds=(time.perf_counter_ns() - root.start_ns) / 1e9,
             nonfinite=nonfinite,
             resumed_from=start_pass,
         )
         self.metrics = metrics
         return img
+
+
+# the phase table (PATHTRACER_TIME_PHASES): each phase ends where its span, a child of the render's, ends
+_PHASES = {"render.pack": "pack_scene", "render.config": "trace_config", "render.accum_init": "accum_init",
+           "render.window": "pass_window@{}", "render.interval": "interval@{}", "render.finish": "final_fetch"}
+
+
+def phase_table(spans) -> list:
+    """The phase table of one render's spans (the render's span first): (name,
+    ms from the previous phase's end, or the render's start, to its own)."""
+    root = spans[0]
+    rows, t = [], root.start_ns
+    for sp in spans:
+        if sp.parent is root and sp.name in _PHASES:
+            rows.append((_PHASES[sp.name].format(sp.arg), (sp.end_ns - t) / 1e6))
+            t = sp.end_ns
+    return rows
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,7 @@ from .ops.bvh import (
 )
 from .scene.model import Scene
 from .utils.config import switch_on
+from .utils.metrics import count, span
 
 __all__ = [
     "ScenePack",
@@ -338,22 +339,27 @@ def pack_scene(sc: Scene, width: int = 0, height: int = 0, device="cuda") -> Sce
         v0, e1, e2, tri_mat_list, tri_smooth_list, tri_vn = blocks
     if t_count and use_dynamic_walk(t_count):
         tri_obj = np.arange(o_count, o_count + t_count, dtype=np.int64)
-        key = hashlib.sha1(str(device).encode())
-        for arr in (v0, e1, e2, tri_mat_list, tri_obj, tri_smooth_list, tri_vn):
-            key.update(np.ascontiguousarray(arr).tobytes())
-        key = key.hexdigest()
+        with span("pack.digest"):
+            key = hashlib.sha1(str(device).encode())
+            for arr in (v0, e1, e2, tri_mat_list, tri_obj, tri_smooth_list, tri_vn):
+                key.update(np.ascontiguousarray(arr).tobytes())
+            key = key.hexdigest()
         cached = _BVH_BUILD_CACHE.pop(key, None)
         if cached is None:
-            paged, tiles_np, _page_bbox = build_paged_bvh(
-                v0, e1, e2, tri_mat_list, tri_obj, tri_smooth_list, tri_vn
-            )
-            cached = (
-                paged,
-                torch.from_numpy(tiles_np).to(device),
-                torch.from_numpy(page_boxes_table(paged)).to(device),
-            )
+            count("bvh_cache_misses")
+            with span("pack.bvh_build"):
+                paged, tiles_np, _page_bbox = build_paged_bvh(
+                    v0, e1, e2, tri_mat_list, tri_obj, tri_smooth_list, tri_vn
+                )
+                cached = (
+                    paged,
+                    torch.from_numpy(tiles_np).to(device),
+                    torch.from_numpy(page_boxes_table(paged)).to(device),
+                )
             if len(_BVH_BUILD_CACHE) >= 4:  # scenes are few
                 _BVH_BUILD_CACHE.pop(next(iter(_BVH_BUILD_CACHE)))
+        else:
+            count("bvh_cache_hits")
         _BVH_BUILD_CACHE[key] = cached  # newest last
         paged = cached[0]
         paged_tables = dict(page_tiles=cached[1], page_boxes=cached[2])
@@ -398,7 +404,8 @@ def pack_scene(sc: Scene, width: int = 0, height: int = 0, device="cuda") -> Sce
         paged=paged,
         lens_disk=(getattr(sc.camera, "lens", "ball") == "disk"),
     )
-    return pack_from_numpy(arrays, static, device=device)
+    with span("pack.upload"):
+        return pack_from_numpy(arrays, static, device=device)
 
 
 def pack_from_numpy(arrays: dict, static: dict, device="cuda") -> ScenePack:

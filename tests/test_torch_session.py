@@ -485,12 +485,6 @@ def test_nonfinite_count():
     assert r.stats.nonfinite == 0
 
 
-def test_profile_trace_writes_a_trace(tmp_path):
-    with tmetrics.profile_trace(str(tmp_path / "prof")):
-        torch.ones(64).cumsum(0)
-    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
-
-
 # ---------------------------------------------------------------------------
 # the facade functions and the CLI
 # ---------------------------------------------------------------------------
