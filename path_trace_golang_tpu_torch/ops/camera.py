@@ -25,9 +25,11 @@ def camera_basis(cam_block: torch.Tensor, width: int, height: int) -> torch.Tens
     reads this layout (csrc/render_pass.cu, BASIS_LEN)."""
     c = cam_block
     # both operands as tensors: a CUDA tensor divided by a Python scalar is
-    # computed as a product with its reciprocal, which can differ by an ulp
-    wh = torch.tensor(float(width), dtype=torch.float32, device=c.device) / torch.tensor(
-        float(height), dtype=torch.float32, device=c.device
+    # computed as a product with its reciprocal, which can differ by an ulp;
+    # made by a fill on the device, not copied from the host (a copy from
+    # pageable memory synchronises the stream)
+    wh = torch.full((), float(width), dtype=torch.float32, device=c.device) / torch.full(
+        (), float(height), dtype=torch.float32, device=c.device
     )
     aspect = torch.where(c[15] != 0, c[15], wh)
     theta = c[12] * (3.14159265359 / 180.0)

@@ -58,7 +58,9 @@ launches of the walk alone; ``PLAIN_CALLS``, ``FOG_PLAIN_CALLS``,
 ``TRACE_PLAIN_CALLS`` and ``WALK_PLAIN_CALLS`` count calls of the plain
 versions.  A library's first load in a render is its span ``kernels.load``,
 the build inside it ``kernels.build``, which the render's ``kernel_builds``
-counts.
+counts.  The camera basis and the scene arguments of a frame size are made
+once a pack, which the render's ``camera_basis_builds`` counts: a window's
+host work is its launches and their output buffers.
 """
 
 from __future__ import annotations
@@ -633,6 +635,19 @@ def _scene_args(pack: ScenePack, basis):
     ]
 
 
+def _camera_scene_args(pack: ScenePack, width: int, height: int):
+    """The scene arguments with the camera basis of a frame size, made once
+    a pack and frame size (each build counted in ``camera_basis_builds``):
+    every window of a render, its fog kernel, B1 and the classic instance,
+    launches with the same basis."""
+    key = ("_camera_args", width, height)
+    if key not in pack._host:
+        basis = camera_basis(pack.cam, width, height).contiguous()
+        pack._host[key] = (basis, _scene_args(pack, basis))
+        count("camera_basis_builds")
+    return pack._host[key][1]
+
+
 def _flags(pack: ScenePack, tcfg, has_aperture=False, normalize_pass=False) -> int:
     return (
         (FLAG_APERTURE if has_aperture else 0)
@@ -698,10 +713,10 @@ def _launch_fog(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height
     terms = torch.empty((n_passes, 3, n), dtype=torch.float32, device=dev)
     if counters is None:
         counters = torch.zeros(N_COUNTERS, dtype=torch.int64, device=dev)
-    basis = camera_basis(pack.cam, width, height).contiguous()
+    scene = _camera_scene_args(pack, width, height)
     lib = _lib(counting, "render_pass", prof_bits(tcfg))
     err = lib.pt_fog_pass(
-        *_scene_args(pack, basis), px.data_ptr(), py.data_ptr(), n, int(frame_seed) & MASK32, width, height,
+        *scene, px.data_ptr(), py.data_ptr(), n, int(frame_seed) & MASK32, width, height,
         samples, n_passes, flags, terms.data_ptr(), counters.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     raise_on(err, lib, "fog_pass")
@@ -730,8 +745,7 @@ def _launch(counting: bool, pack, frame_seed, px, py, *, tcfg, width, height, n_
     n = px.numel()
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
     counters = torch.zeros(N_COUNTERS, dtype=torch.int64, device=dev)  # segments; the counting build's tallies
-    basis = camera_basis(pack.cam, width, height).contiguous()
-    scene = _scene_args(pack, basis)
+    scene = _camera_scene_args(pack, width, height)
     flags = _flags(pack, tcfg, has_aperture, normalize_pass)
     stream = torch.cuda.current_stream(dev).cuda_stream
     seed = int(frame_seed) & MASK32
@@ -823,15 +837,6 @@ def classic_count_split(accum, pack: ScenePack, frame_seed: int, px, py, **kw) -
     return out
 
 
-def _classic_scene_args(pack: ScenePack, width: int, height: int):
-    """The scene arguments with the camera basis of a frame size, made once a pack."""
-    key = ("_classic_args", width, height)
-    if key not in pack._host:
-        basis = camera_basis(pack.cam, width, height).contiguous()
-        pack._host[key] = (basis, _scene_args(pack, basis))
-    return pack._host[key][1]
-
-
 def _launch_classic(counting: bool, accum, pack, frame_seed, px, py, *, chunk, n_passes=1, tcfg, width, height,
                     n_strata, samples, has_aperture, normalize_pass):
     """Returns (the counters of the window or bounce launches: one tensor, or
@@ -849,7 +854,7 @@ def _launch_classic(counting: bool, accum, pack, frame_seed, px, py, *, chunk, n
         raise ValueError("classic_render_cuda: chunk and n_passes must be positive")
     px = px.to(torch.int32).contiguous()
     py = py.to(torch.int32).contiguous()
-    scene = _classic_scene_args(pack, width, height)
+    scene = _camera_scene_args(pack, width, height)
     flags = _flags(pack, tcfg, has_aperture, normalize_pass)
     stream = torch.cuda.current_stream(dev).cuda_stream
     seed = int(frame_seed) & MASK32

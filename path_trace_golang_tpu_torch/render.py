@@ -451,15 +451,15 @@ class Renderer:
 
         kw = dict(tcfg=tcfg, width=w, height=h, n_strata=n_strata, samples=samples, has_aperture=has_aperture,
                   normalize_pass=self.normalize_pass)
-        # on the card a window's lanes go to the kernels whole: the regeneration
-        # instance's in one launch (its blocks take lanes as they go), the
-        # classic instance's lanes, made once a render, with their chunks; the
+        # on the card a window's lanes, made once a render, go to the kernels
+        # whole: the regeneration instance's in one launch (its blocks take
+        # lanes as they go), the classic instance's with their chunks; the
         # lanes, and so the image and the segments, are the same as chunk by chunk
         card = dev.type == "cuda"
-        if card and not regen:
+        if card:
             idx = torch.arange(n_pad, dtype=torch.int32, device=dev)
             cpx, cpy = idx % w, torch.div(idx, w, rounding_mode="floor")
-        launch = n_pad if card and regen else chunk
+            del idx
         nonfinite = 0
         p = start_pass
         while p < passes:
@@ -471,14 +471,19 @@ class Renderer:
                 if card and not regen:
                     total_segs = total_segs + cuda_trace.classic_render(
                         accum, pack, frame_seed, cpx, cpy, chunk=chunk, n_passes=nw, **kw)
+                elif card:
+                    col, segs = cuda_trace.render_pass(pack, frame_seed, cpx, cpy, n_passes=nw, **kw)
+                    accum += col.to_rows()
+                    total_segs = total_segs + segs
+                    del col  # its buffer is not held through the interval's reads and the progress frame
                 else:
-                    # the regeneration loop takes a window in one call a chunk, the classic loop a pass
+                    # on the CPU the regeneration loop takes a window in one call a chunk, the classic loop a pass
                     for q in range(1 if regen else nw):
-                        for start in range(0, n_pad, launch):
-                            idx = torch.arange(start, start + launch, dtype=torch.int32, device=dev)
+                        for start in range(0, n_pad, chunk):
+                            idx = torch.arange(start, start + chunk, dtype=torch.int32, device=dev)
                             col, segs = trace_pass_lanes(
                                 pack, (frame_seed + q) & MASK32, idx, n_passes=nw if regen else 1, **kw)
-                            accum[start:start + launch] += col
+                            accum[start:start + chunk] += col
                             total_segs = total_segs + segs
                 phase_sync()
             p += nw
@@ -503,6 +508,7 @@ class Renderer:
             if cancel is not None and cancel():
                 break
 
+        cpx = cpy = None  # the finish's image does not hold the lanes' memory
         with span("render.finish"):
             img = image(p, denoise=True)
             segs_total = to_host(total_segs)

@@ -234,6 +234,38 @@ def test_kernel_matches_plain_on_card(name, n_passes):
     assert img.shape == (h, w, 3)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["demo_showcase", "bench_mesh"])
+def test_a_window_after_the_first_does_not_synchronise_on_card(name):
+    """After one call of render_pass_cuda on a pack, the next (a window of
+    the same render) launches without synchronising the card: its camera
+    basis and scene arguments are the pack's.  Its colours and segments are
+    those of a call on a fresh pack of the same scene, bit for bit.  The
+    showcase marches its fog in the fog kernel; bench_mesh walks pages."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
+    w, h = 64, 36
+    sc = getattr(TB, name)()
+    pack = tpt.pack_scene(sc, w, h, device="cuda")
+    assert (pack.paged is not None) == (name == "bench_mesh")
+    tcfg = TI.trace_config_for_scene(pack, sc, 6, "gpu")
+    assert tcfg.enable_fog_march == (name == "demo_showcase")
+    idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
+    px, py = idx % w, idx // w
+    kw = dict(tcfg=tcfg, width=w, height=h, n_strata=4, samples=16,
+              has_aperture=sc.camera.aperture > 0, normalize_pass=False, n_passes=2)
+    cuda_trace.render_pass_cuda(pack, 4, px, py, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        col, segs = cuda_trace.render_pass_cuda(pack, 5, px, py, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want, want_segs = cuda_trace.render_pass_cuda(tpt.pack_scene(sc, w, h, device="cuda"), 5, px, py, **kw)
+    assert torch.equal(col.to_rows().view(torch.int32), want.to_rows().view(torch.int32))
+    assert int(segs) == int(want_segs) > 0
+
+
 def _accum_of(monkeypatch, renderer, sc, cfg):
     """Render and return (the accumulator as the gpu contract's finish
     receives it, the statistics)."""

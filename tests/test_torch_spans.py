@@ -189,6 +189,30 @@ def test_bvh_cache_counts_a_mesh_rendered_twice(monkeypatch):
     assert names == [["pack.digest", "pack.bvh_build", "pack.upload"], ["pack.digest", "pack.upload"]]
 
 
+def test_camera_basis_is_made_once_a_pack_and_frame_size():
+    """The kernels' scene arguments, the camera basis among them, are made
+    once a pack and frame size: a second call gives them again with no
+    build, another frame size makes an entry of its own, and the kept basis
+    is camera_basis's to the bit."""
+    from path_trace_golang_tpu_torch.ops import cuda_trace
+    from path_trace_golang_tpu_torch.ops.camera import camera_basis
+
+    pack = tsoa.pack_scene(TB.demo_showcase(), 32, 18, device="cpu")
+    with metrics.request("render") as rq:
+        first = cuda_trace._camera_scene_args(pack, 32, 18)
+        again = cuda_trace._camera_scene_args(pack, 32, 18)
+    assert again is first and rq.counters() == {"camera_basis_builds": 1}
+    with metrics.request("render") as rq:
+        other = cuda_trace._camera_scene_args(pack, 16, 16)
+        assert cuda_trace._camera_scene_args(pack, 32, 18) is first
+    assert rq.counters() == {"camera_basis_builds": 1} and other != first
+    for w, h in ((32, 18), (16, 16)):
+        basis = camera_basis(pack.cam, w, h)
+        kept = pack._host[("_camera_args", w, h)][0]
+        assert torch.equal(kept.view(torch.int32), basis.view(torch.int32))
+        assert cuda_trace._camera_scene_args(pack, w, h)[13] == kept.data_ptr()  # the basis argument
+
+
 # --------------------------------------------------------------------------- the phase table
 
 
